@@ -1,0 +1,98 @@
+"""Carries parameters from the JAX package into the port.
+
+Both functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
+on the JAX side) and read them by attribute or key name only, so the port
+imports nothing of JAX or of ``pyflyt_tpu``.
+
+Layouts differ in one place: a flax ``Dense.kernel`` is ``(in, out)`` and a
+``torch.nn.Linear.weight`` is ``(out, in)``, so weights are transposed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pyflyt_tpu_torch.device import resolve_device
+from pyflyt_tpu_torch.models import quadx
+from pyflyt_tpu_torch.ops import motors, pid
+from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+
+def quadx_params_from_jax(tree, device: str | torch.device = "cuda") -> quadx.QuadXParams:
+    """The port's ``QuadXParams`` from the leaves of a JAX ``QuadXParams``."""
+    dev = resolve_device(device)
+    t = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+
+    def bank(b):
+        return pid.PIDParams(kp=t(b.kp), ki=t(b.ki), kd=t(b.kd), lim=t(b.lim), period=float(b.period))
+
+    m = tree.motor
+    return quadx.QuadXParams(
+        mass=t(tree.mass),
+        inertia=t(tree.inertia),
+        collision_half_extents=t(tree.collision_half_extents),
+        motor=motors.MotorParams(
+            positions=t(m.positions), thrust_unit=t(m.thrust_unit),
+            thrust_coef=t(m.thrust_coef), torque_coef=t(m.torque_coef),
+            tau=t(m.tau), max_rpm=t(m.max_rpm), noise_ratio=t(m.noise_ratio),
+        ),
+        motor_map=t(tree.motor_map),
+        drag_const_xyz=t(tree.drag_const_xyz),
+        drag_coef_pqr=t(tree.drag_coef_pqr),
+        pid_ang_vel=bank(tree.pid_ang_vel),
+        pid_ang_pos=bank(tree.pid_ang_pos),
+        pid_lin_vel=bank(tree.pid_lin_vel),
+        pid_lin_pos=bank(tree.pid_lin_pos),
+        pid_z_pos=bank(tree.pid_z_pos),
+        pid_z_vel=bank(tree.pid_z_vel),
+    )
+
+
+def _dense_layers(trunk: dict) -> list[dict]:
+    layers = []
+    while f"Dense_{len(layers)}" in trunk:
+        layers.append(trunk[f"Dense_{len(layers)}"])
+    return layers
+
+
+def actor_critic_from_flax(
+    params,
+    log_std_range: tuple[float, float] | None = None,
+    device: str | torch.device = "cuda",
+) -> ActorCritic:
+    """The port's ``ActorCritic`` from a flax ``ActorCritic`` param dict
+    (``{"params": {"pi_trunk": {"Dense_0": {"kernel", "bias"}, ...},
+    "pi_head", "log_std", "vf_trunk", "vf_head"}}``). Widths are read from
+    the kernels; ``log_std_range`` is not part of the params and is passed
+    as in the flax module."""
+    p = params["params"]
+    pi_layers = _dense_layers(p["pi_trunk"])
+    vf_layers = _dense_layers(p["vf_trunk"])
+    obs_dim = np.asarray(pi_layers[0]["kernel"]).shape[0]
+    act_dim = np.asarray(p["pi_head"]["kernel"]).shape[1]
+    pi_w = [np.asarray(d["kernel"]).shape[1] for d in pi_layers]
+    vf_w = [np.asarray(d["kernel"]).shape[1] for d in vf_layers]
+    # shared feature sizes are the common prefix; the rest are head layers
+    n_common = 0
+    while n_common < min(len(pi_w), len(vf_w)) and pi_w[n_common] == vf_w[n_common]:
+        n_common += 1
+    net = ActorCritic(
+        obs_dim, act_dim, feature_sizes=pi_w[:n_common], pi_sizes=pi_w[n_common:],
+        vf_sizes=vf_w[n_common:], log_std_range=log_std_range, device="cpu",
+    )
+
+    def load(lin: torch.nn.Linear, dense: dict) -> None:
+        kernel = np.asarray(dense["kernel"], dtype=np.float32)
+        lin.weight.copy_(torch.tensor(kernel.T))  # (in, out) -> (out, in)
+        lin.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
+
+    with torch.no_grad():
+        for lin, dense in zip(net.pi_trunk.layers, pi_layers):
+            load(lin, dense)
+        load(net.pi_head, p["pi_head"])
+        net.log_std.copy_(torch.tensor(np.asarray(p["log_std"], dtype=np.float32)))
+        for lin, dense in zip(net.vf_trunk.layers, vf_layers):
+            load(lin, dense)
+        load(net.vf_head, p["vf_head"])
+    return net.to(resolve_device(device))

@@ -1,0 +1,112 @@
+"""Batched environment protocol and auto-reset helpers (port of
+``pyflyt_tpu/envs/base.py``).
+
+Envs here are batched by construction: ``reset(num_envs, generator)``
+builds the whole batch and ``step(state, action)`` steps it, where the JAX
+package ``vmap``s a single-instance env. A batch's random stream is one
+``torch.Generator`` carried in its state, where the JAX package carries a
+PRNG key per instance.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Protocol
+
+import torch
+from torch import Tensor
+
+from pyflyt_tpu_torch.core.state import tree_map
+
+
+@dataclasses.dataclass
+class StepOut:
+    """Transition outputs, batched like the state."""
+
+    obs: Any
+    reward: Tensor
+    termination: Tensor
+    truncation: Tensor
+    info: dict[str, Tensor]
+
+
+class BatchedEnv(Protocol):
+    def reset(
+        self, num_envs: int, generator: torch.Generator | None
+    ) -> tuple[Any, Tensor]: ...
+
+    def step(self, state: Any, action: Tensor) -> tuple[Any, StepOut]: ...
+
+
+def tree_select(mask: Tensor, on_true: Any, on_false: Any) -> Any:
+    """Batched ``where`` over matching dataclasses (``mask`` has the batch
+    shape and broadcasts over trailing dims). Non-tensor leaves, such as
+    the batch's generator, come from ``on_false``."""
+
+    def pick(f: Tensor, t: Tensor) -> Tensor:
+        m = mask.reshape(mask.shape + (1,) * (f.dim() - mask.dim()))
+        return torch.where(m, t, f)
+
+    return tree_map(pick, on_false, on_true)
+
+
+# ---------------------------------------------------------------------------
+# amortized auto-reset
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class AutoResetState:
+    """Env batch plus a per-env cache of reset states.
+
+    The whole cache is rebuilt once every ``refresh`` steps, and finished
+    envs take their cached entry in between. Each cached reset is drawn
+    independently of the episode's outcome, so the reset distribution is
+    that of the exact path.
+    """
+
+    env_state: Any
+    cache_state: Any
+    cache_obs: Tensor
+    step_idx: int
+    generator: torch.Generator | None  # stream for the cache refreshes
+
+
+def autoreset_init(
+    env: BatchedEnv, num_envs: int, generator: torch.Generator | None
+) -> tuple[AutoResetState, Tensor]:
+    """Resets the batch and fills the reset cache."""
+    state, obs = env.reset(num_envs, generator)
+    cache_state, cache_obs = env.reset(num_envs, generator)
+    return (
+        AutoResetState(
+            env_state=state, cache_state=cache_state, cache_obs=cache_obs,
+            step_idx=0, generator=generator,
+        ),
+        obs,
+    )
+
+
+def cached_autoreset_step(
+    env: BatchedEnv, ars: AutoResetState, action: Tensor, refresh: int = 64
+) -> tuple[AutoResetState, StepOut]:
+    """Batched step with cached auto-reset: finished envs substitute their
+    cached reset; the whole cache regenerates every ``refresh`` steps.
+    ``StepOut`` describes the finished transition, with the next episode's
+    first obs in ``obs`` and the pre-reset obs in
+    ``info["terminal_observation"]``."""
+    state, out = env.step(ars.env_state, action)
+    done = out.termination | out.truncation
+    state = tree_select(done, ars.cache_state, state)
+    obs = torch.where(done[:, None], ars.cache_obs, out.obs)
+
+    cache_state, cache_obs = ars.cache_state, ars.cache_obs
+    if ars.step_idx % refresh == refresh - 1:
+        cache_state, cache_obs = env.reset(done.shape[0], ars.generator)
+    ars = AutoResetState(
+        env_state=state, cache_state=cache_state, cache_obs=cache_obs,
+        step_idx=ars.step_idx + 1, generator=ars.generator,
+    )
+    return ars, dataclasses.replace(
+        out, obs=obs, info={**out.info, "terminal_observation": out.obs}
+    )

@@ -1,6 +1,6 @@
-"""Carries parameters from the JAX package into the port.
+"""Carries parameters and optimizer state from the JAX package into the port.
 
-Both functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
+The functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
 on the JAX side) and read them by attribute or key name only, so the port
 imports nothing of JAX or of ``pyflyt_tpu``.
 
@@ -16,7 +16,9 @@ import torch
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.models import quadx
 from pyflyt_tpu_torch.ops import motors, pid
+from pyflyt_tpu_torch.ops.cuda_sgd import params_to_leaves
 from pyflyt_tpu_torch.rl.networks import ActorCritic
+from pyflyt_tpu_torch.rl.ppo import AdamState
 
 
 def quadx_params_from_jax(tree, device: str | torch.device = "cuda") -> quadx.QuadXParams:
@@ -96,3 +98,79 @@ def actor_critic_from_flax(
             load(lin, dense)
         load(net.vf_head, p["vf_head"])
     return net.to(resolve_device(device))
+
+
+def _flax_leaf_tree(network: ActorCritic) -> dict:
+    """The flax param tree of ``network`` with, at each leaf, its index in
+    the port's leaf order (``cuda_sgd.leaf_specs``) and its flax shape."""
+    leaves = params_to_leaves(network)
+    idx = iter(range(len(leaves)))
+
+    def dense(lin):
+        w, b = next(idx), next(idx)
+        return {"kernel": (w, (lin.in_features, lin.out_features)), "bias": (b, (lin.out_features,))}
+
+    p = {"pi_trunk": {f"Dense_{i}": dense(lin) for i, lin in enumerate(network.pi_trunk.layers)}}
+    p["pi_head"] = dense(network.pi_head)
+    p["log_std"] = (next(idx), (network.action_dim,))
+    p["vf_trunk"] = {f"Dense_{i}": dense(lin) for i, lin in enumerate(network.vf_trunk.layers)}
+    p["vf_head"] = dense(network.vf_head)
+    return {"params": p}
+
+
+def _sorted_leaves(tree):
+    """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k])
+    else:
+        yield tree
+
+
+def _find_adam(state):
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, network: ActorCritic, device: str | torch.device = "cuda") -> AdamState:
+    """The port's ``AdamState`` from the numpy leaves of a JAX ``PPO``'s
+    optimizer state (``jax.tree.map(np.asarray, opt_state)``), in either
+    layout the JAX ``PPO`` builds: moments per param leaf (``fused_sgd``,
+    ``chain(clip_by_global_norm, adam)``) or one flat vector in
+    ``jax.tree.leaves`` order of the flax params (``optax.flatten`` of that
+    chain, the default path). ``network`` gives the widths."""
+    dev = resolve_device(device)
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    spec = list(_sorted_leaves(_flax_leaf_tree(network)))
+    n = len(spec)
+
+    def leaves_of(moment) -> list[torch.Tensor]:
+        out = [None] * n
+        if isinstance(moment, dict):
+            for (i, shape), a in zip(spec, _sorted_leaves(moment)):
+                out[i] = np.asarray(a, dtype=np.float32).reshape(shape)
+        else:
+            flat = np.asarray(moment, dtype=np.float32).reshape(-1)
+            sizes = [int(np.prod(shape)) for _, shape in spec]
+            if flat.size != sum(sizes):
+                raise ValueError(f"flat moment of {flat.size} values for a network of {sum(sizes)}")
+            pos = 0
+            for (i, shape), size in zip(spec, sizes):
+                out[i] = flat[pos : pos + size].reshape(shape)
+                pos += size
+        # flax (n,) biases and log_std are (1, n) leaves in the port
+        return [torch.tensor(a[None, :] if a.ndim == 1 else a, device=dev) for a in out]
+
+    return AdamState(
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=dev),
+        mu=leaves_of(adam.mu),
+        nu=leaves_of(adam.nu),
+    )

@@ -14,6 +14,8 @@ import math
 import torch
 from torch import Tensor
 
+from pyflyt_tpu_torch.device import resolve_device
+
 
 def safe_norm(v: Tensor, dim: int = -1, keepdim: bool = False) -> Tensor:
     """Euclidean norm that is exactly 0 at the origin (NaN-free gradient)."""
@@ -37,9 +39,9 @@ def normalize(v: Tensor, eps: float = 1e-12) -> Tensor:
 def quat_identity(
     batch_shape: tuple[int, ...] = (),
     dtype: torch.dtype = torch.float32,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Tensor:
-    q = torch.zeros((*batch_shape, 4), dtype=dtype, device=device)
+    q = torch.zeros((*batch_shape, 4), dtype=dtype, device=resolve_device(device))
     q[..., 3] = 1.0
     return q
 

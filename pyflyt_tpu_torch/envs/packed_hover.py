@@ -41,6 +41,9 @@ class PackedQuadXHoverEnv:
     configuration and the device."""
 
     base: QuadXHoverEnv = dataclasses.field(default_factory=QuadXHoverEnv)
+    # steps the whole batch itself; PPO then takes the in-scan truncation
+    # bootstrap, as the JAX package does for a natively batched env
+    native_batch = True
 
     def __post_init__(self):
         if self.base.flight_mode not in (0, 8):
@@ -58,6 +61,10 @@ class PackedQuadXHoverEnv:
     @property
     def obs_size(self) -> int:
         return self.base.obs_size
+
+    @property
+    def max_steps(self) -> int:
+        return self.base.max_steps
 
     @property
     def action_size(self) -> int:

@@ -25,6 +25,7 @@ from pyflyt_tpu_torch.core import integrator
 from pyflyt_tpu_torch.core import math as pm
 from pyflyt_tpu_torch.core.params import load_vehicle_json
 from pyflyt_tpu_torch.core.state import Body6DoF
+from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.ops import motors, pid
 
 PORTED_MODES = (0, 8, 9)
@@ -117,8 +118,10 @@ _MOTOR_MAP_ENU = np.array(
 )
 
 
-def build_params(cfg: QuadXConfig, device: str | torch.device = "cpu") -> QuadXParams:
-    """Loads the vehicle file and assembles the parameter dataclass."""
+def build_params(cfg: QuadXConfig, device: str | torch.device = "cuda") -> QuadXParams:
+    """Loads the vehicle file and assembles the parameter dataclass on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     y = load_vehicle_json(cfg.drone_model, cfg.model_dir)
     frame, mp, dp, ctl = (
         y["frame"], y["motor_params"], y["drag_params"], y["control_params"]

@@ -1,6 +1,7 @@
 """Fused actor-critic forward (port of
-``pyflyt_tpu/ops/pallas_policy.py::build_policy_value_forward``, with
-``_leaf_specs`` and ``params_to_leaves`` from ``ops/pallas_sgd.py``).
+``pyflyt_tpu/ops/pallas_policy.py::build_policy_value_forward``). The
+parameter leaves (``leaf_specs``, ``params_to_leaves``) live in
+``ops/cuda_sgd.py``, as in the JAX package, and are imported here.
 
 ``policy_value_forward`` launches the CUDA kernel
 ``csrc/policy_value_forward.cu`` for CUDA tensors and runs
@@ -28,45 +29,10 @@ import torch
 from torch import Tensor
 
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
+from pyflyt_tpu_torch.ops.cuda_sgd import leaf_specs, params_to_leaves  # noqa: F401
 
 HIDDEN = 256
 MAX_OBS_DIM = 32
-
-
-def leaf_specs(net: dict) -> list[tuple[str, tuple[int, int]]]:
-    """Ordered (name, shape) list of the parameter leaves (flax layout):
-    pi trunk, pi_head, log_std, vf trunk, vf_head; biases and log_std as
-    (1, n)."""
-    leaves = []
-    d = net["obs_dim"]
-    for i, h in enumerate(net["pi_sizes"]):
-        leaves.append((f"pi_{i}_w", (d, h)))
-        leaves.append((f"pi_{i}_b", (1, h)))
-        d = h
-    leaves.append(("pi_head_w", (d, net["act_dim"])))
-    leaves.append(("pi_head_b", (1, net["act_dim"])))
-    leaves.append(("log_std", (1, net["act_dim"])))
-    d = net["obs_dim"]
-    for i, h in enumerate(net["vf_sizes"]):
-        leaves.append((f"vf_{i}_w", (d, h)))
-        leaves.append((f"vf_{i}_b", (1, h)))
-        d = h
-    leaves.append(("vf_head_w", (d, 1)))
-    leaves.append(("vf_head_b", (1, 1)))
-    return leaves
-
-
-def params_to_leaves(network) -> list[Tensor]:
-    """``rl.networks.ActorCritic`` → the ordered leaf list of ``leaf_specs``
-    (weights as (in, out), as flax's ``Dense.kernel``)."""
-    out = []
-    for lin in network.pi_trunk.layers:
-        out += [lin.weight.T, lin.bias[None, :]]
-    out += [network.pi_head.weight.T, network.pi_head.bias[None, :], network.log_std[None, :]]
-    for lin in network.vf_trunk.layers:
-        out += [lin.weight.T, lin.bias[None, :]]
-    out += [network.vf_head.weight.T, network.vf_head.bias[None, :]]
-    return out
 
 
 @dataclasses.dataclass

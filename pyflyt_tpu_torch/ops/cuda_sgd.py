@@ -1,0 +1,522 @@
+"""PPO's SGD kernels (port of ``pyflyt_tpu/ops/pallas_sgd.py``).
+
+- ``logp_forward`` (K3): the policy log-prob of the stored actions over the
+  packed PPO rows ``[obs | action | ...]``, with the epoch kernel's own
+  arithmetic. CUDA entry ``logp_forward`` of ``csrc/policy_value_forward.cu``.
+- ``fused_epoch`` (K2): a whole PPO epoch, per minibatch in order: forward,
+  clipped-surrogate + value loss, backward by hand, global-norm clip, Adam,
+  one metrics row. ``csrc/fused_epoch.cu``.
+
+Both compute the Pallas kernels' arithmetic: every matmul takes bf16-rounded
+inputs (round to nearest even) and accumulates in f32; everything
+elementwise, the reductions, the clip and Adam are f32. The f32
+exact-semantics path is ``PPOConfig(fused_sgd=False)`` (autograd on the f32
+``ActorCritic``), as the XLA scan is in the JAX package. Each wrapper
+launches its kernel for CUDA tensors and runs its plain twin
+(``*_plain``) for CPU tensors; the twins' matmuls are the module-level
+``_mm``, ``_mm_tn`` and ``_mm_nt``, which a test may replace with f32
+products. The twins take any widths; the kernels cover two 256-wide tanh
+layers per trunk, obs width <= 32 and at most 8 actions, and raise
+``NotImplementedError`` outside that.
+
+Parameters travel as the ordered leaf list of ``leaf_specs`` (flax layout:
+weights ``(in, out)``, biases and log_std ``(1, n)``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+from torch import Tensor
+
+from pyflyt_tpu_torch.ops.cuda_build import Kernel
+
+HIDDEN = 256
+MAX_OBS_DIM = 32
+MAX_ACT_DIM = 8
+
+# Adam constants (optax.adam defaults; eps as rl/ppo.py)
+B1 = 0.9
+B2 = 0.999
+ADAM_EPS = 1e-5
+LOG2PI = math.log(2.0 * math.pi)
+ENT_C = 0.5 * math.log(2.0 * math.pi * math.e)
+
+METRICS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl")
+
+# rows of kernel A and the parts of csrc/fused_epoch.cu the wrapper sizes
+_TILE_M = 64
+_NPART = 3 + MAX_ACT_DIM
+_SLABS = 4
+_THREADS = 256
+KERNELS_PER_MINIBATCH = 4  # CUDA kernels fused_epoch enqueues per minibatch
+
+
+# ---------------------------------------------------------------------------
+# parameter leaves
+# ---------------------------------------------------------------------------
+
+
+def leaf_specs(net: dict) -> list[tuple[str, tuple[int, int]]]:
+    """Ordered (name, shape) list of the parameter leaves (flax layout):
+    pi trunk, pi_head, log_std, vf trunk, vf_head; biases and log_std as
+    (1, n)."""
+    leaves = []
+    d = net["obs_dim"]
+    for i, h in enumerate(net["pi_sizes"]):
+        leaves.append((f"pi_{i}_w", (d, h)))
+        leaves.append((f"pi_{i}_b", (1, h)))
+        d = h
+    leaves.append(("pi_head_w", (d, net["act_dim"])))
+    leaves.append(("pi_head_b", (1, net["act_dim"])))
+    leaves.append(("log_std", (1, net["act_dim"])))
+    d = net["obs_dim"]
+    for i, h in enumerate(net["vf_sizes"]):
+        leaves.append((f"vf_{i}_w", (d, h)))
+        leaves.append((f"vf_{i}_b", (1, h)))
+        d = h
+    leaves.append(("vf_head_w", (d, 1)))
+    leaves.append(("vf_head_b", (1, 1)))
+    return leaves
+
+
+def params_to_leaves(network) -> list[Tensor]:
+    """``rl.networks.ActorCritic`` → the ordered leaf list of ``leaf_specs``
+    (weights as (in, out), as flax's ``Dense.kernel``). The leaves are views
+    of the parameters."""
+    out = []
+    for lin in network.pi_trunk.layers:
+        out += [lin.weight.T, lin.bias[None, :]]
+    out += [network.pi_head.weight.T, network.pi_head.bias[None, :], network.log_std[None, :]]
+    for lin in network.vf_trunk.layers:
+        out += [lin.weight.T, lin.bias[None, :]]
+    out += [network.vf_head.weight.T, network.vf_head.bias[None, :]]
+    return out
+
+
+def leaves_to_params(leaves: list[Tensor], network) -> None:
+    """Writes an ordered leaf list into ``network``'s parameters, in place."""
+    dst = params_to_leaves(network)
+    if len(dst) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a network of {len(dst)}")
+    with torch.no_grad():
+        for d, s in zip(dst, leaves):
+            d.copy_(s)
+
+
+# ---------------------------------------------------------------------------
+# the twins' matmuls: bf16-rounded inputs, f32 accumulation
+# ---------------------------------------------------------------------------
+
+
+def _bf(x: Tensor) -> Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _mm(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b with bf16 inputs, f32 accumulation."""
+    return _bf(a) @ _bf(b)
+
+
+def _mm_tn(a: Tensor, b: Tensor) -> Tensor:
+    """a.T @ b with bf16 inputs, f32 accumulation (weight-gradient shape)."""
+    return _bf(a).T @ _bf(b)
+
+
+def _mm_nt(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b.T with bf16 inputs, f32 accumulation (data-gradient shape)."""
+    return _bf(a) @ _bf(b).T
+
+
+def _clip(x: Tensor, rng) -> Tensor:
+    return x if rng is None else torch.clamp(x, rng[0], rng[1])
+
+
+# ---------------------------------------------------------------------------
+# K3: log-prob of the stored actions
+# ---------------------------------------------------------------------------
+
+
+def logp_forward_plain(
+    packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None
+) -> Tensor:
+    """The kernel's arithmetic in plain PyTorch: ``(rows,)`` f32 log-probs of
+    ``packed[:, obs_dim:obs_dim + act_dim]`` under the policy ``pi_leaves``
+    (trunk w/b pairs, head w/b, log_std)."""
+    n_pi = (len(pi_leaves) - 3) // 2
+    act_dim = pi_leaves[-1].shape[-1]
+    x = packed[:, :obs_dim]
+    action = packed[:, obs_dim : obs_dim + act_dim]
+    a = x
+    for i in range(n_pi):
+        a = torch.tanh(_mm(a, pi_leaves[2 * i]) + pi_leaves[2 * i + 1])
+    mean = _mm(a, pi_leaves[2 * n_pi]) + pi_leaves[2 * n_pi + 1]
+    log_std = _clip(pi_leaves[2 * n_pi + 2], log_std_range)
+    var = torch.exp(2.0 * log_std)
+    diff = action - mean
+    lp = -0.5 * (diff * diff / var + 2.0 * log_std + LOG2PI)
+    return torch.sum(lp, dim=-1)
+
+
+class _LogpArgsC(ctypes.Structure):
+    """Mirror of ``struct LogpArgs`` in csrc/policy_value_forward.cu."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("rows", "w0", "b0", "w1", "b1", "hw", "hb", "log_std", "out")
+    ] + [
+        ("n", ctypes.c_int), ("feat", ctypes.c_int), ("obs_dim", ctypes.c_int),
+        ("act_dim", ctypes.c_int), ("has_range", ctypes.c_int),
+        ("ls_lo", ctypes.c_float), ("ls_hi", ctypes.c_float),
+    ]
+
+
+LOGP_KERNEL = Kernel("policy_value_forward.cu", "logp_forward", [ctypes.c_void_p, ctypes.c_void_p])
+
+
+def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> None:
+    trunks = [("pi", tuple(pi_sizes))] + ([("vf", tuple(vf_sizes))] if vf_sizes is not None else [])
+    for name, sizes in trunks:
+        if sizes != (HIDDEN, HIDDEN):
+            raise NotImplementedError(
+                f"the CUDA SGD kernels cover two {HIDDEN}-wide layers per trunk, got {name} {sizes}"
+            )
+    if not 0 < obs_dim <= MAX_OBS_DIM:
+        raise NotImplementedError(f"obs width {obs_dim} outside 1..{MAX_OBS_DIM}")
+    if not 0 < act_dim <= MAX_ACT_DIM:
+        raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM}")
+
+
+def _range_args(log_std_range) -> tuple[int, float, float]:
+    if log_std_range is None:
+        return 0, 0.0, 0.0
+    return 1, float(log_std_range[0]), float(log_std_range[1])
+
+
+def logp_forward(
+    packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None
+) -> Tensor:
+    """Log-probs ``(rows,)`` of the stored actions in ``packed`` (rows,
+    feat) f32 under ``pi_leaves``: the kernel for a CUDA tensor, the twin
+    for a CPU one."""
+    if packed.dtype != torch.float32 or packed.dim() != 2:
+        raise ValueError(f"packed must be (rows, feat) float32, got {tuple(packed.shape)} {packed.dtype}")
+    act_dim = pi_leaves[-1].shape[-1]
+    if obs_dim + act_dim > packed.shape[1] or pi_leaves[0].shape[0] != obs_dim:
+        raise ValueError(f"packed width {packed.shape[1]} does not hold obs {obs_dim} + actions {act_dim}")
+    if packed.device.type == "cpu":
+        return logp_forward_plain(packed, pi_leaves, obs_dim, log_std_range)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    n_pi = (len(pi_leaves) - 3) // 2
+    _check_envelope(obs_dim, act_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)])
+    if any(t.device != packed.device for t in pi_leaves):
+        raise ValueError("leaves and rows must be on one device")
+    packed = packed.contiguous()
+    n = packed.shape[0]
+    w = lambda t: t.detach().to(torch.bfloat16).contiguous()  # noqa: E731
+    f = lambda t: t.detach().to(torch.float32).reshape(-1).contiguous()  # noqa: E731
+    keep = [w(pi_leaves[0]), f(pi_leaves[1]), w(pi_leaves[2]), f(pi_leaves[3]),
+            w(pi_leaves[4]), f(pi_leaves[5]), f(pi_leaves[6])]
+    out = torch.empty((n,), dtype=torch.float32, device=packed.device)
+    if n == 0:
+        return out
+    has_range, lo, hi = _range_args(log_std_range)
+    args = _LogpArgsC(
+        packed.data_ptr(), *[t.data_ptr() for t in keep], out.data_ptr(),
+        n, packed.shape[1], obs_dim, act_dim, has_range, lo, hi,
+    )
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = LOGP_KERNEL.fn()(ctypes.addressof(args), stream)
+    LOGP_KERNEL.check(rc)
+    LOGP_KERNEL.launches += 1
+    return out
+
+
+def logp_flops(n: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN) -> int:
+    """Matmul operations K3 needs for ``n`` rows (2 per multiply-add,
+    unpadded widths): the actor trunk and its head."""
+    return 2 * n * (obs_dim * hidden + hidden * hidden + hidden * act_dim)
+
+
+# ---------------------------------------------------------------------------
+# K2: a whole PPO epoch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochConfig:
+    """What ``build_fused_epoch`` bakes in, besides the shapes of ``mbs``."""
+
+    obs_dim: int
+    act_dim: int
+    pi_sizes: tuple
+    vf_sizes: tuple
+    learning_rate: float
+    clip_eps: float
+    entropy_coef: float
+    value_coef: float
+    max_grad_norm: float
+    log_std_range: tuple | None = None
+
+
+def fused_epoch_plain(
+    mbs: Tensor,
+    adv_stats: Tensor,
+    t0: Tensor,
+    leaves: list[Tensor],
+    mu: list[Tensor],
+    nu: list[Tensor],
+    cfg: EpochConfig,
+) -> tuple[list[Tensor], list[Tensor], list[Tensor], Tensor]:
+    """The kernel's arithmetic in plain PyTorch (``pallas_sgd.py:357-512``
+    over whole minibatches). Returns ``(leaves, mu, nu, metrics (n_mb, 5))``;
+    the inputs are not modified."""
+    n_mb, mb_size, _ = mbs.shape
+    o, a_dim = cfg.obs_dim, cfg.act_dim
+    n_pi, n_vf = len(cfg.pi_sizes), len(cfg.vf_sizes)
+    i_pi_head = 2 * n_pi
+    i_log_std = i_pi_head + 2
+    i_vf0 = i_log_std + 1
+    i_vf_head = i_vf0 + 2 * n_vf
+    inv_mb = 1.0 / float(mb_size)
+    lo_c, hi_c = 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps
+    rng = cfg.log_std_range
+    L = [t.detach().to(torch.float32).clone() for t in leaves]
+    M = [t.detach().to(torch.float32).clone() for t in mu]
+    V = [t.detach().to(torch.float32).clone() for t in nu]
+    rows_metrics = []
+    t_base = t0.reshape(-1)[0].to(torch.float32)
+    for m in range(n_mb):
+        rows = mbs[m]
+        x = rows[:, :o]
+        action = rows[:, o : o + a_dim]
+        c0 = o + a_dim
+        old_logp = rows[:, c0 : c0 + 1]
+        adv = rows[:, c0 + 1 : c0 + 2]
+        ret = rows[:, c0 + 2 : c0 + 3]
+
+        a_pi = [x]
+        for i in range(n_pi):
+            a_pi.append(torch.tanh(_mm(a_pi[-1], L[2 * i]) + L[2 * i + 1]))
+        mean = _mm(a_pi[-1], L[i_pi_head]) + L[i_pi_head + 1]
+        log_std = _clip(L[i_log_std], rng)
+        a_vf = [x]
+        for i in range(n_vf):
+            a_vf.append(torch.tanh(_mm(a_vf[-1], L[i_vf0 + 2 * i]) + L[i_vf0 + 2 * i + 1]))
+        value = _mm(a_vf[-1], L[i_vf_head]) + L[i_vf_head + 1]
+
+        var = torch.exp(2.0 * log_std)
+        diff = action - mean
+        lp = -0.5 * (diff * diff / var + 2.0 * log_std + LOG2PI)
+        logp = torch.sum(lp, dim=-1, keepdim=True)
+        ratio = torch.exp(logp - old_logp)
+        adv_n = (adv - adv_stats[m, 0]) / (adv_stats[m, 1] + 1e-8)
+        clipped = torch.clamp(ratio, lo_c, hi_c)
+        pg1 = ratio * adv_n
+        pg2 = clipped * adv_n
+        pg_min = torch.minimum(pg1, pg2)
+        verr = value - ret
+        s_pg, s_v, s_kl = torch.sum(pg_min), torch.sum(verr * verr), torch.sum(old_logp - logp)
+
+        # backward: inside the clip band pg1 == pg2 and lax.min splits the
+        # cotangent 50/50; outside, the smaller branch takes it all
+        inband = ((ratio >= lo_c) & (ratio <= hi_c)).to(torch.float32)
+        d1 = adv_n
+        d2 = adv_n * inband
+        dmin_dr = torch.where(pg1 == pg2, 0.5 * (d1 + d2), torch.where(pg1 < pg2, d1, d2))
+        g_logp = (-inv_mb) * dmin_dr * ratio
+        dmean = g_logp * (diff / var)
+        g_logstd = torch.sum(g_logp * (diff * diff / var - 1.0), dim=0, keepdim=True) - cfg.entropy_coef
+        if rng is not None:
+            ls_p = L[i_log_std]
+            g_logstd = g_logstd * ((ls_p > rng[0]) & (ls_p < rng[1])).to(torch.float32)
+        dvalue = (cfg.value_coef * inv_mb) * verr
+
+        g = [None] * len(L)
+        g[i_pi_head] = _mm_tn(a_pi[-1], dmean)
+        g[i_pi_head + 1] = torch.sum(dmean, dim=0, keepdim=True)
+        g[i_log_std] = g_logstd
+        da = _mm_nt(dmean, L[i_pi_head])
+        for i in range(n_pi - 1, -1, -1):
+            a_i = a_pi[i + 1]
+            dz = da * (1.0 - a_i * a_i)
+            g[2 * i] = _mm_tn(a_pi[i], dz)
+            g[2 * i + 1] = torch.sum(dz, dim=0, keepdim=True)
+            if i > 0:
+                da = _mm_nt(dz, L[2 * i])
+        g[i_vf_head] = _mm_tn(a_vf[-1], dvalue)
+        g[i_vf_head + 1] = torch.sum(dvalue, dim=0, keepdim=True)
+        da = _mm_nt(dvalue, L[i_vf_head])
+        for i in range(n_vf - 1, -1, -1):
+            a_i = a_vf[i + 1]
+            dz = da * (1.0 - a_i * a_i)
+            g[i_vf0 + 2 * i] = _mm_tn(a_vf[i], dz)
+            g[i_vf0 + 2 * i + 1] = torch.sum(dz, dim=0, keepdim=True)
+            if i > 0:
+                da = _mm_nt(dz, L[i_vf0 + 2 * i])
+
+        # global-norm clip + Adam, bias correction 1 - exp(t ln b)
+        gnorm = torch.sqrt(sum(torch.sum(gi * gi) for gi in g))
+        scale = torch.where(gnorm < cfg.max_grad_norm, torch.ones_like(gnorm), cfg.max_grad_norm / gnorm)
+        t = t_base + float(m + 1)
+        c1 = 1.0 - torch.exp(t * math.log(B1))
+        c2 = 1.0 - torch.exp(t * math.log(B2))
+        for i in range(len(L)):
+            gi = g[i] * scale
+            M[i] = B1 * M[i] + (1.0 - B1) * gi
+            V[i] = B2 * V[i] + (1.0 - B2) * (gi * gi)
+            upd = (M[i] / c1) / (torch.sqrt(V[i] / c2) + ADAM_EPS)
+            L[i] = L[i] - cfg.learning_rate * upd
+
+        pg_loss = -s_pg * inv_mb
+        v_loss = 0.5 * s_v * inv_mb
+        kl = s_kl * inv_mb
+        ent_m = torch.sum(log_std + ENT_C)  # the pre-update (clipped) log_std
+        total = pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * ent_m
+        rows_metrics.append(torch.stack([total, pg_loss, v_loss, ent_m, kl]))
+    return L, M, V, torch.stack(rows_metrics)
+
+
+def flat_layout(shapes: list[tuple[int, ...]]) -> tuple[list[int], int]:
+    """Offsets of the leaves in the kernel's flat vectors (each at a
+    multiple of 4 floats, so the kernel reads weight rows as float4) and
+    the vector's length."""
+    offsets, p = [], 0
+    for s in shapes:
+        offsets.append(p)
+        p += -(-math.prod(s) // 4) * 4
+    return offsets, p
+
+
+def _to_flat(leaves: list[Tensor], offsets: list[int], P: int) -> Tensor:
+    """A fresh flat f32 vector holding ``leaves`` at ``offsets``; a copy of
+    the vector the leaves already view when they came from ``_from_flat``."""
+    base = leaves[0]._base
+    if (
+        base is not None and base.dim() == 1 and base.numel() == P and base.dtype == torch.float32
+        and all(t._base is base and t.storage_offset() - base.storage_offset() == off
+                and t.is_contiguous() for t, off in zip(leaves, offsets))
+    ):
+        return base.clone()
+    flat = torch.zeros(P, dtype=torch.float32, device=leaves[0].device)
+    for t, off in zip(leaves, offsets):
+        flat[off : off + t.numel()] = t.detach().reshape(-1)
+    return flat
+
+
+def _from_flat(flat: Tensor, shapes, offsets) -> list[Tensor]:
+    return [flat[off : off + math.prod(s)].view(s) for s, off in zip(shapes, offsets)]
+
+
+class _EpochArgsC(ctypes.Structure):
+    """Mirror of ``struct EpochArgs`` in csrc/fused_epoch.cu."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics", "ws_x", "ws_a",
+            "ws_dz", "ws_dmean", "ws_dvalue", "tile_part", "gpart", "grad", "block_sq",
+        )
+    ] + [("off", ctypes.c_int * 13)] + [
+        (name, ctypes.c_int) for name in ("P", "n_mb", "mb", "feat", "obs_dim", "act_dim")
+    ] + [
+        (name, ctypes.c_float)
+        for name in ("lr", "clip_eps", "ent_coef", "vf_coef", "max_grad_norm")
+    ] + [("has_range", ctypes.c_int), ("ls_lo", ctypes.c_float), ("ls_hi", ctypes.c_float)]
+
+
+EPOCH_KERNEL = Kernel("fused_epoch.cu", "fused_epoch", [ctypes.c_void_p, ctypes.c_void_p])
+
+
+def fused_epoch(
+    mbs: Tensor,
+    adv_stats: Tensor,
+    t0: Tensor,
+    leaves: list[Tensor],
+    mu: list[Tensor],
+    nu: list[Tensor],
+    cfg: EpochConfig,
+) -> tuple[list[Tensor], list[Tensor], list[Tensor], Tensor]:
+    """One PPO epoch over ``mbs`` (n_mb, mb, feat) f32 packed rows
+    ``[obs | action | old_logp | adv | ret]``, with per-minibatch advantage
+    ``adv_stats`` (n_mb, 2) (mean, population std) and Adam's count ``t0``
+    (1,) int32 before the epoch. Returns ``(leaves, mu, nu, metrics)``,
+    metrics ``(n_mb, len(METRICS))``; the inputs are not modified (Adam's
+    count afterwards is ``t0 + n_mb``). The kernel for CUDA tensors (one
+    launch per call, ``KERNELS_PER_MINIBATCH`` CUDA kernels per
+    minibatch), the twin for CPU ones."""
+    if mbs.dtype != torch.float32 or mbs.dim() != 3:
+        raise ValueError(f"mbs must be (n_mb, mb, feat) float32, got {tuple(mbs.shape)} {mbs.dtype}")
+    n_mb, mb_size, feat = mbs.shape
+    if feat < cfg.obs_dim + cfg.act_dim + 3:
+        raise ValueError(f"row width {feat} < obs {cfg.obs_dim} + actions {cfg.act_dim} + 3")
+    net = dict(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes)
+    shapes = [s for _, s in leaf_specs(net)]
+    for name, group in (("leaves", leaves), ("mu", mu), ("nu", nu)):
+        if [tuple(t.shape) for t in group] != shapes:
+            raise ValueError(f"{name} do not have the shapes of leaf_specs")
+    if tuple(adv_stats.shape) != (n_mb, 2) or t0.numel() != 1:
+        raise ValueError("adv_stats must be (n_mb, 2) and t0 hold one count")
+    if mbs.device.type == "cpu":
+        return fused_epoch_plain(mbs, adv_stats, t0, leaves, mu, nu, cfg)
+    if mbs.device.type != "cuda":
+        raise ValueError(f"unsupported device {mbs.device}")
+    _check_envelope(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
+    dev = mbs.device
+    if any(t.device != dev for t in (adv_stats, t0, *leaves, *mu, *nu)):
+        raise ValueError("every input must be on the device of mbs")
+
+    offsets, P = flat_layout(shapes)
+    params, m1, m2 = (_to_flat(g, offsets, P) for g in (leaves, mu, nu))
+    mbs = mbs.contiguous()
+    adv_stats = adv_stats.to(torch.float32).contiguous()
+    t0 = t0.to(torch.int32).reshape(1).contiguous()
+    metrics = torch.empty((n_mb, len(METRICS)), dtype=torch.float32, device=dev)
+    n_tiles = -(-mb_size // _TILE_M)
+    pad = n_tiles * _TILE_M
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
+    ws = dict(
+        ws_x=empty(pad, MAX_OBS_DIM, dtype=torch.bfloat16),
+        ws_a=empty(4, pad, HIDDEN, dtype=torch.bfloat16),
+        ws_dz=empty(4, pad, HIDDEN),
+        ws_dmean=empty(pad, MAX_ACT_DIM),
+        ws_dvalue=empty(pad),
+        tile_part=empty(n_tiles, _NPART),
+        gpart=torch.zeros((_SLABS, P), dtype=torch.float32, device=dev),
+        grad=empty(P),
+        block_sq=empty(-(-P // _THREADS)),
+    )
+    has_range, lo, hi = _range_args(cfg.log_std_range)
+    args = _EpochArgsC(
+        mbs.data_ptr(), adv_stats.data_ptr(), t0.data_ptr(), params.data_ptr(),
+        m1.data_ptr(), m2.data_ptr(), metrics.data_ptr(),
+        *[ws[k].data_ptr() for k in ("ws_x", "ws_a", "ws_dz", "ws_dmean", "ws_dvalue",
+                                      "tile_part", "gpart", "grad", "block_sq")],
+        (ctypes.c_int * 13)(*offsets), P, n_mb, mb_size, feat, cfg.obs_dim, cfg.act_dim,
+        cfg.learning_rate, cfg.clip_eps, cfg.entropy_coef, cfg.value_coef, cfg.max_grad_norm,
+        has_range, lo, hi,
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = EPOCH_KERNEL.fn()(ctypes.addressof(args), stream)
+    EPOCH_KERNEL.check(rc)
+    EPOCH_KERNEL.launches += 1
+    return (
+        _from_flat(params, shapes, offsets), _from_flat(m1, shapes, offsets),
+        _from_flat(m2, shapes, offsets), metrics,
+    )
+
+
+def epoch_flops(n_rows: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN) -> int:
+    """Matmul operations K2 needs for ``n_rows`` rows of minibatches (2 per
+    multiply-add, unpadded widths): the forward and the weight gradient of
+    every layer of both trunks, and the data gradient of every layer but
+    the first (the heads included)."""
+    fwd = 2 * (obs_dim * hidden + hidden * hidden) + hidden * act_dim + hidden
+    dgrad = hidden * act_dim + hidden * hidden + hidden + hidden * hidden
+    return 2 * n_rows * (2 * fwd + dgrad)

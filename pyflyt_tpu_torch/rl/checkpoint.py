@@ -1,0 +1,127 @@
+"""Checkpoints of the whole training state (port of
+``pyflyt_tpu/rl/checkpoint.py``) with ``torch.save``.
+
+A checkpoint holds the network's parameters, Adam's count and moments, the
+env state (the auto-reset cache included), the observations, the state of
+every ``torch.Generator`` in the runner and ``update_idx``, so training
+resumes bit for bit. Generators shared inside the runner (the packed env
+state and its auto-reset cache draw from one) stay shared after a restore.
+
+Orbax checkpoints of the JAX package are not read here (the port imports
+no orbax): ``pyflyt_tpu.rl.checkpoint.restore_params`` gives their params
+as numpy, and ``convert.actor_critic_from_flax`` builds the network.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+from typing import Any
+
+import torch
+from torch import Tensor, nn
+
+
+def _dump(obj: Any, gens: list, ids: dict) -> Any:
+    if isinstance(obj, torch.Generator):
+        k = ids.setdefault(id(obj), len(ids))
+        if k == len(gens):
+            gens.append(obj.get_state())
+        return {"__generator__": k}
+    if isinstance(obj, Tensor):
+        return obj.detach()
+    if isinstance(obj, nn.Module):
+        return {"__module__": obj.state_dict()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _dump(getattr(obj, f.name), gens, ids) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_dump(x, gens, ids) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _dump(v, gens, ids) for k, v in obj.items()}
+    return obj
+
+
+def _load(tmpl: Any, saved: Any, gens: list, made: dict) -> Any:
+    if isinstance(tmpl, torch.Generator):
+        k = saved["__generator__"]
+        if k not in made:
+            g = torch.Generator(device=tmpl.device)
+            g.set_state(gens[k])
+            made[k] = g
+        return made[k]
+    if isinstance(tmpl, Tensor):
+        return saved.to(device=tmpl.device, dtype=tmpl.dtype, copy=True)
+    if isinstance(tmpl, nn.Module):
+        net = copy.deepcopy(tmpl)
+        net.load_state_dict(saved["__module__"])
+        return net
+    if dataclasses.is_dataclass(tmpl) and not isinstance(tmpl, type):
+        return dataclasses.replace(tmpl, **{
+            f.name: _load(getattr(tmpl, f.name), saved[f.name], gens, made)
+            for f in dataclasses.fields(tmpl) if f.init
+        })
+    if isinstance(tmpl, (list, tuple)):
+        if len(tmpl) != len(saved):
+            raise ValueError(f"checkpoint holds {len(saved)} items where the template has {len(tmpl)}")
+        return type(tmpl)(_load(t, s, gens, made) for t, s in zip(tmpl, saved))
+    if isinstance(tmpl, dict):
+        return {k: _load(v, saved[k], gens, made) for k, v in tmpl.items()}
+    return saved
+
+
+def save(path: str, runner: Any) -> None:
+    """Saves a ``RunnerState`` to the file ``path`` (overwrites)."""
+    gens: list = []
+    tree = _dump(runner, gens, {})
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"runner": tree, "generators": gens}, tmp)
+    os.replace(tmp, path)
+
+
+def _read(path: str) -> dict:
+    return torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
+
+
+def restore(path: str, template: Any) -> Any:
+    """Restores a ``RunnerState`` saved by :func:`save` into fresh objects
+    shaped like ``template`` (e.g. a new ``PPO.init``), on its devices. The
+    network is a copy of the template's; the template is not modified."""
+    ckpt = _read(path)
+    return _load(template, ckpt["runner"], ckpt["generators"], {})
+
+
+def restore_params(path: str, network: nn.Module) -> nn.Module:
+    """A copy of ``network`` holding ONLY the saved network's parameters:
+    the warm start across run configs (``TrainConfig.init_from``). The
+    architecture must match; everything else starts fresh."""
+    state = _read(path)["runner"]["network"]["__module__"]
+    net = copy.deepcopy(network)
+    mine = net.state_dict()
+    if set(mine) != set(state):
+        raise ValueError("checkpoint params do not match the model: warm start needs the same network")
+    for k, v in state.items():
+        if tuple(v.shape) != tuple(mine[k].shape):
+            raise ValueError(f"warm-start shape mismatch at {k}: checkpoint {tuple(v.shape)} vs model {tuple(mine[k].shape)}")
+    net.load_state_dict(state)
+    return net
+
+
+def average_params(paths: list[str], network: nn.Module) -> nn.Module:
+    """A copy of ``network`` with the element-wise mean of the parameters
+    saved at ``paths`` (checkpoint averaging)."""
+    if not paths:
+        raise ValueError("average_params needs at least one checkpoint path")
+    nets = [restore_params(p, network) for p in paths]
+    out = copy.deepcopy(network)
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.copy_(torch.stack([dict(n.named_parameters())[name] for n in nets]).mean(dim=0))
+    return out
+
+
+def best_model_name(idx: int, mean_len: float, std_len: float, mean_rew: float, std_rew: float) -> str:
+    """The reference's best-model naming convention."""
+    return f"best_model_{idx}_{mean_len:.0f}_{std_len:.0f}_{mean_rew:.0f}_{std_rew:.0f}"

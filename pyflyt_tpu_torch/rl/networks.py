@@ -90,15 +90,24 @@ class ActorCritic(nn.Module):
         self._kw_key: tuple | None = None
 
     def clamped_log_std(self) -> Tensor:
+        """``log_std`` clipped to ``log_std_range``. Written as
+        ``minimum(maximum(x, lo), hi)``, as ``jnp.clip`` is, so a value
+        exactly on a bound takes half the gradient (``torch.clamp`` would
+        pass all of it)."""
         if self.log_std_range is None:
             return self.log_std
-        return torch.clamp(self.log_std, *self.log_std_range)
+        lo, hi = (self.log_std.new_tensor(v) for v in self.log_std_range)
+        return torch.minimum(torch.maximum(self.log_std, lo), hi)
 
     def forward(self, obs: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         """Returns ``(action_mean, log_std, value)`` in f32."""
         mean = self.pi_head(self.pi_trunk(obs))
         value = self.vf_head(self.vf_trunk(obs))
         return mean, self.clamped_log_std().expand_as(mean), value[..., 0]
+
+    def value(self, obs: Tensor) -> Tensor:
+        """The critic alone, in f32: ``forward(obs)[2]``."""
+        return self.vf_head(self.vf_trunk(obs))[..., 0]
 
     def kernel_weights(self) -> cuda_policy.PolicyWeights:
         """bf16 weights for the fused forward, rebuilt only when a
@@ -118,3 +127,8 @@ def gaussian_log_prob(mean: Tensor, log_std: Tensor, action: Tensor) -> Tensor:
     var = torch.exp(2.0 * log_std)
     lp = -0.5 * ((action - mean) ** 2 / var + 2.0 * log_std + math.log(2.0 * math.pi))
     return torch.sum(lp, dim=-1)
+
+
+def gaussian_entropy(log_std: Tensor) -> Tensor:
+    """Diagonal Gaussian entropy, summed over action dims."""
+    return torch.sum(log_std + 0.5 * math.log(2.0 * math.pi * math.e), dim=-1)

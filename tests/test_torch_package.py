@@ -32,15 +32,16 @@ def _all_submodules():
 
 def test_import_leaves_no_jax_flax_yaml_or_reference_package():
     """Importing the port and every submodule in a fresh interpreter loads
-    no JAX, flax, pyyaml or pyflyt_tpu module."""
+    no JAX, flax, optax, orbax, pyyaml or pyflyt_tpu module."""
     mods = _all_submodules()
     assert "pyflyt_tpu_torch.ops.cuda_quadx" in mods and "pyflyt_tpu_torch.convert" in mods
+    assert "pyflyt_tpu_torch.rl.train" in mods and "pyflyt_tpu_torch.ops.cuda_sgd" in mods
     code = textwrap.dedent(f"""
         import importlib, json, sys
         for m in {mods!r}:
             importlib.import_module(m)
         bad = sorted(n for n in sys.modules
-                     if n.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "optax", "pyflyt_tpu"))
+                     if n.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "optax", "orbax", "pyflyt_tpu"))
         print(json.dumps(bad))
     """)
     out = subprocess.run(
@@ -60,10 +61,14 @@ def test_vehicle_json_is_a_fresh_copy():
     assert load_vehicle_json("cf2x")["frame"]["mass"] == 0.027
 
 
-@pytest.mark.parametrize("entry", ["hover_env", "packed_env", "actor_critic", "resolve"])
+@pytest.mark.parametrize(
+    "entry", ["hover_env", "packed_env", "actor_critic", "resolve", "build_params", "quat_identity"]
+)
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
+    from pyflyt_tpu_torch.core import math as tm
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
+    from pyflyt_tpu_torch.models import quadx
     from pyflyt_tpu_torch.rl.networks import ActorCritic
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,6 +77,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "packed_env": lambda: PackedQuadXHoverEnv(),
         "actor_critic": lambda: ActorCritic(21, 4),
         "resolve": lambda: pyflyt_tpu_torch.resolve_device(),
+        "build_params": lambda: quadx.build_params(quadx.QuadXConfig()),
+        "quat_identity": lambda: tm.quat_identity((2,)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()

@@ -91,7 +91,7 @@ def test_math_matches_jax(name):
 
 
 def test_quat_identity():
-    q = tm.quat_identity((2, 3))
+    q = tm.quat_identity((2, 3), device="cpu")
     _close(q, jm.quat_identity((2, 3)))
 
 
@@ -149,7 +149,7 @@ def params():
 
 def test_build_params_matches_jax_and_converter(params):
     _, jp, conv = params
-    built = tq.build_params(tq.QuadXConfig(noisy_motors=False))
+    built = tq.build_params(tq.QuadXConfig(noisy_motors=False), device="cpu")
     for a, b in zip(_leaves(built), _leaves(conv)):
         _close(a, b, atol=0.0)
     _close(built.motor.max_rpm, jp.motor.max_rpm, atol=0.0)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -89,6 +90,22 @@ EPOCH_NU_REL = 2e-3
 EPOCH_PARAM_ATOL = 5e-6
 EPOCH_METRIC_RTOL = 1e-4
 TRAIN_ITERS = 3  # the first a warm-up
+# K1 generic vs its twin over 10 chained aviary steps: FMA contraction and
+# native atan2/asin move the state by ~3e-5 at most (a first probe on the
+# card saw 2.8e-5); 1e-4 leaves room without hiding a wrong term (a wrong
+# sign or wind term moves it by > 1e-2)
+GENERIC_STEPS = 10
+GENERIC_ATOL = 1e-4
+MOD_ROLLOUT_STEPS = 128  # ppo_solve_r5's rollout length
+MOD_TRAIN_ITERS = 3  # default-path iterations, the first a warm-up
+
+
+def mod_ppo_config():
+    """ppo_solve_r5's small recipe (docs/artifacts/ppo_solve_r5.py:55-57)."""
+    from pyflyt_tpu_torch.rl import PPOConfig
+
+    return PPOConfig(num_envs=8192, rollout_steps=128, num_epochs=3, num_minibatches=128,
+                     learning_rate=2e-4, clip_eps=0.1, init_log_std=-1.6)
 
 
 def fail(msg: str) -> None:
@@ -358,8 +375,6 @@ def train_path(seed: int, card: str):
     import torch
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
-    from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
-    from pyflyt_tpu_torch.ops import cuda_quadx as cq
     from pyflyt_tpu_torch.rl import PPO, PPOConfig, ppo
 
     cfg = PPOConfig(num_envs=N_ENVS, cached_reset_refresh=64, fused_sgd=True, fused_rollout_forward=True)
@@ -370,9 +385,8 @@ def train_path(seed: int, card: str):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     before = [p.detach().clone() for p in runner.network.parameters()]
-    kernels = {"quadx_hover_step": cq.KERNEL, "policy_value_forward": cuda_policy.KERNEL,
-               "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL}
-    want = {"quadx_hover_step": cfg.rollout_steps, "policy_value_forward": cfg.rollout_steps,
+    kernels = all_kernels()
+    want = {"quadx_hover_step": cfg.rollout_steps, "quadx_step": 0, "policy_value_forward": cfg.rollout_steps,
             "logp_forward": 1, "fused_epoch": cfg.num_epochs}
     per_update = cfg.num_epochs * cfg.num_minibatches
     walls, split = [], None
@@ -482,28 +496,31 @@ def train_loop_smoke(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_sgd_kernels(tp, runner) -> dict:
-    import torch
+def time_sgd_kernels(tp, runner, label: str = "sgd_times") -> dict:
+    """K3 and K2 at the shapes of ``tp``'s training path (its batch, its
+    minibatches, the runner's network and Adam state): device time, host
+    time, the plain twin, the library yardstick and the bound."""
     from pyflyt_tpu_torch.ops import cuda_sgd
 
     net = runner.network
+    batch = tp.config.batch_size
     o, a = net.obs_dim, net.action_dim
     bound = lambda b, f: (1e3 * max(b / H100_BYTES_PER_S, f / H100_BF16_FLOPS),  # noqa: E731
                           "bytes" if b / H100_BYTES_PER_S >= f / H100_BF16_FLOPS else "operations")
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     out = {}
 
-    rows = packed_rows(net, BATCH, seed=300)
+    rows = packed_rows(net, batch, seed=300)
     pl_ = pi_leaves(net)
-    ms, host = time_ms(lambda: cuda_sgd.logp_forward(rows, pl_, o), iters=20)
+    ms, host = time_ms(lambda: cuda_sgd.logp_forward(rows, pl_, o), iters=max(1, 20 * BATCH // batch))
     plain, _ = time_ms(lambda: cuda_sgd.logp_forward_plain(rows, pl_, o), iters=3, repeats=3, device_timed=False)
-    lib, _ = time_ms(library_logp(net, rows), iters=20)
-    b_ms, by = bound(nbytes([rows, *pl_]) + BATCH * 4, cuda_sgd.logp_flops(BATCH, o, a))
+    lib, _ = time_ms(library_logp(net, rows), iters=max(1, 20 * BATCH // batch))
+    b_ms, by = bound(nbytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a))
     out["logp_forward"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib,
-                           "bound_ms": b_ms, "bound_by": by, "rows": BATCH}
+                           "bound_ms": b_ms, "bound_by": by, "rows": batch}
 
     cfg = tp.config
-    mbs = packed_rows(net, BATCH, seed=301).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
+    mbs = packed_rows(net, batch, seed=301).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
     c0 = o + a
     stats = adv_stats(mbs[:, :, c0 + 1])
     leaves = [t.detach() for t in cuda_sgd.params_to_leaves(net)]
@@ -511,7 +528,7 @@ def time_sgd_kernels(tp, runner) -> dict:
     t0 = opt.count.reshape(1)
     ecfg = tp.epoch_config(o)
     run = lambda: cuda_sgd.fused_epoch(mbs, stats, t0, leaves, opt.mu, opt.nu, ecfg)  # noqa: E731
-    ms, host = time_ms(run, iters=3, repeats=3)
+    ms, host = time_ms(run, iters=max(1, 96 // cfg.num_minibatches), repeats=3)
     plain, _ = time_ms(lambda: cuda_sgd.fused_epoch_plain(mbs, stats, t0, leaves, opt.mu, opt.nu, ecfg),
                        iters=1, repeats=2, device_timed=False)
     # the autograd + Adam step makes the host wait on the card within a call
@@ -523,7 +540,7 @@ def time_sgd_kernels(tp, runner) -> dict:
     lib_wall = host_wall_ms(lib_fn, iters=8)
     state = nbytes(leaves) + nbytes(opt.mu) + nbytes(opt.nu)
     b_ms, by = bound(nbytes([mbs, stats, t0]) + 2 * state + cfg.num_minibatches * 5 * 4,
-                     cuda_sgd.epoch_flops(BATCH, o, a))
+                     cuda_sgd.epoch_flops(batch, o, a))
     out["fused_epoch"] = {
         "ms": ms, "host_ms": host, "ms_per_minibatch": ms / cfg.num_minibatches, "plain_ms": plain,
         "library_ms": lib_mb * cfg.num_minibatches, "library_ms_per_minibatch": lib_mb,
@@ -532,7 +549,7 @@ def time_sgd_kernels(tp, runner) -> dict:
         "minibatch_size": cfg.minibatch_size,
         "cuda_kernels_per_call": cuda_sgd.KERNELS_PER_MINIBATCH * cfg.num_minibatches,
     }
-    print(json.dumps({"sgd_times": out}), flush=True)
+    print(json.dumps({label: out}), flush=True)
     return out
 
 
@@ -625,6 +642,449 @@ def library_update(net, mb, stat, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-12: the generic QuadX step (K1 generic) against its twin
+# ---------------------------------------------------------------------------
+
+
+ROW_GROUPS = {"pos": (0, 3), "quat": (3, 7), "lin_vel": (7, 10), "ang_vel": (10, 13), "view": (13, 25),
+              "ang_vel_body": (25, 28), "drag": (28, 31), "throttle": (31, 35), "pwm": (35, 39), "pid": (43, 49)}
+
+
+def airborne_state(conv: str, n: int, seed: int, grounded: bool):
+    """Seeded QuadX states on the card: drones 2-6 m up (down in NED),
+    tilted and moving; with ``grounded`` every 8th starts 5 mm above the
+    ground falling at 1 m/s, so it hits the ground in the first step."""
+    import torch
+    from pyflyt_tpu_torch.models import quadx
+
+    cfg = quadx.QuadXConfig(orn_conv=conv, control_hz=80, noisy_motors=False)
+    params = quadx.build_params(cfg, "cuda")
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(n, 3, generator=g) * 4 - 2
+    pos[:, 2] = (torch.rand(n, generator=g) * 4 + 2) * (-1.0 if conv == "NED_FRD" else 1.0)
+    orn = torch.rand(n, 3, generator=g) * 0.6 - 0.3
+    st = quadx.init_state(params, cfg, pos.cuda(), orn.cuda())
+    st.body.lin_vel = (torch.rand(n, 3, generator=g) * 2 - 1).cuda()
+    st.body.ang_vel = (torch.rand(n, 3, generator=g) * 2 - 1).cuda()
+    if grounded:
+        st.body.pos[::8, 2] = 0.005
+        st.body.lin_vel[::8, 2] = -1.0
+    return cfg, params, st
+
+
+def generic_setpoints(mode: int, conv: str, n: int, step: int):
+    import torch
+
+    g = torch.Generator().manual_seed(2000 + step)
+    sp = torch.rand(4, n, generator=g)
+    if mode == 0:
+        sp[:3] -= 0.5
+        sp[3] = (0.2 + 0.4 * sp[3]) * (-1.0 if conv == "NED_FRD" else 1.0)
+    elif mode == 9:
+        sp[:3] = (sp[:3] - 0.5) * 0.1
+        sp[3] = 0.3 + 0.2 * sp[3]
+    else:
+        sp = 0.1 + 0.5 * sp
+    return sp.cuda()
+
+
+def check_generic_step() -> dict:
+    """K1 generic vs its twin, noise and gusts off, at N=8192 over
+    GENERIC_STEPS aviary steps, in every mode x convention x wind of its
+    envelope (an eighth of the fleet grounded); the worst error per row
+    group of each case, contact and wind rows exact."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    cases = {}
+    for conv in ("ENU_FLU", "NED_FRD"):
+        cfg, params, st = airborne_state(conv, N_ENVS, seed=31, grounded=True)
+        consts = cq.generic_consts(params, cfg)
+        base = (torch.rand(3, N_ENVS, generator=torch.Generator().manual_seed(32)) * 8 - 4).cuda()
+        for mode in (0, 8, 9):
+            for kind, wind in (("none", None),
+                               ("baked", {"kind": "gaussian", "base": (3.0, -2.0, 0.5), "max_gust": 0.0}),
+                               ("per_env", {"kind": "gaussian", "per_env_base": True, "max_gust": 0.0})):
+                packed = cq.pack_state(st)
+                if kind == "per_env":
+                    packed[cq._WBASE : cq._WBASE + 3] = base
+                seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+                kern, plain = packed.clone(), packed.clone()
+                errs = dict.fromkeys(ROW_GROUPS, 0.0)
+                hits = 0
+                for i in range(GENERIC_STEPS):
+                    sp = generic_setpoints(mode, conv, N_ENVS, i)
+                    kern[cq._SP : cq._SP + 4] = sp
+                    plain[cq._SP : cq._SP + 4] = sp
+                    kern = cq.packed_step(kern, seed, consts, mode, False, wind)
+                    plain = cq.packed_step_plain(plain, seed, consts, mode, False, wind)
+                    torch.cuda.synchronize()
+                    where = f"generic {conv} mode {mode} wind {kind} step {i}"
+                    check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+                    for name, (a, b) in ROW_GROUPS.items():
+                        errs[name] = max(errs[name], (kern[a:b] - plain[a:b]).abs().max().item())
+                    check(torch.equal(kern[cq._CON : cq._ANY + 1], plain[cq._CON : cq._ANY + 1]),
+                          f"{where}: contact rows differ")
+                    check(torch.equal(kern[cq._WBASE:], plain[cq._WBASE:]), f"{where}: wind rows differ")
+                    hits += int((kern[cq._ANY] > 0.5).sum())
+                worst = max(errs.values())
+                check(worst <= GENERIC_ATOL, f"generic {conv} mode {mode} wind {kind}: error {errs}")
+                check(hits > 0, f"generic {conv} mode {mode} wind {kind}: no contact")
+                cases[f"{conv}/mode{mode}/{kind}"] = {"max_abs_err": worst, "per_group": errs}
+    return cases
+
+
+def check_generic_draws() -> dict:
+    """The kernel's Philox draws by their statistics, read where the motion
+    is known: drones at rest 5 m up, one physics iteration per launch
+    (control at 240 Hz), so the new drag read is minus the wind exactly.
+    Gusts (max_gust 7, per-env base): mean 0 within 5 standard errors and
+    std 1 within 4% (5 standard errors) over 8192 x 3 draws, |gust| <= 7, the twin's std within
+    5%, axes uncorrelated; motor noise on at the same time, throttle spread
+    against the twin's; the simple field's thermal mean ln(6)·strength."""
+    import torch
+    from pyflyt_tpu_torch.models import quadx
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    n = N_ENVS
+    cfg = quadx.QuadXConfig(control_hz=240)
+    params = quadx.build_params(cfg, "cuda")
+    st = quadx.init_state(params, cfg, torch.tensor([0.0, 0.0, 5.0], device="cuda").expand(n, 3),
+                          torch.zeros(n, 3, device="cuda"))
+    packed = cq.pack_state(st)
+    packed[cq._SP : cq._SP + 4] = torch.tensor([0.0, 0.0, 0.0, 0.4], device="cuda")[:, None]
+    base = (torch.rand(3, n, generator=torch.Generator().manual_seed(33)) * 8 - 4).cuda()
+    packed[cq._WBASE : cq._WBASE + 3] = base
+    seed = torch.tensor([4242], dtype=torch.int64, device="cuda")
+    c = cq.generic_consts(params, cfg, {"kind": "gaussian", "per_env_base": True, "max_gust": 7.0})
+    kern = cq.packed_step(packed, seed, c, 9, True)
+    plain = cq.packed_step_plain(packed, seed, c, 9, True)
+    torch.cuda.synchronize()
+    gk = -kern[cq._DRG : cq._DRG + 3] - base
+    gp = -plain[cq._DRG : cq._DRG + 3] - base
+    se = 5.0 / n**0.5
+    check(float(gk.abs().max()) <= 7.0 + 1e-4, "gusts: not clipped at 7")
+    check(bool((gk.mean(1).abs() < se).all()), f"gust means {gk.mean(1).tolist()}")
+    check(bool(((gk.std(1) - 1.0).abs() < 0.04).all()), f"gust std {gk.std(1).tolist()}")
+    check(bool(((gk.std(1) / gp.std(1) - 1.0).abs() < 0.05).all()), f"gust std {gk.std(1).tolist()} vs twin")
+    corr = torch.corrcoef(gk)
+    off = corr[~torch.eye(3, dtype=torch.bool, device="cuda")]
+    check(float(off.abs().max()) < 0.1, f"gust axes correlated {corr.tolist()}")
+    tk, tp = kern[cq._THR : cq._THR + 4], plain[cq._THR : cq._THR + 4]
+    check(bool((tk.std(1) > 0).all()), "motor noise: no spread")
+    check(bool(((tk.std(1) / tp.std(1) - 1.0).abs() < 0.05).all()),
+          f"motor noise std {tk.std(1).tolist()} vs twin {tp.std(1).tolist()}")
+    strength = 2.0
+    simple = cq.packed_step(packed, seed, c, 9, False, {"kind": "simple", "strength": strength})
+    torch.cuda.synchronize()
+    w = -simple[cq._DRG : cq._DRG + 3]
+    thermal = float(w[2].mean())
+    expected = math.log(6.0) * strength
+    check(abs(thermal - expected) < se, f"simple wind thermal mean {thermal} vs {expected}")
+    check(float(w[:2].mean(1).abs().max()) < se, f"simple wind xy means {w[:2].mean(1).tolist()}")
+    return {"gust_mean": gk.mean(1).tolist(), "gust_std": gk.std(1).tolist(), "gust_std_plain": gp.std(1).tolist(),
+            "gust_max_abs": float(gk.abs().max()), "gust_max_axis_corr": float(off.abs().max()),
+            "throttle_std": tk.std(1).tolist(), "throttle_std_plain": tp.std(1).tolist(),
+            "simple_thermal_mean": thermal, "simple_thermal_expected": expected}
+
+
+def check_step_dropin() -> dict:
+    """``cuda_quadx.step`` (pack → K1 generic → unpack) against
+    ``models.quadx.step`` with the same ``GaussianWind`` (per-env base,
+    max_gust 0) at N=8192 over 6 aviary steps, airborne (the reference's
+    full contact is not the kernel's): mode 9 NED and mode 0 ENU. Then the
+    ``use_kernel`` hover env against the plain one over 20 steps, half the
+    fleet falling: obs on the live lanes, rewards and flags on all."""
+    import dataclasses
+
+    import torch
+    from pyflyt_tpu_torch.core.wind import GaussianWind
+    from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
+    from pyflyt_tpu_torch.models import quadx
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    out = {}
+    for mode, conv in ((9, "NED_FRD"), (0, "ENU_FLU")):
+        cfg, params, st = airborne_state(conv, N_ENVS, seed=41, grounded=False)
+        base = torch.rand(N_ENVS, 3, generator=torch.Generator().manual_seed(42)) * 8 - 4
+        wind = GaussianWind.init(None, N_ENVS, base_wind=base.cuda(), max_gust=0.0, orn_conv=conv, device="cuda")
+        consts = cq.generic_consts(params, cfg)
+        ref, got = st, st
+        launches = cq.GENERIC_KERNEL.launches
+        err = 0.0
+        for i in range(6):
+            sp = generic_setpoints(mode, conv, N_ENVS, i).T.contiguous()
+            ref = dataclasses.replace(ref, setpoint=sp)
+            got = dataclasses.replace(got, setpoint=sp)
+            ref, rc = quadx.step(ref, params, cfg, mode, None, wind_fn=wind)
+            got, gc = cq.step(got, params, cfg, mode, None, wind=wind, consts=consts)
+            torch.cuda.synchronize()
+            for a, b in ((got.read.view, ref.read.view), (got.read.drag_local_vel, ref.read.drag_local_vel),
+                         (got.body.pos, ref.body.pos), (got.body.quat, ref.body.quat),
+                         (got.body.lin_vel, ref.body.lin_vel), (got.body.ang_vel, ref.body.ang_vel)):
+                err = max(err, (a - b).abs().max().item())
+            check(torch.equal(gc, rc), f"step drop-in mode {mode} {conv} step {i}: contact differs")
+        check(err <= GENERIC_ATOL, f"step drop-in mode {mode} {conv}: error {err}")
+        check(cq.GENERIC_KERNEL.launches - launches == 6, "step drop-in: one launch per aviary step")
+        check(torch.equal(got.physics_steps, ref.physics_steps), "step drop-in: physics_steps")
+        out[f"mode{mode}/{conv}"] = err
+
+    plain = QuadXHoverEnv(noisy_motors=False, device="cuda")
+    kern = dataclasses.replace(plain, use_kernel=True)
+    sp_, _ = plain.reset(N_ENVS)
+    sk, _ = kern.reset(N_ENVS)
+    launches = cq.GENERIC_KERNEL.launches
+    err = 0.0
+    for i in range(PARITY_STEPS):
+        a = hover_actions(N_ENVS, i, "cuda")
+        sp_, op = plain.step(sp_, a)
+        sk, ok = kern.step(sk, a)
+        torch.cuda.synchronize()
+        live = ~op.termination
+        err = max(err, (ok.obs[live] - op.obs[live]).abs().max().item(), (ok.reward - op.reward).abs().max().item())
+        check(torch.equal(ok.termination, op.termination), f"use_kernel env step {i}: termination differs")
+    check(err <= OBS_ATOL, f"use_kernel env: error {err}")
+    check(bool(op.termination.any()), "use_kernel env: no lane terminated")
+    check(cq.GENERIC_KERNEL.launches - launches == PARITY_STEPS * plain.env_step_ratio, "use_kernel env launches")
+    out["use_kernel_env"] = err
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: the mod-hovering recipe
+# ---------------------------------------------------------------------------
+
+
+def recipe_env():
+    """The ppo_solve_r5 env: mode 9, NED, 80 Hz, a random wind base per env,
+    gusts of up to 7 m/s and motor noise on, on the packed fast path."""
+    from pyflyt_tpu_torch.envs.quadx_mod import PackedQuadXModHoveringEnv, QuadXModHoveringEnv
+
+    return PackedQuadXModHoveringEnv(QuadXModHoveringEnv(
+        flight_mode=9, orn_conv="NED_FRD", control_hz=80, simulate_wind=True, device="cuda"))
+
+
+def all_kernels():
+    from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    return {"quadx_hover_step": cq.KERNEL, "quadx_step": cq.GENERIC_KERNEL,
+            "policy_value_forward": cuda_policy.KERNEL, "logp_forward": cuda_sgd.LOGP_KERNEL,
+            "fused_epoch": cuda_sgd.EPOCH_KERNEL}
+
+
+def zero_launches() -> None:
+    for k in all_kernels().values():
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: k.launches for name, k in all_kernels().items()}
+
+
+def mod_rollout(seed: int, card: str):
+    """8192 recipe envs x MOD_ROLLOUT_STEPS steps under the exact
+    auto-reset, acting through the 2x256 tanh ActorCritic (obs 16, seeded
+    random weights, log_std -1.6, the f32 forward of PPO's default path):
+    one K1-generic launch per step and no other kernel. Then the per-step
+    split: K1 generic's device time, the plain obs/reward half
+    (``finish``) and the per-step batch reset, each on its own."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+    from pyflyt_tpu_torch.rl import ppo
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+    env = recipe_env()
+    net = ActorCritic(env.obs_size, 4, init_log_std=-1.6, device="cuda",
+                      generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    state, obs = env.reset(N_ENVS, gen)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    state, obs, _ = ppo.rollout(net, env, state, obs, 4, gen, refresh=0, fused=False)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, obs, traj = ppo.rollout(net, env, state, obs, MOD_ROLLOUT_STEPS, gen, refresh=0, fused=False,
+                                   gamma=0.99, slot=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "quadx_step": MOD_ROLLOUT_STEPS}
+    check(launches == want, f"mod rollout launches {launches}, expected {want}")
+    check(obs.shape == (N_ENVS, 16) and bool(torch.isfinite(obs).all()), "mod rollout: final obs")
+    check(bool(torch.isfinite(traj.reward).all()), "mod rollout: non-finite rewards")
+    n_done = int(traj.done.sum())
+    check(n_done > 0, "mod rollout: no episode ended")
+    check(bool((state.packed[cq._WBASE : cq._WBASE + 3].abs().amax(1) > 1.0).all()), "mod rollout: wind rows")
+
+    # the per-step split, each part on its own, synchronized
+    out = env.advance(state, torch.zeros(N_ENVS, 4, device="cuda"))
+    seed_t = torch.tensor([7], dtype=torch.int64, device="cuda")
+    packed = state.packed.contiguous()
+    kernel_ms, kernel_host_ms = time_ms(lambda: cq.packed_step(packed, seed_t, env.consts, 9, True), iters=200)
+    finish_ms = host_wall_ms(lambda: env.finish(state, out), iters=20)
+    reset_ms = host_wall_ms(lambda: env.reset(N_ENVS, gen), iters=10)
+    action = torch.zeros(N_ENVS, 4, device="cuda")
+    step_ms = host_wall_ms(lambda: env.autoreset_step(state, action), iters=20)
+    policy_ms = host_wall_ms(lambda: ppo.act(net, obs, gen, fused=False), iters=20)
+    zero_launches()  # the split's launches are not the main path's
+    return {
+        "card": card, "num_envs": N_ENVS, "steps": MOD_ROLLOUT_STEPS, "wall_s": wall,
+        "env_steps_per_s": N_ENVS * MOD_ROLLOUT_STEPS / wall, "ms_per_step": 1e3 * wall / MOD_ROLLOUT_STEPS,
+        "episodes_done": n_done, "reset_s": reset_s, "mean_reward": float(traj.reward.mean()),
+        "launches": launches,
+        "split_ms": {"kernel_device": kernel_ms, "kernel_wrapper_host": kernel_host_ms,
+                     "obs_reward_ops": finish_ms, "batch_reset": reset_ms,
+                     "autoreset_step_total": step_ms, "policy_f32_forward_and_sample": policy_ms},
+    }, state
+
+
+def mod_train(seed: int, card: str):
+    """The ppo_solve_r5 small recipe at full size: MOD_TRAIN_ITERS
+    iterations on the default path (the first a warm-up; exact auto-reset,
+    f32 autograd epochs), then one with fused_sgd and the fused rollout
+    forward (K4, K3, K2 at obs 16 and 128 minibatches), from the same
+    runner. Launches and Adam's count are checked per iteration; the last
+    iteration of each path runs its phases one by one for the split."""
+    import dataclasses
+
+    import torch
+    from pyflyt_tpu_torch.rl import PPO
+
+    cfg = mod_ppo_config()
+    env = recipe_env()
+    tp = PPO(env, cfg)
+    fused = PPO(env, dataclasses.replace(cfg, fused_sgd=True, fused_rollout_forward=True))
+    t0 = time.perf_counter()
+    runner = tp.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per_update = cfg.num_epochs * cfg.num_minibatches
+    rows = []
+    for it in range(MOD_TRAIN_ITERS + 1):
+        path = tp if it < MOD_TRAIN_ITERS else fused
+        split_it = it in (MOD_TRAIN_ITERS - 1, MOD_TRAIN_ITERS)
+        count0 = int(runner.opt_state.count)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, metrics, split = run_iteration(path, runner, split_it)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = {**dict.fromkeys(launches, 0), "quadx_step": cfg.rollout_steps}
+        if path is fused:
+            want.update(policy_value_forward=cfg.rollout_steps, logp_forward=1, fused_epoch=cfg.num_epochs)
+        check(launches == want, f"mod train iteration {it}: launches {launches}, expected {want}")
+        check(int(runner.opt_state.count) - count0 == per_update, f"mod train iteration {it}: Adam count")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"mod train iteration {it}: metrics")
+        rows.append({"path": "fused" if path is fused else "default", "wall_s": wall, "split_s": split,
+                     "launches": launches, "metrics": {k: float(v) for k, v in metrics.items()}})
+    check(all(bool(torch.isfinite(p).all()) for p in runner.network.parameters()), "mod train: non-finite params")
+    default_walls = [r["wall_s"] for r in rows[1:MOD_TRAIN_ITERS]]
+    wall = statistics.mean(default_walls)
+    return {
+        "card": card, "num_envs": cfg.num_envs, "rollout_steps": cfg.rollout_steps, "batch": cfg.batch_size,
+        "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches, "minibatch_size": cfg.minibatch_size,
+        "init_s": init_s, "warmup_s": rows[0]["wall_s"], "default_wall_s_per_iteration": wall,
+        "default_samples_per_s": cfg.batch_size / wall, "fused_wall_s": rows[-1]["wall_s"],
+        "fused_samples_per_s": cfg.batch_size / rows[-1]["wall_s"], "adam_count": int(runner.opt_state.count),
+        "iterations": rows,
+    }, fused, runner
+
+
+def run_iteration(tp, runner, split: bool):
+    """One PPO iteration; with ``split`` its phases one by one, each ended
+    by a synchronize: (runner, metrics, split seconds or None)."""
+    import torch
+
+    if not split:
+        runner, metrics = tp.train_iteration(runner)
+        torch.cuda.synchronize()
+        return runner, metrics, None
+    marks = [time.perf_counter()]
+    runner, traj = tp._rollout(runner)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    adv, ret = tp._gae(runner.network, traj, runner.obs)
+    packed = tp.pack(traj, adv, ret)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    obs_dim = traj.obs.shape[-1]
+    if tp.config.fused_sgd and tp.config.fused_sgd_consistent_logp:
+        tp.rewrite_old_logp(runner.network, packed, obs_dim)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    stacked = tp.sgd(runner, packed, obs_dim)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    runner.update_idx += 1
+    metrics = {k: v.mean() for k, v in stacked.items()}
+    metrics["mean_reward"] = traj.reward.mean()
+    metrics["mean_episode_done"] = traj.done.float().mean()
+    split_s = dict(zip(("rollout_s", "gae_pack_s", "logp_k3_s", "sgd_s"), [b - a for a, b in zip(marks, marks[1:])]))
+    return runner, metrics, split_s
+
+
+def cli_smoke(card: str) -> dict:
+    """The CLI on the card: ``train`` for one iteration at 512 envs (the
+    plain env at the CLI's defaults, mode 9, a 4-episode eval, checkpoints
+    in a scratch directory under build/), ``eval --checkpoint`` on the fixed
+    NED scenario (return, length, a 34-column CSV), and ``eval-pid-expert``,
+    which must raise NotImplementedError naming ROADMAP item 6."""
+    import csv
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import torch
+    from pyflyt_tpu_torch.rl_training import hovering
+    from pyflyt_tpu_torch.utils.hovering_logger import COLUMNS
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.join(HERE, "build"))
+    try:
+        run_dir = os.path.join(work, "run")
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as printed:
+            runner = hovering.main(["train", "--flight_mode", "9", "--num_envs", "512",
+                                    "--total_timesteps", str(512 * 32), "--eval_every_updates", "1",
+                                    "--eval_episodes", "4", "--init_log_std", "-1.6", "--log_dir", run_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        row = json.loads(printed.getvalue().strip().splitlines()[-1])
+        check(runner.update_idx == 1, "cli train: one iteration")
+        best = [n for n in os.listdir(run_dir) if n.startswith("best_model_")]
+        check(len(best) == 1 and "metrics.jsonl" in os.listdir(run_dir), f"cli train wrote {os.listdir(run_dir)}")
+        eval_dir = os.path.join(work, "eval")
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as printed:
+            total, length = hovering.main(["eval", "--flight_mode", "9", "--checkpoint",
+                                           os.path.join(run_dir, best[0]), "--log_dir", eval_dir])
+        eval_s = time.perf_counter() - t0
+        printed_eval = json.loads(printed.getvalue().strip().splitlines()[-1])
+        check(printed_eval == {"episode_reward": total, "episode_length": length}, "cli eval: printed line")
+        check(math.isfinite(total) and 1 <= length <= 802, f"cli eval: return {total}, length {length}")
+        with open(os.path.join(eval_dir, "evaluation_results_0.csv")) as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == COLUMNS and len(rows) == length + 1 and all(len(r) == 34 for r in rows),
+              "cli eval: the 34-column CSV")
+        try:
+            hovering.main(["eval-pid-expert"])
+            fail("cli eval-pid-expert did not raise")
+        except NotImplementedError as e:
+            check("item 6" in str(e), f"cli eval-pid-expert: {e}")
+            pid_msg = str(e)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"card": card, "train_s": train_s, "train_eval_mean_reward": row["eval_mean_reward"],
+            "train_eval_mean_length": row["eval_mean_length"], "eval_s": eval_s, "eval_episode_reward": total,
+            "eval_episode_length": length, "csv_rows": len(rows) - 1, "eval_pid_expert": pid_msg}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -647,7 +1107,7 @@ def main(argv=None) -> int:
         return 1
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv, packed_autoreset_init
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
-    from pyflyt_tpu_torch.ops import cuda_build, cuda_policy, cuda_sgd
+    from pyflyt_tpu_torch.ops import cuda_build
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
     from pyflyt_tpu_torch.rl import ppo
     from pyflyt_tpu_torch.rl.networks import ActorCritic
@@ -664,8 +1124,7 @@ def main(argv=None) -> int:
 
     # 2. build every kernel of the path at once
     t0 = time.perf_counter()
-    sources = {cq.KERNEL.source, cuda_policy.KERNEL.source, cuda_sgd.LOGP_KERNEL.source,
-               cuda_sgd.EPOCH_KERNEL.source}
+    sources = {k.source for k in all_kernels().values()}
     libs = cuda_build.build(sorted(sources))
     results["build_s"] = time.perf_counter() - t0
     for src, lib in libs.items():
@@ -694,15 +1153,14 @@ def main(argv=None) -> int:
     reset_s = time.perf_counter() - t0
     ars, obs, _ = ppo.rollout(net, env, ars, obs, 8, gen)  # warm-up
     torch.cuda.synchronize()
-    cq.KERNEL.launches = 0
-    cuda_policy.KERNEL.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     ars, obs, traj = ppo.rollout(net, env, ars, obs, ROLLOUT_STEPS, gen, refresh=64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"quadx_hover_step": cq.KERNEL.launches, "policy_value_forward": cuda_policy.KERNEL.launches}
-    for name, count in launches.items():
-        check(count == ROLLOUT_STEPS, f"{name} launched {count} times in {ROLLOUT_STEPS} rollout steps")
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "quadx_hover_step": ROLLOUT_STEPS, "policy_value_forward": ROLLOUT_STEPS}
+    check(launches == want, f"hover rollout launches {launches}, expected {want}")
     check(obs.shape == (N_ENVS, env.obs_size) and bool(torch.isfinite(obs).all()), "final obs")
     check(bool(torch.isfinite(traj.reward).all()), "non-finite rewards")
     check(bool(torch.isfinite(traj.value).all() and torch.isfinite(traj.log_prob).all()), "non-finite policy outputs")
@@ -732,18 +1190,7 @@ def main(argv=None) -> int:
     ops_a = N_ENVS * cq.ops_per_env(c)
     t_bytes_a, t_ops_a = bytes_a / H100_BYTES_PER_S, ops_a / H100_F32_FLOPS
 
-    w = net.kernel_weights()
-    obs_b = obs.contiguous()
-    ms_b, host_b = time_ms(lambda: cuda_policy.policy_value_forward(obs_b, w), iters=200)
-    plain_b, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs_b, w), iters=20,
-                         device_timed=False)
-    lib_b, _ = time_ms(library_forward(net, obs_b), iters=50)  # 11 launches a call
-    w_bytes = sum(t.numel() * t.element_size() for t in (
-        *w.pi_w, *w.pi_b, w.pi_head_w, w.pi_head_b, *w.vf_w, *w.vf_b, w.vf_head_w, w.vf_head_b))
-    bytes_b = obs_b.numel() * 4 + w_bytes + N_ENVS * (w.act_dim + 1) * 4
-    ops_b = cuda_policy.forward_flops(N_ENVS, w)
-    t_bytes_b, t_ops_b = bytes_b / H100_BYTES_PER_S, ops_b / H100_BF16_FLOPS
-
+    forward = time_policy_forward(net, obs)
     kernels = [
         {
             "name": "quadx_hover_step", "route": "cuda",
@@ -759,9 +1206,7 @@ def main(argv=None) -> int:
             "source": "pyflyt_tpu_torch/csrc/policy_value_forward.cu",
             "replaces": "pyflyt_tpu/ops/pallas_policy.py:35",
             "launches": launches["policy_value_forward"], "max_abs_err": err_b,
-            "ms": ms_b, "plain_ms": plain_b, "bound_ms": 1e3 * max(t_bytes_b, t_ops_b),
-            "bound_by": "bytes" if t_bytes_b >= t_ops_b else "operations",
-            "library_ms": lib_b,
+            **{k: forward[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         },
     ]
     # single steps, each ended by a synchronize: the steady steps and the
@@ -774,9 +1219,9 @@ def main(argv=None) -> int:
         "ms_per_step": rollout["ms_per_step"],
         "steady_step_median_ms": lat["steady_median_ms"],
         "refresh_step_median_ms": lat["refresh_median_ms"],
-        "kernel_device_ms_per_step": ms_a + ms_b,
-        "wrapper_host_ms_per_step": host_a + host_b,
-        "kernel_device_share_of_steady_step": (ms_a + ms_b) / lat["steady_median_ms"],
+        "kernel_device_ms_per_step": ms_a + forward["ms"],
+        "wrapper_host_ms_per_step": host_a + forward["host_ms"],
+        "kernel_device_share_of_steady_step": (ms_a + forward["ms"]) / lat["steady_median_ms"],
     }
     print(json.dumps({"breakdown": results["breakdown"], "card": card}), flush=True)
     if args.profile:
@@ -817,11 +1262,67 @@ def main(argv=None) -> int:
         })
     for k in kernels:
         k["launches_per_train_iteration"] = train["launches_per_iteration"][k["name"]]
+
+    # 11. K1 generic vs its twin: the envelope, then the draws
+    results["generic_checks"] = check_generic_step()
+    err_g = max(c["max_abs_err"] for c in results["generic_checks"].values())
+    results["generic_draws"] = check_generic_draws()
+    worst = {g: max(c["per_group"][g] for c in results["generic_checks"].values()) for g in ROW_GROUPS}
+    print(json.dumps({"generic_checks": {k: v["max_abs_err"] for k, v in results["generic_checks"].items()},
+                      "generic_worst_per_row_group": worst, "generic_draws": results["generic_draws"]}), flush=True)
+    # 12. the step drop-in and the use_kernel env
+    results["step_dropin"] = check_step_dropin()
+    err_g = max(err_g, *results["step_dropin"].values())
+    print(json.dumps({"step_dropin": results["step_dropin"]}), flush=True)
+    # 13. the flagship rollout (main path of K1 generic)
+    mod_roll, mod_state = mod_rollout(args.seed, card)
+    results["mod_rollout"] = mod_roll
+    print(json.dumps({"mod_rollout": mod_roll}), flush=True)
+    # 14. the flagship training
+    results["mod_train"], mod_tp, mod_runner = mod_train(args.seed, card)
+    print(json.dumps({"mod_train": {k: v for k, v in results["mod_train"].items() if k != "iterations"}}), flush=True)
+    print(json.dumps({"mod_train_iterations": results["mod_train"]["iterations"]}), flush=True)
+    # 15. the CLI
+    results["cli"] = cli_smoke(card)
+    print(json.dumps({"cli": results["cli"]}), flush=True)
+
+    # 16. K1 generic's time and bound at the recipe's shape (noise, gusts,
+    # per-env base, mode 9, NED)
+    genv = recipe_env()
+    gc = genv.consts
+    gpacked = mod_state.packed.contiguous()
+    gseed = torch.tensor([11], dtype=torch.int64, device="cuda")
+    ms_g, host_g = time_ms(lambda: cq.packed_step(gpacked, gseed, gc, 9, True), iters=200)
+    plain_g, _ = time_ms(lambda: cq.packed_step_plain(gpacked, gseed, gc, 9, True), iters=3, repeats=3,
+                         device_timed=False)
+    bytes_g = (cq.generic_rows_read(gc) + cq.ROWS) * 4 * N_ENVS + gseed.numel() * 8
+    ops_g = N_ENVS * cq.generic_ops_per_env(gc)
+    t_bytes_g, t_ops_g = bytes_g / H100_BYTES_PER_S, ops_g / H100_F32_FLOPS
+    kernels.insert(1, {
+        "name": "quadx_step", "route": "cuda", "source": "pyflyt_tpu_torch/csrc/quadx_step.cu",
+        "replaces": "pyflyt_tpu/ops/pallas_quadx.py:816", "launches": mod_roll["launches"]["quadx_step"],
+        "max_abs_err": err_g, "ms": ms_g, "plain_ms": plain_g, "bound_ms": 1e3 * max(t_bytes_g, t_ops_g),
+        "bound_by": "bytes" if t_bytes_g >= t_ops_g else "operations", "library_ms": None,
+        "host_ms": host_g, "launches_per_train_iteration": train["launches_per_iteration"]["quadx_step"],
+    })
+    # K4, K3 and K2 at the recipe's shapes (obs 16; 8192 rows; 1,048,576
+    # rows; 128 minibatches of 8192)
+    recipe_times = {"policy_value_forward": time_policy_forward(mod_runner.network, mod_runner.obs),
+                    **time_sgd_kernels(mod_tp, mod_runner, "recipe_sgd_times")}
+    results["recipe_kernel_times"] = recipe_times
+    mod_iters = results["mod_train"]["iterations"]
+    for k in kernels:  # per iteration of the recipe's training, both paths
+        k["launches_per_mod_default_iteration"] = mod_iters[1]["launches"][k["name"]]
+        k["launches_per_mod_fused_iteration"] = mod_iters[-1]["launches"][k["name"]]
+        if k["name"] in recipe_times:
+            k["recipe"] = {f: recipe_times[k["name"]][f]
+                           for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -829,6 +1330,25 @@ def main(argv=None) -> int:
                    "count": torch.cuda.device_count()},
     }), flush=True)
     return 0
+
+
+def time_policy_forward(net, obs) -> dict:
+    """K4 on ``obs``: device time, host time, the plain twin, the cuBLAS
+    chain and the bound (bf16 matmul operations, weights and I/O bytes)."""
+    from pyflyt_tpu_torch.ops import cuda_policy
+
+    w = net.kernel_weights()
+    obs = obs.contiguous()
+    n = obs.shape[0]
+    ms, host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=200)
+    plain, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs, w), iters=20, device_timed=False)
+    lib, _ = time_ms(library_forward(net, obs), iters=50)  # 11 launches a call
+    w_bytes = sum(t.numel() * t.element_size() for t in (
+        *w.pi_w, *w.pi_b, w.pi_head_w, w.pi_head_b, *w.vf_w, *w.vf_b, w.vf_head_w, w.vf_head_b))
+    t_bytes = (obs.numel() * 4 + w_bytes + n * (w.act_dim + 1) * 4) / H100_BYTES_PER_S
+    t_ops = cuda_policy.forward_flops(n, w) / H100_BF16_FLOPS
+    return {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "rows": n, "obs_dim": obs.shape[1]}
 
 
 def library_forward(net, obs):

@@ -1,4 +1,5 @@
-"""Carries parameters and optimizer state from the JAX package into the port.
+"""Carries parameters, optimizer state and env states from the JAX package
+into the port.
 
 The functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
 on the JAX side) and read them by attribute or key name only, so the port
@@ -13,7 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pyflyt_tpu_torch.core.state import Body6DoF
+from pyflyt_tpu_torch.core.wind import GaussianWind
 from pyflyt_tpu_torch.device import resolve_device
+from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
 from pyflyt_tpu_torch.models import quadx
 from pyflyt_tpu_torch.ops import motors, pid
 from pyflyt_tpu_torch.ops.cuda_sgd import params_to_leaves
@@ -48,6 +52,64 @@ def quadx_params_from_jax(tree, device: str | torch.device = "cuda") -> quadx.Qu
         pid_lin_pos=bank(tree.pid_lin_pos),
         pid_z_pos=bank(tree.pid_z_pos),
         pid_z_vel=bank(tree.pid_z_vel),
+    )
+
+
+def quadx_state_from_jax(tree, device: str | torch.device = "cuda") -> quadx.QuadXState:
+    """The port's batched ``QuadXState`` from the numpy leaves of a JAX
+    ``QuadXState`` (batch ``(N,)``; floats as f32, the contact flag as
+    bool, the physics step count as int32)."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+
+    def bank(b):
+        return pid.PIDState(integral=f(b.integral), prev_error=f(b.prev_error))
+
+    p = tree.pids
+    return quadx.QuadXState(
+        body=Body6DoF(pos=f(tree.body.pos), quat=f(tree.body.quat),
+                      lin_vel=f(tree.body.lin_vel), ang_vel=f(tree.body.ang_vel)),
+        read=quadx.QuadXRead(view=f(tree.read.view), ang_vel_body=f(tree.read.ang_vel_body),
+                             drag_local_vel=f(tree.read.drag_local_vel)),
+        throttle=f(tree.throttle),
+        pwm=f(tree.pwm),
+        setpoint=f(tree.setpoint),
+        pids=quadx.QuadXPIDState(
+            ang_vel=bank(p.ang_vel), ang_pos=bank(p.ang_pos), lin_vel=bank(p.lin_vel),
+            lin_pos=bank(p.lin_pos), z_pos=bank(p.z_pos), z_vel=bank(p.z_vel),
+        ),
+        contact=torch.tensor(np.array(tree.contact, dtype=bool), device=dev),
+        physics_steps=torch.tensor(np.array(tree.physics_steps, dtype=np.int32), device=dev),
+    )
+
+
+def mod_hover_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> ModHoverState:
+    """The port's ``ModHoverState`` from the numpy leaves of a batched JAX
+    ``ModHoverState`` (a ``vmap``-ed reset or step). The wind keeps its
+    per-env base, gust clip and convention; the JAX PRNG keys become the
+    one ``generator`` of the batch (its stream differs from threefry)."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    base = np.array(tree.wind.base_wind, dtype=np.float32).reshape(-1, 3)
+    gust = float(np.asarray(tree.wind.max_gust, dtype=np.float32).reshape(-1)[0])
+    return ModHoverState(
+        drone=quadx_state_from_jax(tree.drone, dev),
+        wind=GaussianWind(base_wind=f(base), generator=generator, max_gust=gust,
+                          orn_conv=tree.wind.orn_conv),
+        generator=generator,
+        step_count=torch.tensor(np.array(tree.step_count, dtype=np.int32), device=dev),
+        termination=b(tree.termination),
+        truncation=b(tree.truncation),
+        reward=f(tree.reward),
+        action=f(tree.action),
+        target_pos=f(tree.target_pos),
+        target_psi=f(tree.target_psi),
+        state16=f(tree.state16),
+        collision=b(tree.collision),
+        env_complete=b(tree.env_complete),
     )
 
 

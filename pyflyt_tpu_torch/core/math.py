@@ -152,6 +152,11 @@ def quat_integrate(q: Tensor, omega_world: Tensor, dt: float) -> Tensor:
     return normalize(quat_mul(dq, q))
 
 
+def wrap_angle(a: Tensor) -> Tensor:
+    """Wraps angle(s) into ``[-pi, pi)``."""
+    return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
+
+
 # ---------------------------------------------------------------------------
 # orientation-convention remaps (the integrator always runs ENU)
 # ---------------------------------------------------------------------------

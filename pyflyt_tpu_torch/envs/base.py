@@ -51,6 +51,33 @@ def tree_select(mask: Tensor, on_true: Any, on_false: Any) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# exact auto-reset
+# ---------------------------------------------------------------------------
+
+
+def autoreset_step(env: BatchedEnv, state: Any, action: Tensor) -> tuple[Any, StepOut]:
+    """Batched step with exact auto-reset: finished envs take a fresh
+    reset, drawn every step for the whole batch from the stepped state's
+    generator (``state.generator``; None where the env's reset draws
+    nothing). ``StepOut`` describes the finished transition, with the next
+    episode's first obs in ``obs`` and the pre-reset obs in
+    ``info["terminal_observation"]``.
+
+    The whole batch is reset every step, as the JAX package's vmap does;
+    ``cached_autoreset_step`` amortizes that. No ``_unalias`` is needed
+    here: PyTorch does not donate buffers.
+    """
+    state, out = env.step(state, action)
+    done = out.termination | out.truncation
+    reset_state, reset_obs = env.reset(done.shape[0], getattr(state, "generator", None))
+    state = tree_select(done, reset_state, state)
+    obs = torch.where(done[:, None], reset_obs, out.obs)
+    return state, dataclasses.replace(
+        out, obs=obs, info={**out.info, "terminal_observation": out.obs}
+    )
+
+
+# ---------------------------------------------------------------------------
 # amortized auto-reset
 # ---------------------------------------------------------------------------
 

@@ -11,7 +11,8 @@ observation from packed rows. Reset goes through the plain
 Semantics match ``QuadXHoverEnv`` with noise off, apart from the
 detection-grade contact, which only differs after a termination.
 Envelope: modes 0 and 8, ENU, quaternion or euler observations, dense or
-sparse reward.
+sparse reward. It auto-resets through its reset cache only: like the JAX
+package's, it has no exact ``autoreset_step``.
 """
 
 from __future__ import annotations
@@ -154,6 +155,17 @@ class PackedQuadXHoverEnv:
             },
         )
         return PackedHoverState(packed=out, generator=state.generator), step_out
+
+    # ----- auto-reset (PPO dispatches on these methods) ---------------------
+    def cached_autoreset_init(
+        self, num_envs: int, generator: torch.Generator | None = None
+    ) -> tuple["PackedAutoResetState", Tensor]:
+        return packed_autoreset_init(self, num_envs, generator)
+
+    def cached_autoreset_step(
+        self, ars: "PackedAutoResetState", action: Tensor, refresh: int = 64
+    ) -> tuple["PackedAutoResetState", StepOut]:
+        return packed_cached_autoreset_step(self, ars, action, refresh)
 
 
 # ---------------------------------------------------------------------------

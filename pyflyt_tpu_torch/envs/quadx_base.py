@@ -8,6 +8,12 @@ Stepping semantics as in the JAX module:
 - once terminated or truncated, an env's state is frozen for the rest of
   the agent step;
 - reset runs 10 stabilization aviary steps.
+
+``use_kernel=True`` mirrors the JAX envs' ``use_pallas``: each inner
+aviary step goes through the generic QuadX kernel (``ops/cuda_quadx.step``,
+pack → one launch → unpack) instead of ``models/quadx.step``. Its ground
+contact is detection-grade, which only shows after a contact, where the
+tasks terminate.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from pyflyt_tpu_torch.core import math as pm
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.envs.base import StepOut, tree_select
 from pyflyt_tpu_torch.models import quadx
+from pyflyt_tpu_torch.ops import cuda_quadx
 
 CONTROL_HZ = 120
 
@@ -55,6 +62,7 @@ class QuadXBaseEnv:
     orn_conv: str = "ENU_FLU"
     drone_model: str = "cf2x"
     device: str | torch.device = "cuda"
+    use_kernel: bool = False  # the counterpart of the JAX envs' use_pallas
 
     def __post_init__(self):
         if CONTROL_HZ % self.agent_hz != 0:
@@ -85,6 +93,22 @@ class QuadXBaseEnv:
     @functools.cached_property
     def params(self) -> quadx.QuadXParams:
         return quadx.build_params(self.cfg, self.device)
+
+    @functools.cached_property
+    def kernel_consts(self) -> cuda_quadx.GenericConsts:
+        """The generic kernel's constants, read once (``use_kernel``)."""
+        return cuda_quadx.generic_consts(self.params, self.cfg)
+
+    def aviary_step(
+        self, drone: quadx.QuadXState, generator: torch.Generator | None
+    ) -> tuple[quadx.QuadXState, Tensor]:
+        """One aviary step: ``models/quadx.step``, or the generic kernel
+        under ``use_kernel``."""
+        if self.use_kernel:
+            return cuda_quadx.step(
+                drone, self.params, self.cfg, self.flight_mode, generator, consts=self.kernel_consts
+            )
+        return quadx.step(drone, self.params, self.cfg, self.flight_mode, generator)
 
     @property
     def attitude_size(self) -> int:
@@ -180,9 +204,7 @@ class QuadXBaseEnv:
         )
         for _ in range(self.env_step_ratio):
             done_before = state.termination | state.truncation
-            drone, contact = quadx.step(
-                state.drone, self.params, self.cfg, self.flight_mode, state.generator
-            )
+            drone, contact = self.aviary_step(state.drone, state.generator)
             new_state = task_update(dataclasses.replace(state, drone=drone), contact)
             state = tree_select(done_before, state, new_state)  # the done-freeze
         state = dataclasses.replace(state, step_count=state.step_count + 1)

@@ -7,10 +7,11 @@ Per physics iteration, as in the JAX module:
   3. update_state     (reads the pre-integration state: one-step latency)
   4. integrate        (semi-implicit Euler at physics_hz)
 
-This slice ports flight modes 0 (body rates + thrust through the ang-vel
-PID), 8 (direct PWM) and 9 (motor mix of the setpoint). The other modes,
-``wind_fn`` and ``custom_controller`` raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+The port has flight modes 0 (body rates + thrust through the ang-vel
+PID), 8 (direct PWM) and 9 (motor mix of the setpoint), and wind through
+``step(wind_fn=...)`` (``core/wind.py``). The other modes and
+``custom_controller`` raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ def _check_mode(mode: int) -> None:
     if mode not in PORTED_MODES:
         item = _ROADMAP_ITEM.get(mode, "quadx flight modes -1 and 1-6")
         raise NotImplementedError(
-            f"flight mode {mode} is not ported yet: ROADMAP.md, port queue "
-            f"item '{item}'"
+            f"flight mode {mode} is not ported yet: ROADMAP.md, open item 6, "
+            f"port queue item '{item}'"
         )
 
 
@@ -215,8 +216,11 @@ def init_pids(params: QuadXParams, batch_shape: tuple[int, ...] = ()) -> QuadXPI
     )
 
 
-def update_state(body: Body6DoF, cfg: QuadXConfig) -> QuadXRead:
-    """The read snapshot from the raw body state."""
+def update_state(
+    body: Body6DoF, cfg: QuadXConfig, wind_vel: Tensor | None = None
+) -> QuadXRead:
+    """The read snapshot from the raw body state; the drag reads the
+    body-frame air velocity ``R^T (lin_vel - wind_vel)``."""
     R = pm.quat_to_rotmat(body.quat)
     lin_vel_b = torch.einsum("...ji,...j->...i", R, body.lin_vel)
     ang_vel_b = torch.einsum("...ji,...j->...i", R, body.ang_vel)
@@ -229,11 +233,19 @@ def update_state(body: Body6DoF, cfg: QuadXConfig) -> QuadXRead:
     else:
         lin_pos, ang_pos, lin_vel, ang_vel = body.pos, euler, lin_vel_b, ang_vel_b
     view = torch.stack([ang_vel, ang_pos, lin_vel, lin_pos], dim=-2)
-    return QuadXRead(view=view, ang_vel_body=ang_vel_b, drag_local_vel=lin_vel_b)
+    if wind_vel is None:
+        drag_local_vel = lin_vel_b
+    else:
+        drag_local_vel = torch.einsum("...ji,...j->...i", R, body.lin_vel - wind_vel)
+    return QuadXRead(view=view, ang_vel_body=ang_vel_b, drag_local_vel=drag_local_vel)
 
 
 def init_state(
-    params: QuadXParams, cfg: QuadXConfig, start_pos: Tensor, start_orn: Tensor
+    params: QuadXParams,
+    cfg: QuadXConfig,
+    start_pos: Tensor,
+    start_orn: Tensor,
+    wind_vel: Tensor | None = None,
 ) -> QuadXState:
     """The reset state; ``start_pos``/``start_orn`` are in the configured
     orientation convention, with leading batch dims."""
@@ -252,7 +264,7 @@ def init_state(
     z4 = start_pos.new_zeros((*batch, 4))
     return QuadXState(
         body=body,
-        read=update_state(body, cfg),
+        read=update_state(body, cfg, wind_vel),
         throttle=z4,
         pwm=z4.clone(),
         setpoint=z4.clone(),
@@ -377,6 +389,7 @@ def physics_iter(
     params: QuadXParams,
     cfg: QuadXConfig,
     generator: torch.Generator | None,
+    wind_vel: Tensor | None = None,
 ) -> QuadXState:
     """One physics iteration (control not included — see ``step``)."""
     throttle = motors.throttle_update(
@@ -384,7 +397,7 @@ def physics_iter(
         generator if cfg.noisy_motors else None,
     )
     force_b, torque_b = _wrench(state.read, throttle, state.contact, params)
-    new_read = update_state(state.body, cfg)  # one-physics-step sensor latency
+    new_read = update_state(state.body, cfg, wind_vel)  # one-physics-step sensor latency
     rb = integrator.RigidBodyParams(mass=params.mass, inertia=params.inertia)
     body = integrator.step(state.body, rb, force_b, torque_b, cfg.physics_period)
     body, contact = integrator.ground_contact(body, rb, _contact_geom(params))
@@ -409,16 +422,15 @@ def step(
 ) -> tuple[QuadXState, Tensor]:
     """One aviary step: ``physics_control_ratio`` physics iterations with the
     controller at iteration 0. Returns ``(state, any_contact)``. Motor noise
-    is drawn from ``generator`` (None: noise off)."""
-    if wind_fn is not None:
-        raise NotImplementedError(
-            "wind_fn is not ported yet: ROADMAP.md, port queue item "
-            "'core/wind and per-env wind'"
-        )
+    is drawn from ``generator`` (None: noise off); ``wind_fn(physics_steps,
+    pos)`` (``core/wind.py``) gives the ENU wind before each iteration."""
     any_contact = torch.zeros_like(state.contact)
     for s in range(cfg.physics_control_ratio):
         if s == 0:
             state = update_control(state, params, cfg, mode, custom_controller)
-        state = physics_iter(state, params, cfg, generator)
+        wind_vel = None
+        if wind_fn is not None:
+            wind_vel = wind_fn(state.physics_steps, state.body.pos)
+        state = physics_iter(state, params, cfg, generator, wind_vel)
         any_contact = any_contact | state.contact
     return state, any_contact

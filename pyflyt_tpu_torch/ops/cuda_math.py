@@ -9,10 +9,13 @@ Mosaic polynomials of the Pallas module.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import Tensor
+
+HALF_PI = math.pi / 2  # the NED yaw offset (quadx_lane.cuh::HALF_PI)
 
 
 def quat_rotmat(quat: Sequence[Tensor]) -> tuple[Tensor, ...]:

@@ -29,12 +29,7 @@ from typing import Any
 import torch
 from torch import Tensor
 
-from pyflyt_tpu_torch.envs.base import autoreset_init, cached_autoreset_step
-from pyflyt_tpu_torch.envs.packed_hover import (
-    PackedQuadXHoverEnv,
-    packed_autoreset_init,
-    packed_cached_autoreset_step,
-)
+from pyflyt_tpu_torch.envs.base import autoreset_init, autoreset_step, cached_autoreset_step
 from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
 from pyflyt_tpu_torch.rl.networks import ActorCritic, gaussian_entropy, gaussian_log_prob
 
@@ -47,8 +42,9 @@ class PPOConfig:
     tile their rows themselves.
 
     ``compute_dtype`` other than ``"float32"`` raises ``NotImplementedError``
-    (ROADMAP.md, open item 25); ``cached_reset_refresh=0`` needs the exact
-    ``autoreset_step``, still open (ROADMAP.md, item 7), and raises too.
+    (ROADMAP.md, open item 25). ``cached_reset_refresh=0`` (the default)
+    auto-resets exactly, through the env's own ``autoreset_step`` or
+    ``envs/base.autoreset_step``; an env without an exact path raises.
     """
 
     num_envs: int = 1024
@@ -172,12 +168,31 @@ def action_bounds(env, device: torch.device) -> tuple[Tensor, Tensor]:
     return as_t(low), as_t(high)
 
 
+def env_init(env, num_envs: int, generator: torch.Generator | None, refresh: int):
+    """The batch a rollout starts from (``ppo.py:307-325``): a natively
+    batched env resets itself (``cached_autoreset_init`` when ``refresh >
+    0``); any other env through ``envs/base`` (``autoreset_init`` when
+    ``refresh > 0``)."""
+    if getattr(env, "native_batch", False):
+        if refresh > 0:
+            return env.cached_autoreset_init(num_envs, generator)
+        return env.reset(num_envs, generator)
+    if refresh > 0:
+        return autoreset_init(env, num_envs, generator)
+    return env.reset(num_envs, generator)
+
+
 def env_step(env, ars, action: Tensor, refresh: int):
-    """One batch step under cached auto-reset, on the packed layout for a
-    ``PackedQuadXHoverEnv``."""
-    if isinstance(env, PackedQuadXHoverEnv):
-        return packed_cached_autoreset_step(env, ars, action, refresh)
-    return cached_autoreset_step(env, ars, action, refresh)
+    """One batch step with auto-reset (``ppo.py:379-391``): a natively
+    batched env's own ``cached_autoreset_step`` (``refresh > 0``) or exact
+    ``autoreset_step``; any other env through ``envs/base``."""
+    if getattr(env, "native_batch", False):
+        if refresh > 0:
+            return env.cached_autoreset_step(ars, action, refresh)
+        return env.autoreset_step(ars, action)
+    if refresh > 0:
+        return cached_autoreset_step(env, ars, action, refresh)
+    return autoreset_step(env, ars, action)
 
 
 @torch.no_grad()
@@ -193,11 +208,11 @@ def rollout(
     gamma: float | None = None,
     slot: bool = False,
 ):
-    """Collects ``num_steps`` steps from a batch under cached auto-reset.
+    """Collects ``num_steps`` steps from a batch under auto-reset
+    (``env_step``: cached when ``refresh > 0``, else exact).
 
-    ``ars``/``obs`` come from ``packed_autoreset_init`` (for a
-    ``PackedQuadXHoverEnv``) or ``autoreset_init``; ``generator`` draws the
-    action noise. With ``gamma`` set, a step truncated but not terminated
+    ``ars``/``obs`` come from ``env_init`` with the same ``refresh``;
+    ``generator`` draws the action noise. With ``gamma`` set, a step truncated but not terminated
     gets ``gamma·V(terminal_obs)`` added to its reward (SB3's time-limit
     bootstrap, f32 critic): at every step (``slot=False``), or once after
     the loop from one stored (obs, step) slot per env (``slot=True``, exact
@@ -330,9 +345,15 @@ class PPO:
             raise NotImplementedError(
                 f"compute_dtype={config.compute_dtype!r}: ROADMAP.md, open item 25 (bf16 compute_dtype)"
             )
-        if config.cached_reset_refresh <= 0:
+        native = getattr(env, "native_batch", False)
+        if native and config.cached_reset_refresh <= 0 and not hasattr(env, "autoreset_step"):
             raise NotImplementedError(
-                "cached_reset_refresh=0 needs the exact autoreset_step: ROADMAP.md, open item 7"
+                f"{type(env).__name__} has no exact autoreset_step (nor has its JAX "
+                "counterpart): set cached_reset_refresh > 0 (ROADMAP.md, item 7)"
+            )
+        if native and config.cached_reset_refresh > 0 and not hasattr(env, "cached_autoreset_init"):
+            raise ValueError(
+                f"{type(env).__name__} has no cached auto-reset; set cached_reset_refresh=0"
             )
         self.env = env
         self.config = config
@@ -342,8 +363,8 @@ class PPO:
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> RunnerState:
-        """Seeded network, zero Adam state, env batch (cached auto-reset)
-        and the runner's generator. The network is initialised on the CPU
+        """Seeded network, zero Adam state, env batch (``env_init``) and the
+        runner's generator. The network is initialised on the CPU
         from ``seed`` and moved to the env's device."""
         cfg = self.config
         dev = self.device
@@ -354,10 +375,7 @@ class PPO:
             device=dev, generator=torch.Generator().manual_seed(seed),
         )
         env_gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        if isinstance(self.env, PackedQuadXHoverEnv):
-            env_state, obs = packed_autoreset_init(self.env, cfg.num_envs, env_gen)
-        else:
-            env_state, obs = autoreset_init(self.env, cfg.num_envs, env_gen)
+        env_state, obs = env_init(self.env, cfg.num_envs, env_gen, cfg.cached_reset_refresh)
         return RunnerState(
             network=network,
             opt_state=AdamState.zeros(network),
@@ -381,9 +399,9 @@ class PPO:
     def _use_slot(self) -> bool:
         """``PPOConfig.slot_bootstrap`` (None = auto): the slot form only
         where truncations come from the time limit alone and the limit
-        exceeds the rollout. A natively batched env (the packed hover env)
-        declares no ``time_limit_truncation_only`` and takes the in-scan
-        form, as ``ppo.py:393-419`` decides."""
+        exceeds the rollout. A natively batched env that does not declare
+        ``time_limit_truncation_only`` (the packed hover env) takes the
+        in-scan form, as ``ppo.py:393-419`` decides."""
         cfg = self.config
         if cfg.slot_bootstrap is not None:
             return cfg.slot_bootstrap

@@ -36,6 +36,7 @@ def test_import_leaves_no_jax_flax_yaml_or_reference_package():
     mods = _all_submodules()
     assert "pyflyt_tpu_torch.ops.cuda_quadx" in mods and "pyflyt_tpu_torch.convert" in mods
     assert "pyflyt_tpu_torch.rl.train" in mods and "pyflyt_tpu_torch.ops.cuda_sgd" in mods
+    assert "pyflyt_tpu_torch.rl_training.hovering" in mods and "pyflyt_tpu_torch.core.wind" in mods
     code = textwrap.dedent(f"""
         import importlib, json, sys
         for m in {mods!r}:
@@ -62,12 +63,17 @@ def test_vehicle_json_is_a_fresh_copy():
 
 
 @pytest.mark.parametrize(
-    "entry", ["hover_env", "packed_env", "actor_critic", "resolve", "build_params", "quat_identity"]
+    "entry", ["hover_env", "packed_env", "actor_critic", "resolve", "build_params", "quat_identity",
+              "mod_hover_env", "packed_mod_hover_env", "gaussian_wind", "cli_env"]
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     from pyflyt_tpu_torch.core import math as tm
+    from pyflyt_tpu_torch.core.wind import GaussianWind
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
+    from pyflyt_tpu_torch.envs.quadx_mod import PackedQuadXModHoveringEnv
+    from pyflyt_tpu_torch.rl_training import hovering
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
+    from pyflyt_tpu_torch.envs.quadx_mod import QuadXModHoveringEnv
     from pyflyt_tpu_torch.models import quadx
     from pyflyt_tpu_torch.rl.networks import ActorCritic
 
@@ -79,6 +85,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "resolve": lambda: pyflyt_tpu_torch.resolve_device(),
         "build_params": lambda: quadx.build_params(quadx.QuadXConfig()),
         "quat_identity": lambda: tm.quat_identity((2,)),
+        "mod_hover_env": lambda: QuadXModHoveringEnv(flight_mode=9),
+        "packed_mod_hover_env": lambda: PackedQuadXModHoveringEnv.create(flight_mode=9),
+        "gaussian_wind": lambda: GaussianWind.init(None, 2, base_wind=(0.0, 0.0, 0.0)),
+        "cli_env": lambda: hovering.main(["eval", "--flight_mode", "9", "--checkpoint", "unused"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()

@@ -412,6 +412,7 @@ def test_deferred_options_raise(what):
         elif what == "bf16":
             ppo.PPO(env, ppo.PPOConfig(cached_reset_refresh=8, compute_dtype="bfloat16"))
         elif what == "refresh0":
-            ppo.PPO(env, ppo.PPOConfig())
+            # the packed hover env has no exact autoreset_step (nor has the JAX one)
+            ppo.PPO(PackedQuadXHoverEnv(base=env), ppo.PPOConfig())
         else:
             train(ppo.PPO(env, ppo.PPOConfig(cached_reset_refresh=8)), TrainConfig(use_mesh=True))

@@ -35,8 +35,29 @@ Phases, each of which fails the script on a failed check:
      metrics and best-model checkpoint under build/) and a checkpoint
      round trip whose resumed iteration must equal the uninterrupted one;
  10. times K3 and K2 at the training path's shapes against their bounds,
-     their plain twins and a library yardstick, and prints the ``kernels``
-     line for all four kernels.
+     their plain twins and a library yardstick;
+ 11-16. the generic QuadX kernel (K1 generic) against its twin over modes
+     0/8/9 x ENU/NED x wind, its draws by their statistics, the
+     ``cuda_quadx.step`` drop-in and the ``use_kernel`` env, the 8192-env
+     mod-hovering rollout and training (``ppo_solve_r5``'s recipe), the
+     hovering CLI (``train``, ``eval``, ``eval-pid-expert`` in mode 7);
+ 17. K1 generic in mode 7 (80 rows, ENU) against its twin at N=8192 and
+     1000 for three winds, and the mode-7 ``cuda_quadx.step`` drop-in
+     against ``models.quadx.step``;
+ 18. the waypoints kernel (row 4) against its twin in modes 7, 0 and 8 at
+     N=8192 and 1000 over 20 agent steps, reach, advance, all-reached,
+     termination, truncation and the freeze all firing, and its noise by
+     the throttle spread;
+ 19. K4 at the waypoints env's observation width 33 against its twin;
+ 20. the waypoints serving path: K4 acting in 8192 stock mode-7
+     PackedQuadXWaypointsEnv envs for 128 steps, one launch of each per
+     step, and the per-step split (``wp_rollout``);
+ 21. PPOConfig's defaults at 8192 envs on QuadXWaypointsEnv(flight_mode=7,
+     use_kernel=True), a warm-up and a timed iteration, env_step_ratio K1
+     launches per env step (``wp_train``);
+ 22. times and bounds at the waypoints shapes (row 4, K1 generic mode 7,
+     K4 and K3 at obs 33), then K4, K3 and K2 at the recipe's shapes, and
+     the ``kernels`` line for all six kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -386,8 +407,8 @@ def train_path(seed: int, card: str):
     init_s = time.perf_counter() - t0
     before = [p.detach().clone() for p in runner.network.parameters()]
     kernels = all_kernels()
-    want = {"quadx_hover_step": cfg.rollout_steps, "quadx_step": 0, "policy_value_forward": cfg.rollout_steps,
-            "logp_forward": 1, "fused_epoch": cfg.num_epochs}
+    want = {**dict.fromkeys(kernels, 0), "quadx_hover_step": cfg.rollout_steps,
+            "policy_value_forward": cfg.rollout_steps, "logp_forward": 1, "fused_epoch": cfg.num_epochs}
     per_update = cfg.num_epochs * cfg.num_minibatches
     walls, split = [], None
     for it in range(TRAIN_ITERS):
@@ -869,8 +890,8 @@ def all_kernels():
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
     return {"quadx_hover_step": cq.KERNEL, "quadx_step": cq.GENERIC_KERNEL,
-            "policy_value_forward": cuda_policy.KERNEL, "logp_forward": cuda_sgd.LOGP_KERNEL,
-            "fused_epoch": cuda_sgd.EPOCH_KERNEL}
+            "quadx_waypoints_step": cq.WAYPOINTS_KERNEL, "policy_value_forward": cuda_policy.KERNEL,
+            "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL}
 
 
 def zero_launches() -> None:
@@ -1031,8 +1052,10 @@ def cli_smoke(card: str) -> dict:
     """The CLI on the card: ``train`` for one iteration at 512 envs (the
     plain env at the CLI's defaults, mode 9, a 4-episode eval, checkpoints
     in a scratch directory under build/), ``eval --checkpoint`` on the fixed
-    NED scenario (return, length, a 34-column CSV), and ``eval-pid-expert``,
-    which must raise NotImplementedError naming ROADMAP item 6."""
+    NED scenario (return, length, a 34-column CSV), ``eval-pid-expert`` in
+    mode 7 (the NED position cascade of models/quadx) for a 2 s episode,
+    and ``eval-pid-expert --expert_mode 10``, which must raise
+    NotImplementedError naming ROADMAP item 6."""
     import csv
     import io
     import shutil
@@ -1071,17 +1094,433 @@ def cli_smoke(card: str) -> dict:
             rows = list(csv.reader(f))
         check(rows[0] == COLUMNS and len(rows) == length + 1 and all(len(r) == 34 for r in rows),
               "cli eval: the 34-column CSV")
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            pid_total, pid_length = hovering.main(["eval-pid-expert", "--max_duration_seconds", "2.0"])
+        pid_s = time.perf_counter() - t0
+        check(math.isfinite(pid_total) and 1 <= pid_length <= 162, f"cli eval-pid-expert: {pid_total}, {pid_length}")
         try:
-            hovering.main(["eval-pid-expert"])
-            fail("cli eval-pid-expert did not raise")
+            hovering.main(["eval-pid-expert", "--expert_mode", "10"])
+            fail("cli eval-pid-expert --expert_mode 10 did not raise")
         except NotImplementedError as e:
-            check("item 6" in str(e), f"cli eval-pid-expert: {e}")
+            check("item 6" in str(e), f"cli eval-pid-expert mode 10: {e}")
             pid_msg = str(e)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {"card": card, "train_s": train_s, "train_eval_mean_reward": row["eval_mean_reward"],
             "train_eval_mean_length": row["eval_mean_length"], "eval_s": eval_s, "eval_episode_reward": total,
-            "eval_episode_length": length, "csv_rows": len(rows) - 1, "eval_pid_expert": pid_msg}
+            "eval_episode_length": length, "csv_rows": len(rows) - 1,
+            "eval_pid_expert": {"episode_reward": pid_total, "episode_length": pid_length, "s": pid_s},
+            "eval_pid_expert_mode10": pid_msg}
+
+
+# ---------------------------------------------------------------------------
+# phases 17-22: QuadX-Waypoints (mode 7 in K1 generic, the row-4 kernel)
+# ---------------------------------------------------------------------------
+
+
+WP_STEPS = 20  # agent steps of the row-4 checks
+WP_ROLLOUT_STEPS = 128  # bench_suite.py's waypoints rollout (8192 envs x 128 steps)
+# the row-4 checks' envs: mode 7 with a reach distance that lets some lanes
+# reach all four targets in 20 steps; modes 0 and 8 with a 15-step limit
+# (and in mode 8 a 2 m dome) so truncation and leaving the dome fire
+WP_CHECKS = {7: dict(goal_reach_distance=1.2), 0: dict(max_duration_seconds=0.5),
+             8: dict(flight_dome_size=2.0, max_duration_seconds=0.5)}
+# tests/test_packed_waypoints.py's rule: a reach sits on a threshold and a
+# chaotic lane drifts, so at most 4 lanes in 64 may leave the curve
+# 5e-4 + 4e-4 * step; the flags of the other lanes match exactly
+WP_DIVERGED_SHARE = 4 / 64
+CASCADE_GROUP = {"cascade": (56, 74)}
+
+
+def mode7_setpoints(n: int, step: int):
+    """Position setpoints [x, y, yaw, z] on the card: x, y within 2 m, any
+    yaw, 1-4 m up."""
+    import torch
+
+    g = torch.Generator().manual_seed(4000 + step)
+    sp = torch.rand(4, n, generator=g)
+    sp[:2] = (sp[:2] - 0.5) * 4.0
+    sp[2] = (sp[2] - 0.5) * 2 * math.pi
+    sp[3] = 1.0 + 3.0 * sp[3]
+    return sp.cuda()
+
+
+def check_generic_mode7() -> dict:
+    """K1 generic in mode 7 (80 rows, ENU) vs its twin, noise and gusts off,
+    at N=8192 and 1000 over GENERIC_STEPS aviary steps, wind none, baked and
+    per-env (an eighth of the fleet grounded); the cascade's rows are a row
+    group of their own, contact and wind rows exact, rows 74-79 zero. Then
+    ``cuda_quadx.step`` mode 7 against ``models.quadx.step`` (per-env
+    GaussianWind, 6 steps, airborne)."""
+    import dataclasses
+
+    import torch
+    from pyflyt_tpu_torch.core.wind import GaussianWind
+    from pyflyt_tpu_torch.models import quadx
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    cases = {}
+    groups = {**ROW_GROUPS, **CASCADE_GROUP}
+    for n in (N_ENVS, N_RAGGED):
+        cfg, params, st = airborne_state("ENU_FLU", n, seed=51, grounded=True)
+        consts = cq.generic_consts(params, cfg)
+        base = (torch.rand(3, n, generator=torch.Generator().manual_seed(52)) * 8 - 4).cuda()
+        for kind, wind in (("none", None),
+                           ("baked", {"kind": "gaussian", "base": (3.0, -2.0, 0.5), "max_gust": 0.0}),
+                           ("per_env", {"kind": "gaussian", "per_env_base": True, "max_gust": 0.0})):
+            packed = cq.pack_state(st, 7)
+            if kind == "per_env":
+                packed[cq._WBASE : cq._WBASE + 3] = base
+            seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+            kern, plain = packed.clone(), packed.clone()
+            errs = dict.fromkeys(groups, 0.0)
+            hits = 0
+            for i in range(GENERIC_STEPS):
+                sp = mode7_setpoints(n, i)
+                kern[cq._SP : cq._SP + 4] = sp
+                plain[cq._SP : cq._SP + 4] = sp
+                kern = cq.packed_step(kern, seed, consts, 7, False, wind)
+                plain = cq.packed_step_plain(plain, seed, consts, 7, False, wind)
+                torch.cuda.synchronize()
+                where = f"generic mode 7 N={n} wind {kind} step {i}"
+                check(kern.shape == (cq.ROWS_MODE7, n) and bool(torch.isfinite(kern).all()), f"{where}: state")
+                for name, (a, b) in groups.items():
+                    errs[name] = max(errs[name], (kern[a:b] - plain[a:b]).abs().max().item())
+                check(torch.equal(kern[cq._CON : cq._ANY + 1], plain[cq._CON : cq._ANY + 1]), f"{where}: contact")
+                check(torch.equal(kern[cq._WBASE : cq._LP_INT], plain[cq._WBASE : cq._LP_INT]), f"{where}: wind rows")
+                check(not bool(kern[cq._ZV_PRV + 1 :].any()), f"{where}: rows 74-79 not zero")
+                hits += int((kern[cq._ANY] > 0.5).sum())
+            worst = max(errs.values())
+            check(worst <= GENERIC_ATOL, f"generic mode 7 N={n} wind {kind}: error {errs}")
+            check(hits > 0, f"generic mode 7 N={n} wind {kind}: no contact")
+            cases[f"mode7/N{n}/{kind}"] = {"max_abs_err": worst, "per_group": errs}
+
+    cfg, params, st = airborne_state("ENU_FLU", N_ENVS, seed=53, grounded=False)
+    base = torch.rand(N_ENVS, 3, generator=torch.Generator().manual_seed(54)) * 8 - 4
+    wind = GaussianWind.init(None, N_ENVS, base_wind=base.cuda(), max_gust=0.0, orn_conv="ENU_FLU", device="cuda")
+    consts = cq.generic_consts(params, cfg)
+    ref, got = st, st
+    launches = cq.GENERIC_KERNEL.launches
+    err = 0.0
+    for i in range(6):
+        sp = mode7_setpoints(N_ENVS, i).T.contiguous()
+        ref, rc = quadx.step(dataclasses.replace(ref, setpoint=sp), params, cfg, 7, None, wind_fn=wind)
+        got, gc = cq.step(dataclasses.replace(got, setpoint=sp), params, cfg, 7, None, wind=wind, consts=consts)
+        torch.cuda.synchronize()
+        for a, b in ((got.read.view, ref.read.view), (got.body.pos, ref.body.pos), (got.body.quat, ref.body.quat),
+                     (got.body.lin_vel, ref.body.lin_vel), (got.body.ang_vel, ref.body.ang_vel),
+                     (got.pids.lin_pos.integral, ref.pids.lin_pos.integral),
+                     (got.pids.z_vel.prev_error, ref.pids.z_vel.prev_error)):
+            err = max(err, (a - b).abs().max().item())
+        check(torch.equal(gc, rc), f"mode-7 step drop-in step {i}: contact differs")
+    check(err <= GENERIC_ATOL, f"mode-7 step drop-in: error {err}")
+    check(cq.GENERIC_KERNEL.launches - launches == 6, "mode-7 step drop-in: one launch per aviary step")
+    cases["mode7/step_dropin"] = {"max_abs_err": err}
+    return cases
+
+
+def wp_env(mode: int, **kw):
+    from pyflyt_tpu_torch.envs import PackedQuadXWaypointsEnv, QuadXWaypointsEnv
+
+    return PackedQuadXWaypointsEnv(QuadXWaypointsEnv(flight_mode=mode, device="cuda", **kw))
+
+
+def wp_actions(mode: int, packed, step: int, n: int):
+    """Agent actions on the card: mode 7 chases each lane's current target
+    (the first waypoint rows hold it, in world coordinates); mode 0 random
+    rates, weak thrust on half the fleet; mode 8 random PWM, a third of the
+    fleet at zero and a sixth at 0.9."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    if mode == 7:
+        cur = packed[cq.rows_for(7) + cq._WP_TGT : cq.rows_for(7) + cq._WP_TGT + 3]
+        return torch.stack([cur[0], cur[1], torch.zeros_like(cur[0]), cur[2]])
+    g = torch.Generator().manual_seed(3000 + step)
+    a = torch.rand(4, n, generator=g)
+    if mode == 0:
+        a[:3] = (a[:3] - 0.5) * 1.2
+        a[3] = 0.3 * a[3]
+        a[3, n // 2 :] += 0.35
+    else:
+        a = 0.1 + 0.5 * a
+        a[:, : n // 3] = 0.0
+        a[:, n // 3 : n // 2] = 0.9
+    return a.cuda()
+
+
+def check_waypoints_step() -> dict:
+    """The row-4 kernel vs its twin in modes 7, 0 and 8 at N=8192 and 1000
+    over WP_STEPS agent steps from the env's reset (noise off), an eighth of
+    the fleet started 2 cm above the ground falling and an eighth at the
+    dome's edge flying out: reach, advance, all-reached, termination,
+    truncation and the freeze all fire (each is checked to). Per lane, the
+    largest difference over all rows; at most WP_DIVERGED_SHARE of the
+    lanes beyond 5e-4 + 4e-4 * step, every row of the others (flags
+    included) within it. A frozen lane keeps every row but the setpoint,
+    the step count and the re-armed reward. Then the noise: identical lanes, one noisy agent step,
+    the throttle spread against the twin's."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+
+    out = {}
+    for mode, kw in WP_CHECKS.items():
+        env = wp_env(mode, noisy_motors=False, **kw)
+        wb = cq.rows_for(mode)
+        for n in (N_ENVS, N_RAGGED):
+            state, _ = env.reset(n, torch.Generator(device="cuda").manual_seed(60 + mode))
+            packed = state.packed.clone()
+            packed[cq._POS + 2, : n // 8] = 0.02
+            packed[cq._LVEL + 2, : n // 8] = -1.0
+            packed[cq._POS, n // 8 : n // 4] = 0.99 * math.sqrt(env.consts.dome2)
+            packed[cq._LVEL, n // 8 : n // 4] = 3.0
+            seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+            kern, plain = packed.clone(), packed.clone()
+            ev = dict.fromkeys(("reach", "all_reached", "termination", "truncation", "out_of_bounds",
+                                "collision", "frozen"), 0)
+            err, diverged = 0.0, 0
+            keep = torch.ones(cq.rows_for_waypoints(mode), dtype=torch.bool, device="cuda")
+            keep[cq._SP : cq._SP + 4] = False
+            keep[cq._RWD] = False  # re-armed to -0.1 every agent step, frozen or not
+            keep[cq._STEP] = False
+            for i in range(WP_STEPS):
+                a = wp_actions(mode, kern, i, n)
+                kern[cq._SP : cq._SP + 4] = a
+                plain[cq._SP : cq._SP + 4] = a
+                before = kern.clone()
+                kern = cq.packed_waypoints_step(kern, seed, env.consts, mode, False)
+                plain = cq.packed_waypoints_step_plain(plain, seed, env.consts, mode, False)
+                torch.cuda.synchronize()
+                where = f"waypoints mode {mode} N={n} step {i}"
+                check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+                lane = (kern - plain).abs().amax(0)
+                bad = lane > 5e-4 + 4e-4 * i
+                diverged = max(diverged, int(bad.sum()))
+                check(int(bad.sum()) <= WP_DIVERGED_SHARE * n, f"{where}: {int(bad.sum())} lanes diverged")
+                err = max(err, lane[~bad].max().item())
+                done0 = (before[cq._TERM] > 0.5) | (before[cq._TRUNC] > 0.5)
+                check(torch.equal(kern[keep][:, done0], before[keep][:, done0]), f"{where}: a frozen lane moved")
+                ev["frozen"] += int(done0.sum())
+                ev["reach"] += int((kern[wb + cq._WP_REM] < before[wb + cq._WP_REM] - 0.5).sum())
+            for name, row in (("all_reached", wb + cq._WP_CPLT), ("termination", cq._TERM),
+                              ("truncation", cq._TRUNC), ("out_of_bounds", cq._OOB), ("collision", cq._COLL)):
+                ev[name] = int((kern[row] > 0.5).sum())
+            need = {7: ("reach", "all_reached", "termination", "out_of_bounds", "collision", "frozen"),
+                    0: ("termination", "truncation", "frozen"), 8: ("termination", "truncation", "out_of_bounds")}[mode]
+            check(all(ev[k] > 0 for k in need), f"waypoints mode {mode} N={n}: events {ev}")
+            out[f"mode{mode}/N{n}"] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev}
+
+    env = wp_env(7, noisy_motors=False)
+    state, _ = env.reset(N_ENVS, torch.Generator(device="cuda").manual_seed(70))
+    packed = state.packed[:, :1].expand(-1, N_ENVS).contiguous()  # identical lanes
+    seed = torch.tensor([9876], dtype=torch.int64, device="cuda")
+    tk = cq.packed_waypoints_step(packed, seed, env.consts, 7, True)[cq._THR : cq._THR + 4]
+    tp = cq.packed_waypoints_step_plain(packed, seed, env.consts, 7, True)[cq._THR : cq._THR + 4]
+    sk, sp_ = tk.std(1), tp.std(1)
+    se = torch.sqrt((sk**2 + sp_**2) / N_ENVS)
+    check(bool((sk > 0).all()), "noisy waypoints kernel: no spread")
+    check(bool(((tk.mean(1) - tp.mean(1)).abs() <= 6 * se).all()), "noisy waypoints kernel: throttle means")
+    check(bool(((sk / sp_ - 1).abs() <= 0.05).all()), f"noisy waypoints throttle std {sk.tolist()} vs {sp_.tolist()}")
+    out["noise"] = {"throttle_std_kernel": sk.tolist(), "throttle_std_plain": sp_.tolist()}
+    return out
+
+
+def wp_rollout(seed: int, card: str):
+    """The serving path: a 2x256 tanh ActorCritic (obs 33, seeded random
+    weights) acting through K4 in 8192 stock PackedQuadXWaypointsEnv(
+    QuadXWaypointsEnv(flight_mode=7)) envs (noise on) for WP_ROLLOUT_STEPS
+    steps, without resets (finished lanes stay frozen, as in an
+    evaluation): one row-4 and one K4 launch per step, nothing else. Then
+    the per-step split, each part on its own."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+    from pyflyt_tpu_torch.rl import ppo
+    from pyflyt_tpu_torch.rl.networks import ActorCritic, gaussian_log_prob
+
+    env = wp_env(7)
+    net = ActorCritic(env.flat_obs_size, 4, device="cuda", generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+
+    def run(state, obs, steps):
+        rewards = []
+        for _ in range(steps):
+            action, _, _ = ppo.act(net, obs, gen, fused=True)
+            state, out = env.step(state, torch.clamp(action, low, high))
+            obs = ppo._flat_obs(out.obs)
+            rewards.append(out.reward)
+        return state, obs, out, torch.stack(rewards)
+
+    t0 = time.perf_counter()
+    state, obs = env.reset(N_ENVS, gen)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    obs = ppo._flat_obs(obs)
+    state, obs, _, _ = run(state, obs, 4)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, obs, out, rewards = run(state, obs, WP_ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "quadx_waypoints_step": WP_ROLLOUT_STEPS,
+            "policy_value_forward": WP_ROLLOUT_STEPS}
+    check(launches == want, f"waypoints rollout launches {launches}, expected {want}")
+    check(obs.shape == (N_ENVS, 33) and bool(torch.isfinite(obs).all()), "waypoints rollout: final obs")
+    check(bool(torch.isfinite(rewards).all()), "waypoints rollout: non-finite rewards")
+    reached = out.info["num_targets_reached"]
+    check(bool(((reached >= 0) & (reached <= 4)).all()), "waypoints rollout: num_targets_reached")
+
+    # the per-step split, each part on its own
+    w = net.kernel_weights()
+    k4_ms, k4_host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=200)
+    mean, value = cuda_policy.policy_value_forward(obs, w)
+    log_std = net.clamped_log_std().detach().expand_as(mean)
+
+    def sample():
+        a = mean + torch.exp(log_std) * torch.randn(mean.shape, generator=gen, device="cuda")
+        return a, gaussian_log_prob(mean, log_std, a)
+
+    sample_ms = host_wall_ms(sample, iters=50)
+    packed = state.packed.contiguous()
+    seed_t = torch.tensor([5], dtype=torch.int64, device="cuda")
+    kernel_ms, kernel_host = time_ms(lambda: cq.packed_waypoints_step(packed, seed_t, env.consts, 7, True), iters=200)
+    obs_ms = host_wall_ms(lambda: ppo._flat_obs(env._obs(packed)), iters=50)
+    action = torch.zeros(N_ENVS, 4, device="cuda")
+    step_ms = host_wall_ms(lambda: env.step(state, action), iters=50)
+    act_ms = host_wall_ms(lambda: ppo.act(net, obs, gen, fused=True), iters=50)
+    zero_launches()  # the split's launches are not the main path's
+    done = out.termination | out.truncation
+    return {
+        "card": card, "num_envs": N_ENVS, "steps": WP_ROLLOUT_STEPS, "wall_s": wall,
+        "env_steps_per_s": N_ENVS * WP_ROLLOUT_STEPS / wall, "ms_per_step": 1e3 * wall / WP_ROLLOUT_STEPS,
+        "reset_s": reset_s, "lanes_done": int(done.sum()), "targets_reached": int(reached.sum()),
+        "mean_reward": float(rewards.mean()), "launches": launches,
+        "split_ms": {"k4_device": k4_ms, "k4_wrapper_host": k4_host, "sample_host": sample_ms,
+                     "act_total_host": act_ms, "kernel_device": kernel_ms, "kernel_wrapper_host": kernel_host,
+                     "obs_assembly_host": obs_ms, "env_step_total_host": step_ms},
+    }, state, net, obs
+
+
+def wp_train(seed: int, card: str) -> dict:
+    """PPOConfig's defaults at 8192 envs (32 steps, 15 epochs x 32
+    minibatches, exact auto-reset, f32 autograd) on the plain
+    QuadXWaypointsEnv(flight_mode=7, use_kernel=True): a warm-up iteration
+    and one timed, split iteration. Each inner aviary step is one K1
+    generic launch in mode 7 (env_step_ratio per env step); nothing else
+    launches. Adam's count advances by 15 x 32 per iteration."""
+    import torch
+    from pyflyt_tpu_torch.envs import QuadXWaypointsEnv
+    from pyflyt_tpu_torch.rl import PPO, PPOConfig
+
+    env = QuadXWaypointsEnv(flight_mode=7, use_kernel=True, device="cuda")
+    cfg = PPOConfig(num_envs=N_ENVS)
+    tp = PPO(env, cfg)
+    t0 = time.perf_counter()
+    runner = tp.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(runner.obs.shape == (N_ENVS, 33), "waypoints training: flat obs width")
+    rows = []
+    for it in range(2):
+        count0 = int(runner.opt_state.count)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, metrics, split = run_iteration(tp, runner, split=it == 1)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = {**dict.fromkeys(launches, 0), "quadx_step": cfg.rollout_steps * env.env_step_ratio}
+        check(launches == want, f"waypoints training iteration {it}: launches {launches}, expected {want}")
+        check(int(runner.opt_state.count) - count0 == cfg.num_epochs * cfg.num_minibatches,
+              f"waypoints training iteration {it}: Adam count")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"waypoints training iteration {it}: metrics")
+        rows.append({"wall_s": wall, "split_s": split, "launches": launches,
+                     "metrics": {k: float(v) for k, v in metrics.items()}})
+    check(all(bool(torch.isfinite(p).all()) for p in runner.network.parameters()), "waypoints training: params")
+    wall = rows[-1]["wall_s"]
+    zero_launches()
+    return {"card": card, "num_envs": cfg.num_envs, "rollout_steps": cfg.rollout_steps, "batch": cfg.batch_size,
+            "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches, "init_s": init_s,
+            "warmup_s": rows[0]["wall_s"], "wall_s": wall, "samples_per_s": cfg.batch_size / wall,
+            "split_s": rows[-1]["split_s"], "launches_per_iteration": rows[-1]["launches"],
+            "metrics": rows[-1]["metrics"]}
+
+
+def ptxas_usage(source: str) -> dict:
+    """The most registers and stack bytes any instantiation of ``source``
+    uses, and its spill bytes summed over the instantiations (the build's
+    ``-Xptxas -v`` report)."""
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    log = cuda_build.library_path(source).with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    num = lambda pat: [int(v) for v in re.findall(pat, text)]  # noqa: E731
+    return {"max_registers": max(num(r"Used (\d+) registers"), default=None),
+            "max_stack_frame_bytes": max(num(r"(\d+) bytes stack frame"), default=None),
+            "spill_store_bytes": sum(num(r"(\d+) bytes spill stores")),
+            "spill_load_bytes": sum(num(r"(\d+) bytes spill loads")),
+            "instantiations": len(num(r"Used (\d+) registers"))}
+
+
+def bound_of(nbytes: float, ops: float, flops_rate: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / flops_rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_waypoint_kernels(wp_state, net33, obs33) -> dict:
+    """At the waypoints path's shapes (8192 envs, mode 7, noise on): the
+    row-4 kernel, K1 generic in mode 7 (80 rows, no wind, as the
+    ``use_kernel`` env runs it), K4 at obs 33 and K3 over a 262,144-row PPO
+    batch at obs 33: device time, the plain twin, the library yardstick
+    where one exists, and the bound."""
+    import torch
+    from pyflyt_tpu_torch.models import quadx
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+    from pyflyt_tpu_torch.ops import cuda_sgd
+
+    out = {}
+    env = wp_env(7)
+    c = env.consts
+    packed = wp_state.packed.contiguous()
+    seed = torch.tensor([13], dtype=torch.int64, device="cuda")
+    ms, host = time_ms(lambda: cq.packed_waypoints_step(packed, seed, c, 7, True), iters=200)
+    plain, _ = time_ms(lambda: cq.packed_waypoints_step_plain(packed, seed, c, 7, True), iters=2, repeats=3,
+                       device_timed=False)
+    rd, wr = cq.waypoints_rows_moved(7)
+    b_ms, by = bound_of((rd + wr) * 4 * N_ENVS + 8, N_ENVS * cq.waypoints_ops_per_env(c, 7), H100_F32_FLOPS)
+    out["quadx_waypoints_step"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+                                   "rows_read": rd, "rows_written": wr}
+
+    cfg = quadx.QuadXConfig(control_hz=120)
+    params = quadx.build_params(cfg, "cuda")
+    gc = cq.generic_consts(params, cfg)
+    g7 = torch.cat([packed[: cq.ROWS_MODE7 - 6], torch.zeros(6, N_ENVS, device="cuda")]).contiguous()
+    g7[cq._ANY : cq._LP_INT] = 0.0  # the generic layout's rows 50-55
+    ms, host = time_ms(lambda: cq.packed_step(g7, seed, gc, 7, True), iters=200)
+    plain, _ = time_ms(lambda: cq.packed_step_plain(g7, seed, gc, 7, True), iters=3, repeats=3, device_timed=False)
+    b_ms, by = bound_of((cq.generic_rows_read(gc, 7) + cq.ROWS_MODE7) * 4 * N_ENVS + 8,
+                        N_ENVS * cq.generic_ops_per_env(gc, 7), H100_F32_FLOPS)
+    out["quadx_step_mode7"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by}
+
+    out["policy_value_forward_obs33"] = time_policy_forward(net33, obs33)
+
+    rows = packed_rows(net33, BATCH, seed=310)
+    pl_ = pi_leaves(net33)
+    ms, host = time_ms(lambda: cuda_sgd.logp_forward(rows, pl_, 33), iters=20)
+    plain, _ = time_ms(lambda: cuda_sgd.logp_forward_plain(rows, pl_, 33), iters=3, repeats=3, device_timed=False)
+    lib, _ = time_ms(library_logp(net33, rows), iters=20)
+    nb = sum(t.numel() * t.element_size() for t in (rows, *pl_)) + BATCH * 4
+    b_ms, by = bound_of(nb, cuda_sgd.logp_flops(BATCH, 33, 4), H100_BF16_FLOPS)
+    out["logp_forward_obs33"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib,
+                                 "bound_ms": b_ms, "bound_by": by, "rows": BATCH}
+    print(json.dumps({"wp_kernel_times": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1305,6 +1744,51 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if t_bytes_g >= t_ops_g else "operations", "library_ms": None,
         "host_ms": host_g, "launches_per_train_iteration": train["launches_per_iteration"]["quadx_step"],
     })
+    # 17. K1 generic in mode 7 vs its twin, and the mode-7 drop-in
+    results["generic_mode7_checks"] = check_generic_mode7()
+    err_g = max(err_g, *(c["max_abs_err"] for c in results["generic_mode7_checks"].values()))
+    print(json.dumps({"generic_mode7_checks": {k: v["max_abs_err"] for k, v in
+                                               results["generic_mode7_checks"].items()}}), flush=True)
+    # 18. the row-4 kernel vs its twin (modes 7, 0, 8; N=8192 and 1000)
+    results["waypoints_checks"] = check_waypoints_step()
+    err_w = max(c["max_abs_err"] for k, c in results["waypoints_checks"].items() if k != "noise")
+    print(json.dumps({"waypoints_checks": results["waypoints_checks"]}), flush=True)
+    # 19. K4 at the waypoints env's obs width 33 vs its twin
+    net33 = ActorCritic(33, 4, device="cuda", generator=torch.Generator().manual_seed(args.seed + 33))
+    err_b = max(err_b, check_policy(net33, N_ENVS), check_policy(net33, N_RAGGED))
+    print(f"policy forward at obs 33: max |kernel - twin| {err_b:.3g}", flush=True)
+    # 20. the waypoints serving path (row 4 + K4, one launch each per step)
+    wp_roll, wp_state, wp_net, wp_obs = wp_rollout(args.seed, card)
+    results["wp_rollout"] = wp_roll
+    print(json.dumps({"wp_rollout": wp_roll}), flush=True)
+    # 21. PPO on the plain waypoints env (K1 generic in mode 7)
+    results["wp_train"] = wp_train(args.seed, card)
+    print(json.dumps({"wp_train": results["wp_train"]}), flush=True)
+    # 22. times and bounds at the waypoints path's shapes
+    wt = time_waypoint_kernels(wp_state, wp_net, wp_obs)
+    results["wp_kernel_times"] = wt
+    kernels.insert(2, {
+        "name": "quadx_waypoints_step", "route": "cuda", "source": "pyflyt_tpu_torch/csrc/quadx_waypoints_step.cu",
+        "replaces": "pyflyt_tpu/ops/pallas_quadx.py:864", "launches": wp_roll["launches"]["quadx_waypoints_step"],
+        "max_abs_err": err_w, **{k: wt["quadx_waypoints_step"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "host_ms": wt["quadx_waypoints_step"]["host_ms"],
+        "ptxas": ptxas_usage("quadx_waypoints_step.cu"),
+        "max_diverged_lanes": max(c["max_diverged_lanes"] for k, c in results["waypoints_checks"].items()
+                                  if k != "noise"),
+    })
+    wp_launches = results["wp_train"]["launches_per_iteration"]
+    for k in kernels:
+        k["launches_per_wp_train_iteration"] = wp_launches[k["name"]]
+        k["launches_per_wp_rollout"] = wp_roll["launches"][k["name"]]
+        extra = {"quadx_step": "quadx_step_mode7", "policy_value_forward": "policy_value_forward_obs33",
+                 "logp_forward": "logp_forward_obs33"}.get(k["name"])
+        if extra:
+            k["mode7" if k["name"] == "quadx_step" else "obs33"] = {
+                f: wt[extra].get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    by_name = {k["name"]: k for k in kernels}
+    by_name["quadx_step"].update(max_abs_err=err_g, ptxas=ptxas_usage("quadx_step.cu"))
+    by_name["policy_value_forward"]["max_abs_err"] = err_b
+
     # K4, K3 and K2 at the recipe's shapes (obs 16; 8192 rows; 1,048,576
     # rows; 128 minibatches of 8192)
     recipe_times = {"policy_value_forward": time_policy_forward(mod_runner.network, mod_runner.obs),

@@ -18,6 +18,8 @@ from pyflyt_tpu_torch.core.state import Body6DoF
 from pyflyt_tpu_torch.core.wind import GaussianWind
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
+from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsState
+from pyflyt_tpu_torch.envs.utils.waypoints import WaypointState
 from pyflyt_tpu_torch.models import quadx
 from pyflyt_tpu_torch.ops import motors, pid
 from pyflyt_tpu_torch.ops.cuda_sgd import params_to_leaves
@@ -111,6 +113,44 @@ def mod_hover_state_from_jax(
         collision=b(tree.collision),
         env_complete=b(tree.env_complete),
     )
+
+
+def waypoints_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> QuadXWaypointsState:
+    """The port's ``QuadXWaypointsState`` from the numpy leaves of a batched
+    JAX ``QuadXWaypointsState`` (a ``vmap``-ed reset or step). The JAX PRNG
+    keys become the one ``generator`` of the batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    i32 = lambda a: torch.tensor(np.array(a, dtype=np.int32), device=dev)  # noqa: E731
+    wp = tree.wp
+    return QuadXWaypointsState(
+        drone=quadx_state_from_jax(tree.drone, dev),
+        step_count=i32(tree.step_count),
+        termination=b(tree.termination),
+        truncation=b(tree.truncation),
+        reward=f(tree.reward),
+        action=f(tree.action),
+        collision=b(tree.collision),
+        out_of_bounds=b(tree.out_of_bounds),
+        env_complete=b(tree.env_complete),
+        generator=generator,
+        wp=WaypointState(
+            targets=f(wp.targets), yaw_targets=f(wp.yaw_targets), idx=i32(wp.idx),
+            old_distance=f(wp.old_distance), new_distance=f(wp.new_distance), yaw_error=f(wp.yaw_error),
+        ),
+        target_deltas=f(tree.target_deltas),
+    )
+
+
+def packed_waypoints_from_jax(packed, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The port's ``(rows, N)`` packed waypoints state from a JAX
+    ``PackedWaypointsState.packed`` (``(rows, 8, N/8)``, the TPU's sublane
+    fold; the row layout is the same)."""
+    a = np.asarray(packed, dtype=np.float32)
+    return torch.tensor(a.reshape(a.shape[0], -1), device=resolve_device(device))
 
 
 def _dense_layers(trunk: dict) -> list[dict]:

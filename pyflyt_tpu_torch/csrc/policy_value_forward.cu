@@ -11,8 +11,8 @@
 // the 989 TFLOP/s bf16 tensor-core peak; the bytes (obs, bf16 weights,
 // outputs) are under 1.2 MB, about 0.35 us. So the tensor cores bound it.
 // Design (simple and right first): one block of 8 warps per 64 rows; the
-// obs tile is converted to bf16 and zero-padded from K=21 to K=32 in shared
-// memory; each layer streams its weights through shared memory in 32-row
+// obs tile is converted to bf16 and zero-padded to the next multiple of 32
+// (K=21 -> 32, 33 -> 64; widths up to 64) in shared memory; each layer streams its weights through shared memory in 32-row
 // K-chunks and runs nvcuda::wmma bf16 16x16x16 fragments with f32
 // accumulators (each warp owns a 16-row x 128-column slice of the 64x256
 // output); the epilogue adds the bias, applies tanh and writes the bf16
@@ -42,7 +42,7 @@ namespace {
 
 constexpr int TILE_M = 64;   // rows per block
 constexpr int HID = 256;     // trunk width
-constexpr int K0 = 32;       // obs width padded for the first layer
+constexpr int K0 = 64;       // widest obs tile (row stride of s.x)
 constexpr int KC = 32;       // weight rows per shared-memory chunk
 constexpr int THREADS = 256;
 
@@ -139,13 +139,18 @@ __device__ void head(const Smem& s, const __nv_bfloat16* W, const float* b,
   }
 }
 
-// s.x <- bf16 obs of rows row0.. (row stride ld), zero past n and obs_dim.
+// The obs width padded for the first layer: a whole number of K-chunks.
+__host__ __device__ constexpr int padded_obs(int obs_dim) { return (obs_dim + KC - 1) / KC * KC; }
+
+// s.x <- bf16 obs of rows row0.. (row stride ld), zero past n and obs_dim,
+// columns 0..padded_obs(obs_dim) of the K0-wide tile.
 __device__ void load_obs(Smem& s, const float* src, int ld, int n, int obs_dim, int row0) {
-  for (int idx = threadIdx.x; idx < TILE_M * K0; idx += THREADS) {
-    const int r = idx / K0, c = idx % K0;
+  const int k_pad = padded_obs(obs_dim);
+  for (int idx = threadIdx.x; idx < TILE_M * k_pad; idx += THREADS) {
+    const int r = idx / k_pad, c = idx % k_pad;
     float v = 0.f;
     if (row0 + r < n && c < obs_dim) v = src[static_cast<size_t>(row0 + r) * ld + c];
-    s.x[idx] = __float2bfloat16_rn(v);
+    s.x[r * K0 + c] = __float2bfloat16_rn(v);
   }
 }
 
@@ -156,12 +161,12 @@ __global__ void __launch_bounds__(THREADS) policy_value_kernel(ForwardArgs p) {
 
   load_obs(s, p.obs, p.obs_dim, p.n, p.obs_dim, row0);
   // actor: trunk, then the mean head
-  dense_tanh(s, s.x, K0, K0, p.obs_dim, p.pi_w0, p.pi_b0);
+  dense_tanh(s, s.x, K0, padded_obs(p.obs_dim), p.obs_dim, p.pi_w0, p.pi_b0);
   dense_tanh(s, s.act, HID, HID, HID, p.pi_w1, p.pi_b1);
   head(s, p.pi_hw, p.pi_hb, p.act_dim, p.mean, row0, p.n);
   __syncthreads();  // the head has read s.act before the critic rewrites it
   // critic: trunk, then the value head
-  dense_tanh(s, s.x, K0, K0, p.obs_dim, p.vf_w0, p.vf_b0);
+  dense_tanh(s, s.x, K0, padded_obs(p.obs_dim), p.obs_dim, p.vf_w0, p.vf_b0);
   dense_tanh(s, s.act, HID, HID, HID, p.vf_w1, p.vf_b1);
   head(s, p.vf_hw, p.vf_hb, 1, p.value, row0, p.n);
 }
@@ -199,7 +204,7 @@ __global__ void __launch_bounds__(THREADS) logp_kernel(LogpArgs p) {
   const int row0 = blockIdx.x * TILE_M;
 
   load_obs(s, p.rows, p.feat, p.n, p.obs_dim, row0);
-  dense_tanh(s, s.x, K0, K0, p.obs_dim, p.w0, p.b0);
+  dense_tanh(s, s.x, K0, padded_obs(p.obs_dim), p.obs_dim, p.w0, p.b0);
   dense_tanh(s, s.act, HID, HID, HID, p.w1, p.b1);
   // the mean head into the (now idle) staging area: 64 x act_dim floats
   float* mean = &s.stage[0][0];
@@ -240,7 +245,7 @@ cudaError_t allow_smem(K kernel, int* attr_device, int smem) {
 
 }  // namespace
 
-// Shapes are checked by the Python wrapper: obs_dim <= 32, trunks 2 x 256.
+// Shapes are checked by the Python wrapper: obs_dim <= 64, trunks 2 x 256.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int policy_value_forward(const ForwardArgs* args, void* stream) {
   if (args->n <= 0 || args->obs_dim > K0 || args->obs_dim <= 0 || args->act_dim <= 0)
@@ -254,7 +259,7 @@ extern "C" int policy_value_forward(const ForwardArgs* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shapes are checked by the Python wrapper: obs_dim <= 32, the actor trunk
+// Shapes are checked by the Python wrapper: obs_dim <= 64, the actor trunk
 // 2 x 256, act_dim <= 8, obs_dim + act_dim <= feat.
 extern "C" int logp_forward(const LogpArgs* args, void* stream) {
   if (args->n <= 0 || args->obs_dim > K0 || args->obs_dim <= 0 || args->act_dim <= 0 ||

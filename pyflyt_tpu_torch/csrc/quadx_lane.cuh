@@ -1,11 +1,13 @@
 // Per-thread QuadX aviary-step pieces shared by the QuadX kernels
-// (quadx_hover_step.cu, quadx_step.cu): the packed row layout, the drone's
-// registers (Lane), the controller at iteration 0 and one physics
-// iteration, each with its branches as template parameters so that an
-// instantiation carries only its own.
+// (quadx_hover_step.cu, quadx_step.cu, quadx_waypoints_step.cu): the packed
+// row layout, the drone's registers (Lane) and the mode-7 cascade's
+// (Cascade), the controller at iteration 0 and one physics iteration, each
+// with its branches as template parameters so that an instantiation
+// carries only its own.
 //
 // Replaces the per-iteration body of pyflyt_tpu/ops/pallas_quadx.py::
 // _build_kernel (:433-680): mode 0 (ang-vel PID, ENU or NED thrust clip),
+// 7 (the position cascade, ENU, with the inline pid_bank of :348-366),
 // 8 (direct PWM) and 9 (raw motor mix); saturation rescale; throttle lag
 // with Philox motor noise; wrench from the lagged read; the ENU or NED
 // read; drag on the air velocity under wind; semi-implicit Euler;
@@ -13,9 +15,10 @@
 // kernel (polynomial atan2/asin, Box-Muller over the per-core PRNG) are
 // not carried over: native atan2f/asinf and curand's Philox normals.
 //
-// Constants come as a POD struct (HoverConsts or GenericConsts) whose
-// vehicle fields have the same names in both; the functions are templated
-// on it.
+// Constants come as a POD struct (HoverConsts, GenericConsts or
+// WaypointsConsts) whose vehicle fields have the same names in all; the
+// functions are templated on it. The cascade's gains (lp_*, lv_*, ap_*,
+// zp_*, zv_*) are read in mode 7 only, so HoverConsts need not have them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +34,9 @@ namespace quadx_lane {
 constexpr int POS = 0, QUAT = 3, LVEL = 7, AVEL = 10, VIEW = 13, AVB = 25,
               DRG = 28, THR = 31, PWM = 35, SP = 39, PINT = 43, PPRV = 46,
               CON = 49;
+// Mode 7's layout (pallas_quadx.py:69-82): the cascade's 18 rows from row
+// 56, in an 80-row state.
+constexpr int CASCADE = 56, CASCADE_ROWS = 18, ROWS_MODE7 = 80;
 constexpr float GRAVITY = 9.81f;
 constexpr float HALF_PI = 1.57079632679489661923f;
 
@@ -47,6 +53,14 @@ struct Lane {
   float thr[4], pwm[4], pint[3], pprv[3];
   float contact;
 };
+
+// The mode-7 cascade's PID registers in row order: per bank its integrals,
+// then its previous errors (lin_pos 2, lin_vel 2, ang_pos 3, z_pos 1,
+// z_vel 1).
+struct Cascade {
+  float r[CASCADE_ROWS];
+};
+constexpr int LP = 0, LV = 4, AP = 8, ZP = 14, ZV = 16;  // first integral of each bank
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
@@ -100,10 +114,35 @@ __device__ __forceinline__ void store_lane(float* O, size_t ld, const Lane& s,
   O[CON * ld] = s.contact;
 }
 
+__device__ __forceinline__ void load_cascade(const float* S, size_t ld, Cascade& k) {
+  for (int j = 0; j < CASCADE_ROWS; ++j) k.r[j] = S[(CASCADE + j) * ld];
+}
+
+__device__ __forceinline__ void store_cascade(float* O, size_t ld, const Cascade& k) {
+  for (int j = 0; j < CASCADE_ROWS; ++j) O[(CASCADE + j) * ld] = k.r[j];
+}
+
+// One PID bank of K lanes (ops/pid.py::step), its integrals at r[0..K)
+// and previous errors at r[K..2K) of the cascade registers.
+template <int K>
+__device__ __forceinline__ void pid_bank(float* r, const float* kp, const float* ki,
+                                         const float* kd, const float* lim, float period,
+                                         const float* meas, const float* setp, float* out) {
+  for (int i = 0; i < K; ++i) {
+    const float err = setp[i] - meas[i];
+    r[i] = clampf(r[i] + ki[i] * err * period, -lim[i], lim[i]);
+    const float deriv = kd[i] * (err - r[K + i]) / period;
+    r[K + i] = err;
+    out[i] = clampf(kp[i] * err + r[i] + deriv, -lim[i], lim[i]);
+  }
+}
+
 // The controller at iteration 0 (models/quadx.py::update_control) and the
-// saturation rescale (models/quadx.py::saturation_rescale).
+// saturation rescale (models/quadx.py::saturation_rescale). Mode 7 steps
+// the cascade registers `cas` (unused in the other modes).
 template <int MODE, bool NED, class C>
-__device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c) {
+__device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c,
+                                        Cascade* cas = nullptr) {
   float raw[4];
   if constexpr (MODE == 8) {  // direct PWM
     for (int m = 0; m < 4; ++m) raw[m] = sp[m];
@@ -112,18 +151,36 @@ __device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c) 
       raw[m] = c.motor_map[4 * m + 0] * sp[0] + c.motor_map[4 * m + 1] * sp[1] +
                c.motor_map[4 * m + 2] * sp[2] + c.motor_map[4 * m + 3] * sp[3];
     }
-  } else {  // mode 0: ang-vel PID on the lagged body rates, clipped thrust
-    static_assert(MODE == 0, "modes 0, 8 and 9");
+  } else {  // modes 0 and 7: ang-vel PID on the lagged body rates
+    static_assert(MODE == 0 || MODE == 7, "modes 0, 7, 8 and 9");
+    static_assert(MODE != 7 || !NED, "mode 7 carries the ENU cascade only");
+    float a_sp[3] = {sp[0], sp[1], sp[2]};
     float cmd[4];
+    if constexpr (MODE == 7) {
+      // lin_pos -> yaw frame -> lin_vel -> ENU axis swap -> ang_pos (yaw
+      // setpoint third); z_pos -> z_vel (models/quadx.py::_position_cascade)
+      float xy[2];
+      pid_bank<2>(cas->r + LP, c.lp_kp, c.lp_ki, c.lp_kd, c.lp_lim, c.period, &s.view[9], sp, xy);
+      const float cy = cosf(s.view[5]), sy = sinf(s.view[5]);
+      const float yf[2] = {cy * xy[0] + sy * xy[1], -sy * xy[0] + cy * xy[1]};
+      pid_bank<2>(cas->r + LV, c.lv_kp, c.lv_ki, c.lv_kd, c.lv_lim, c.period, &s.view[6], yf, xy);
+      const float ap_sp[3] = {-xy[1], xy[0], sp[2]};
+      pid_bank<3>(cas->r + AP, c.ap_kp, c.ap_ki, c.ap_kd, c.ap_lim, c.period, &s.view[3], ap_sp, a_sp);
+      float z1, z2;
+      pid_bank<1>(cas->r + ZP, c.zp_kp, c.zp_ki, c.zp_kd, c.zp_lim, c.period, &s.view[11], &sp[3], &z1);
+      pid_bank<1>(cas->r + ZV, c.zv_kp, c.zv_ki, c.zv_kd, c.zv_lim, c.period, &s.view[8], &z1, &z2);
+      cmd[3] = clampf(z2, 0.f, 1.f);
+    } else {
+      // NED: clip(z, -1, 0), negate, clip(0, 1) (models/quadx.py:320-323)
+      cmd[3] = NED ? clampf(-clampf(sp[3], -1.f, 0.f), 0.f, 1.f) : clampf(sp[3], 0.f, 1.f);
+    }
     for (int k = 0; k < 3; ++k) {
-      const float err = sp[k] - s.view[k];
+      const float err = a_sp[k] - s.view[k];
       s.pint[k] = clampf(s.pint[k] + c.ki[k] * err * c.period, -c.lim[k], c.lim[k]);
       const float deriv = c.kd[k] * (err - s.pprv[k]) / c.period;
       s.pprv[k] = err;
       cmd[k] = clampf(c.kp[k] * err + s.pint[k] + deriv, -c.lim[k], c.lim[k]);
     }
-    // NED: clip(z, -1, 0), negate, clip(0, 1) (models/quadx.py:320-323)
-    cmd[3] = NED ? clampf(-clampf(sp[3], -1.f, 0.f), 0.f, 1.f) : clampf(sp[3], 0.f, 1.f);
     for (int m = 0; m < 4; ++m) {
       raw[m] = c.motor_map[4 * m + 0] * cmd[0] + c.motor_map[4 * m + 1] * cmd[1] +
                c.motor_map[4 * m + 2] * cmd[2] + c.motor_map[4 * m + 3] * cmd[3];

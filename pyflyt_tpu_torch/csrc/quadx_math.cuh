@@ -1,7 +1,7 @@
-// Per-thread quaternion helpers shared by the vehicle kernels.
+// Per-thread quaternion and waypoint helpers shared by the vehicle kernels.
 //
 // Replaces the register-level helpers of pyflyt_tpu/ops/pallas_math.py
-// (quat_rotmat, quat_to_euler, quat_integrate). The Mosaic workarounds
+// (quat_rotmat, quat_to_euler, quat_integrate, waypoint_track). The Mosaic workarounds
 // there (polynomial atan2/asin) are not carried over: CUDA has native
 // atan2f/asinf, so euler angles here agree with core/math.py to f32
 // rounding. The plain twins of these functions are the tensor versions in
@@ -57,6 +57,60 @@ __device__ __forceinline__ void quat_integrate(float q[4], const float w[3],
   q[1] = ny * inv;
   q[2] = nz * inv;
   q[3] = nw * inv;
+}
+
+// Waypoint tracking on the cyclically rolled target rows
+// (pallas_math.py::waypoint_track, envs/utils/waypoints.py semantics):
+// body-frame deltas R^T (target - lp) of the first nt <= 4 targets, the
+// distance to the current one (ndist; the old memo goes to odist), the
+// delta observation with the rows past the remaining count zeroed, the
+// reach (distance under goal while targets remain) and, on a reach, the
+// roll that brings the next target to the front. The loops run over the 4
+// slots with compile-time indices, so the registers stay registers; nt
+// only masks them. Returns the progress odist - ndist; reached and
+// all_reached are 0/1.
+__device__ __forceinline__ float waypoint_track(const float R[9], const float lp[3],
+                                                float tgt[12], float& rem, float& ndist,
+                                                float& odist, float tdlt[12], int nt,
+                                                float goal, float& reached,
+                                                float& all_reached) {
+  float d[12];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float dx = tgt[3 * k] - lp[0], dy = tgt[3 * k + 1] - lp[1], dz = tgt[3 * k + 2] - lp[2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) d[3 * k + i] = R[i] * dx + R[3 + i] * dy + R[6 + i] * dz;
+  }
+  const float nd = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  odist = ndist;
+  ndist = nd;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float keep = (k < nt && rem > k + 0.5f) ? 1.f : 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tdlt[3 * k + i] = (k < nt) ? d[3 * k + i] * keep : 0.f;
+  }
+  reached = (nd < goal && rem > 0.5f) ? 1.f : 0.f;
+  if (reached > 0.f) {
+    const float first[3] = {tgt[0], tgt[1], tgt[2]};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k < nt - 1) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) tgt[3 * k + i] = tgt[3 * k + 3 + i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k == nt - 1) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) tgt[3 * k + i] = first[i];
+      }
+    }
+  }
+  rem = rem - reached;
+  all_reached = (rem < 0.5f) ? 1.f : 0.f;
+  return odist - nd;
 }
 
 }  // namespace quadx_math

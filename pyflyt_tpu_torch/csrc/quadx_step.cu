@@ -4,11 +4,14 @@
 // Replaces pyflyt_tpu/ops/pallas_quadx.py::packed_step (the non-env-fused
 // variant of _build_kernel) and, behind pack -> kernel -> unpack,
 // pallas_quadx.step. Per launch: `ratio` physics iterations with the
-// controller at iteration 0 (modes 0, 8, 9; ENU or NED), wind on the drag
+// controller at iteration 0 (modes 0, 8, 9, ENU or NED; mode 7, the
+// position cascade, ENU only as in the Pallas kernel), wind on the drag
 // (none, a baked gaussian base, a per-env gaussian base read from rows
 // 51-53, or the simple thermal field), detection-grade ground contact.
 // Row 50 of the output is the step's any-contact flag; rows 51-53 pass the
-// per-env wind base through (zero otherwise); rows 54-55 are zero.
+// per-env wind base through (zero otherwise); rows 54-55 are zero. Mode 7
+// runs on an 80-row state: rows 56-73 carry the cascade's five PID banks,
+// read and written back; rows 74-79 are zero.
 //
 // What bounds it on an H100: at 8192 envs and 3 physics iterations each env
 // reads 50 f32 rows (53 with a per-env base) and writes 56, about 0.42 KB,
@@ -19,7 +22,8 @@
 // transaction; the whole step in registers, one read and one write per
 // row; constants as one POD struct by value; the mode, the convention, the
 // motor noise and the wind kind are template parameters (48
-// instantiations), and the gusts (max_gust > 0) a launch-uniform branch.
+// instantiations for modes 0/8/9, 8 more for ENU mode 7), and the gusts
+// (max_gust > 0) a launch-uniform branch.
 // Random draws are curand Philox normals keyed by (seed, env): 4 per
 // iteration for motor noise, 4 (3 used) per iteration for gusts or the
 // simple field's noise. Blocks of 64 threads, as in quadx_hover_step.cu.
@@ -63,6 +67,26 @@ struct GenericConsts {
   float min_pwm;
   float max_pwm;
   float half_ext[3];
+  float lp_kp[2];  // mode 7: the position cascade's banks (lin_pos, lin_vel,
+  float lp_ki[2];  // ang_pos, z_pos, z_vel), gains per lane
+  float lp_kd[2];
+  float lp_lim[2];
+  float lv_kp[2];
+  float lv_ki[2];
+  float lv_kd[2];
+  float lv_lim[2];
+  float ap_kp[3];
+  float ap_ki[3];
+  float ap_kd[3];
+  float ap_lim[3];
+  float zp_kp[1];
+  float zp_ki[1];
+  float zp_kd[1];
+  float zp_lim[1];
+  float zv_kp[1];
+  float zv_ki[1];
+  float zv_kd[1];
+  float zv_lim[1];
   float wind_base[3];  // WIND_GAUSSIAN: the baked base, ENU
   float max_gust;      // gaussian kinds: gust clip (0 = no gusts)
   float wind_strength; // WIND_SIMPLE: thermal strength
@@ -86,6 +110,8 @@ __global__ void __launch_bounds__(THREADS)
   Lane s;
   float sp[4];
   quadx_lane::load_lane(S, ld, s, sp);
+  quadx_lane::Cascade cas;
+  if constexpr (MODE == 7) quadx_lane::load_cascade(S, ld, cas);
   float wb[3] = {0.f, 0.f, 0.f};
   if (WIND == quadx_lane::WIND_GAUSSIAN_ENV)
     for (int k = 0; k < 3; ++k) wb[k] = S[(WBASE + k) * ld];
@@ -99,7 +125,7 @@ __global__ void __launch_bounds__(THREADS)
 
   float any_contact = 0.f;
   for (int it = 0; it < c.ratio; ++it) {
-    if (it == 0) quadx_lane::control<MODE, NED>(s, sp, c);
+    if (it == 0) quadx_lane::control<MODE, NED>(s, sp, c, &cas);
     float w[3];
     quadx_lane::wind_velocity<WIND>(s, wb, c, &rng, w);
     quadx_lane::physics<NOISY, NED, WIND != quadx_lane::WIND_NONE>(s, c, &rng, w);
@@ -111,6 +137,11 @@ __global__ void __launch_bounds__(THREADS)
   O[ANY * ld] = any_contact;
   for (int k = 0; k < 3; ++k) O[(WBASE + k) * ld] = wb[k];  // through, or 0
   for (int r = WBASE + 3; r < ROWS; ++r) O[r * ld] = 0.f;
+  if constexpr (MODE == 7) {
+    quadx_lane::store_cascade(O, ld, cas);
+    for (int r = quadx_lane::CASCADE + quadx_lane::CASCADE_ROWS; r < quadx_lane::ROWS_MODE7; ++r)
+      O[r * ld] = 0.f;
+  }
 }
 
 struct Launch {
@@ -162,20 +193,23 @@ void launch_ned(bool noisy, const Launch& L) {
 
 }  // namespace
 
-// in/out: (56, n) f32 row-major on the device; seed: one int64 on the
-// device; consts: host pointer, copied into the launch by value.
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a mode or wind kind outside the envelope.
+// in/out: (56, n) f32 row-major on the device, (80, n) in mode 7; seed:
+// one int64 on the device; consts: host pointer, copied into the launch by
+// value. Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a mode, convention or wind kind outside the
+// envelope.
 extern "C" int quadx_step(const float* in, float* out, int n, const long long* seed,
                           const GenericConsts* consts, int mode, int noisy, void* stream) {
-  if (n <= 0 || (mode != 0 && mode != 8 && mode != 9) || consts->wind_kind < 0 ||
-      consts->wind_kind > quadx_lane::WIND_SIMPLE || consts->ratio < 1)
+  if (n <= 0 || (mode != 0 && mode != 7 && mode != 8 && mode != 9) || (mode == 7 && consts->ned) ||
+      consts->wind_kind < 0 || consts->wind_kind > quadx_lane::WIND_SIMPLE || consts->ratio < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{dim3((n + THREADS - 1) / THREADS), dim3(THREADS),
                  static_cast<cudaStream_t>(stream), in, out, n, seed, consts};
   const bool nz = noisy != 0;
   if (mode == 0)
     launch_ned<0>(nz, L);
+  else if (mode == 7)
+    launch_noisy<7, false>(nz, L);  // ENU only
   else if (mode == 8)
     launch_ned<8>(nz, L);
   else

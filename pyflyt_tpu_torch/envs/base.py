@@ -71,7 +71,7 @@ def autoreset_step(env: BatchedEnv, state: Any, action: Tensor) -> tuple[Any, St
     done = out.termination | out.truncation
     reset_state, reset_obs = env.reset(done.shape[0], getattr(state, "generator", None))
     state = tree_select(done, reset_state, state)
-    obs = torch.where(done[:, None], reset_obs, out.obs)
+    obs = tree_select(done, reset_obs, out.obs)  # a tensor or a dict of them
     return state, dataclasses.replace(
         out, obs=obs, info={**out.info, "terminal_observation": out.obs}
     )
@@ -94,7 +94,7 @@ class AutoResetState:
 
     env_state: Any
     cache_state: Any
-    cache_obs: Tensor
+    cache_obs: Any  # a tensor or a dict of them
     step_idx: int
     generator: torch.Generator | None  # stream for the cache refreshes
 
@@ -125,7 +125,7 @@ def cached_autoreset_step(
     state, out = env.step(ars.env_state, action)
     done = out.termination | out.truncation
     state = tree_select(done, ars.cache_state, state)
-    obs = torch.where(done[:, None], ars.cache_obs, out.obs)
+    obs = tree_select(done, ars.cache_obs, out.obs)
 
     cache_state, cache_obs = ars.cache_state, ars.cache_obs
     if ars.step_idx % refresh == refresh - 1:

@@ -11,9 +11,9 @@ Stepping semantics as in the JAX module:
 
 ``use_kernel=True`` mirrors the JAX envs' ``use_pallas``: each inner
 aviary step goes through the generic QuadX kernel (``ops/cuda_quadx.step``,
-pack → one launch → unpack) instead of ``models/quadx.step``. Its ground
-contact is detection-grade, which only shows after a contact, where the
-tasks terminate.
+pack → one launch → unpack) instead of ``models/quadx.step``, in modes 0,
+7 (ENU), 8 and 9. Its ground contact is detection-grade, which only shows
+after a contact, where the tasks terminate.
 """
 
 from __future__ import annotations
@@ -191,10 +191,12 @@ class QuadXBaseEnv:
         action: Tensor,
         task_update: Callable[[QuadXEnvState, Tensor], QuadXEnvState],
         obs_fn: Callable[[QuadXEnvState], Any],
+        extra_info: Callable[[QuadXEnvState], dict[str, Any]] | None = None,
     ) -> tuple[QuadXEnvState, StepOut]:
         """The shared agent-step loop; ``task_update(state, contact)``
         applies the base and task term/trunc/reward updates after each
-        inner aviary step."""
+        inner aviary step; ``extra_info(state)`` adds task entries to the
+        info."""
         action = action.to(self.cfg.dtype)
         state = dataclasses.replace(
             state,
@@ -217,6 +219,7 @@ class QuadXBaseEnv:
                 "collision": state.collision,
                 "out_of_bounds": state.out_of_bounds,
                 "env_complete": state.env_complete,
+                **(extra_info(state) if extra_info is not None else {}),
             },
         )
         return state, out

@@ -15,8 +15,8 @@ Departures from the stock hover env that the fork introduced, all kept:
   U(−10, 10) with ±10° roll/pitch and a random yaw; no stabilization
   steps at reset;
 - an optional ``GaussianWind`` with a random base per env;
-- flight modes restricted to {−1, 7, 8, 9, 10}; of these the port has 8
-  and 9, and −1, 7 and 10 raise ``NotImplementedError`` through
+- flight modes restricted to {−1, 7, 8, 9, 10}; of these the port has 7,
+  8 and 9, and −1 and 10 raise ``NotImplementedError`` through
   ``models/quadx`` (ROADMAP.md, item 6).
 
 Reference quirks kept: the 20 m position-error termination is dead code

@@ -8,7 +8,8 @@ Per physics iteration, as in the JAX module:
   4. integrate        (semi-implicit Euler at physics_hz)
 
 The port has flight modes 0 (body rates + thrust through the ang-vel
-PID), 8 (direct PWM) and 9 (motor mix of the setpoint), and wind through
+PID), 7 (x, y, yaw, z through the position cascade, ENU or NED), 8 (direct
+PWM) and 9 (motor mix of the setpoint), and wind through
 ``step(wind_fn=...)`` (``core/wind.py``). The other modes and
 ``custom_controller`` raise ``NotImplementedError`` naming their ROADMAP.md
 item.
@@ -29,9 +30,8 @@ from pyflyt_tpu_torch.core.state import Body6DoF
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.ops import motors, pid
 
-PORTED_MODES = (0, 8, 9)
+PORTED_MODES = (0, 7, 8, 9)
 _ROADMAP_ITEM = {
-    7: "quadx mode 7 (position cascade)",
     10: "quadx mode 10 (ga_pid)",
 }
 
@@ -281,6 +281,9 @@ def mode_default_setpoint(state: QuadXState, mode: int, cfg: QuadXConfig) -> Ten
         sp = torch.zeros_like(state.setpoint)
         sp[..., 3] = -1.0
         return sp
+    if mode == 7:  # hold the current [x, y, yaw, z]
+        view = state.read.view
+        return torch.stack([view[..., 3, 0], view[..., 3, 1], view[..., 1, 2], view[..., 3, 2]], dim=-1)
     return state.setpoint  # modes 8 and 9 leave the setpoint untouched
 
 
@@ -300,6 +303,37 @@ def set_mode(state: QuadXState, mode: int, cfg: QuadXConfig) -> QuadXState:
 # ---------------------------------------------------------------------------
 # control
 # ---------------------------------------------------------------------------
+
+
+def _yaw_frame(view: Tensor, xy: Tensor) -> Tensor:
+    """Rotates a ground-frame xy command into the yaw frame."""
+    yaw = view[..., 1, 2]
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([c * xy[..., 0] + s * xy[..., 1], -s * xy[..., 0] + c * xy[..., 1]], dim=-1)
+
+
+def _position_cascade(
+    pids: QuadXPIDState, params: QuadXParams, view: Tensor, sp: Tensor, ned: bool
+) -> tuple[QuadXPIDState, Tensor, Tensor]:
+    """Mode 7: lin_pos → yaw frame → lin_vel → axis swap → ang_pos (3
+    lanes, the yaw setpoint third), and z_pos → z_vel. Returns the PIDs and
+    the (ang-vel setpoint, raw thrust) pair before the ang-vel PID."""
+    pids_lp, xy = pid.step(pids.lin_pos, params.pid_lin_pos, view[..., 3, :2], sp[..., :2])
+    xy = _yaw_frame(view, xy)
+    pids_lv, xy = pid.step(pids.lin_vel, params.pid_lin_vel, view[..., 2, :2], xy)
+    # velocity command -> attitude command axis swap
+    if ned:
+        xy = torch.stack([xy[..., 1], -xy[..., 0]], dim=-1)
+    else:
+        xy = torch.stack([-xy[..., 1], xy[..., 0]], dim=-1)
+    a3 = torch.cat([xy, sp[..., 2:3]], dim=-1)
+    pids_ap, a = pid.step(pids.ang_pos, params.pid_ang_pos, view[..., 1, :], a3)
+    pids_zp, z1 = pid.step(pids.z_pos, params.pid_z_pos, view[..., 3, 2:3], sp[..., 3:4])
+    pids_zv, z1 = pid.step(pids.z_vel, params.pid_z_vel, view[..., 2, 2:3], z1)
+    pids = dataclasses.replace(
+        pids, lin_pos=pids_lp, lin_vel=pids_lv, ang_pos=pids_ap, z_pos=pids_zp, z_vel=pids_zv
+    )
+    return pids, a, z1[..., 0]
 
 
 def update_control(
@@ -325,11 +359,14 @@ def update_control(
         pwm = sp
     elif mode == 9:
         pwm = torch.einsum("ij,...j->...i", params.motor_map, sp)
-    else:  # mode 0: the setpoint is the ang-vel command plus thrust
-        pids_av, a = pid.step(pids.ang_vel, params.pid_ang_vel, view[..., 0, :], sp[..., :3])
+    else:
+        if mode == 7:
+            pids, a, z = _position_cascade(pids, params, view, sp, ned)
+        else:  # mode 0: the setpoint is the ang-vel command plus thrust
+            a, z = sp[..., :3], sp[..., 3]
+            z = torch.clamp(z, -1.0, 0.0) if ned else torch.clamp(z, 0.0, 1.0)
+        pids_av, a = pid.step(pids.ang_vel, params.pid_ang_vel, view[..., 0, :], a)
         pids = dataclasses.replace(pids, ang_vel=pids_av)
-        z = sp[..., 3]
-        z = torch.clamp(z, -1.0, 0.0) if ned else torch.clamp(z, 0.0, 1.0)
         if ned:
             z = -z
         z = torch.clamp(z, 0.0, 1.0)

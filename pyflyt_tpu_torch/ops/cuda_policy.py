@@ -11,8 +11,9 @@ kernel: bf16 matmul inputs with f32 accumulation, f32 bias and tanh.
 
 Bound on an H100 at 8192 rows: about 2.34 GFLOP on the bf16 tensor cores
 (about 2.4 µs at 989 TFLOP/s) against under 1.2 MB of traffic, so
-operations bound it. The kernel supports the rollout's shape: obs width
-at most 32 (padded to 32 inside the kernel), two 256-wide tanh layers per
+operations bound it. The kernel supports the rollouts' shapes: obs width
+at most 64 (padded to the next multiple of 32 inside the kernel: 21 and
+16 to 32, the waypoints env's 33 to 64), two 256-wide tanh layers per
 trunk, any number of rows and actions. The twin takes any widths.
 
 Weights are converted to bf16 once (``prepare_weights``), which gives the
@@ -32,7 +33,7 @@ from pyflyt_tpu_torch.ops.cuda_build import Kernel
 from pyflyt_tpu_torch.ops.cuda_sgd import leaf_specs, params_to_leaves  # noqa: F401
 
 HIDDEN = 256
-MAX_OBS_DIM = 32
+MAX_OBS_DIM = 64
 
 
 @dataclasses.dataclass

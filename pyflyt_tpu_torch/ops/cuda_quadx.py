@@ -1,7 +1,7 @@
 """The QuadX kernels on a packed ``(ROWS, N)`` state (port of
 ``pyflyt_tpu/ops/pallas_quadx.py``).
 
-Two kernels share one per-iteration body (``csrc/quadx_lane.cuh``):
+Three kernels share one per-iteration body (``csrc/quadx_lane.cuh``):
 
 - ``packed_hover_step`` (``csrc/quadx_hover_step.cu``, replaces
   ``pallas_quadx.packed_hover_step``): the whole QuadX-Hover agent step,
@@ -9,11 +9,18 @@ Two kernels share one per-iteration body (``csrc/quadx_lane.cuh``):
   the done-freeze; modes 0 and 8, ENU.
 - ``packed_step`` (``csrc/quadx_step.cu``, replaces
   ``pallas_quadx.packed_step``): one aviary step, the generic variant;
-  modes 0, 8 and 9, ENU or NED, wind none, a baked gaussian base, a
-  per-env gaussian base (rows 51-53) or the simple thermal field. ``step``
+  modes 0, 7, 8 and 9, ENU or NED (mode 7 ENU only, as in the Pallas
+  kernel), wind none, a baked gaussian base, a per-env gaussian base (rows
+  51-53) or the simple thermal field. Mode 7 carries the position
+  cascade's five PID banks in rows 56-73 of an 80-row layout. ``step``
   (replaces ``pallas_quadx.step``) is the drop-in for ``models.quadx.step``
-  behind pack → kernel → unpack. Mode 7 and its 80-row layout are not
-  here yet (ROADMAP.md, item 6, with the waypoints slice).
+  behind pack → kernel → unpack.
+- ``packed_waypoints_step`` (``csrc/quadx_waypoints_step.cu``, replaces
+  ``pallas_quadx.packed_waypoints_step``): the whole QuadX-Waypoints agent
+  step, ``inner_steps`` aviary steps plus waypoint tracking, reward,
+  target advance, termination, truncation and the done-freeze; modes 0, 7
+  and 8, ENU, up to 4 targets, on 28 waypoint rows after
+  ``rows_for(mode)`` (88 or 112 rows, the Pallas layout).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 PyTorch twin (``*_plain``) for a CPU tensor. There is no fallback between
@@ -28,8 +35,10 @@ Bounds on an H100 at N=8192: the hover step reads 55 of the 56 f32 rows
 and writes all 56 (3.64 MB, about 1.09 µs at 3.35 TB/s) and does about
 2 kFLOP per env; the generic step reads 50 rows (53 with a per-env wind
 base) and writes 56 (about 3.5 MB, 1.0 µs) and does about 1.1 kFLOP per
-env at 3 physics iterations. Bytes bound both, and launch latency and each
-thread's dependent chain cost more. See the source notes for the designs.
+env at 3 physics iterations; the waypoints step in mode 7 reads 101 rows
+and writes 112 (about 7.0 MB, 2.1 µs) and does about 4 kFLOP per env.
+Bytes bound all three, and launch latency and each thread's dependent
+chain cost more. See the source notes for the designs.
 
 With noise or stochastic wind on, the kernels draw Philox normals keyed by
 (seed, env index, draw index) and the twins draw from a ``torch.Generator``
@@ -77,6 +86,29 @@ _STEP = 55     # agent step count, f32 (exact below 2^24)
 # rows of the generic layout (pallas_quadx.py:215-221)
 _ANY = 50      # any-contact flag of the aviary step
 _WBASE = 51    # 3: per-env wind base, ENU
+# mode 7: the position cascade's PID banks (pallas_quadx.py:69-82)
+ROWS_MODE7 = 80
+_LP_INT = 56   # 2: lin_pos PID integral
+_LP_PRV = 58   # 2: lin_pos PID prev error
+_LV_INT = 60   # 2: lin_vel
+_LV_PRV = 62
+_AP_INT = 64   # 3: ang_pos
+_AP_PRV = 67
+_ZP_INT = 70   # 1: z_pos
+_ZP_PRV = 71
+_ZV_INT = 72   # 1: z_vel
+_ZV_PRV = 73
+CASCADE_ROWS = 18
+# waypoint rows after rows_for(mode) (pallas_quadx.py:89-98); the targets
+# are rolled so the current one is first
+WP_ROWS = 28
+_WP_TGT = 0     # 12: world-frame targets, rolled (4 x 3)
+_WP_REM = 12    # remaining-target count
+_WP_NDIST = 13  # new-distance memo
+_WP_ODIST = 14  # old-distance memo
+_WP_TDLT = 15   # 12: the target_deltas observation (body frame, rolled, masked)
+_WP_CPLT = 27   # env_complete flag
+MAX_TARGETS = 4
 
 GRAVITY = 9.81
 # f32 operations per env in one physics iteration, control, wind draw and
@@ -87,14 +119,35 @@ OPS_PER_PHYSICS_ITER = 330
 OPS_PER_CONTROL = 75
 OPS_PER_TASK_UPDATE = 30
 OPS_PER_WIND = 12
+OPS_PER_CASCADE = 135  # mode 7: 9 PID lanes of ~14, the yaw frame and the swap
+OPS_PER_WAYPOINT_TASK = 160  # the rotation, 4 targets' deltas, distance, mask, advance, reward, flags
 
 # wind kinds of the generic kernel (csrc/quadx_lane.cuh::Wind)
 WIND_NONE, WIND_GAUSSIAN, WIND_GAUSSIAN_ENV, WIND_SIMPLE = 0, 1, 2, 3
-GENERIC_MODES = (0, 8, 9)
+GENERIC_MODES = (0, 7, 8, 9)
+WAYPOINT_MODES = (0, 7, 8)
 
 
-def pack_state(state: quadx.QuadXState) -> Tensor:
-    """Batched ``QuadXState`` (N,) → ``(ROWS, N)`` f32; env rows zero."""
+def rows_for(mode: int) -> int:
+    """Rows of the generic layout: 80 in mode 7 (the cascade's banks), else 56."""
+    return ROWS_MODE7 if mode == 7 else ROWS
+
+
+def rows_for_waypoints(mode: int) -> int:
+    """Rows of the waypoints layout, padded to a multiple of 8 as the Pallas
+    layout is, so the two compare row by row: 88, or 112 in mode 7."""
+    return -(-(rows_for(mode) + WP_ROWS) // 8) * 8
+
+
+def _cascade_banks(pids: quadx.QuadXPIDState) -> list[Tensor]:
+    return [pids.lin_pos.integral, pids.lin_pos.prev_error, pids.lin_vel.integral, pids.lin_vel.prev_error,
+            pids.ang_pos.integral, pids.ang_pos.prev_error, pids.z_pos.integral, pids.z_pos.prev_error,
+            pids.z_vel.integral, pids.z_vel.prev_error]
+
+
+def pack_state(state: quadx.QuadXState, mode: int = 0) -> Tensor:
+    """Batched ``QuadXState`` (N,) → ``(rows_for(mode), N)`` f32; env rows
+    zero. Mode 7 appends the position cascade's PID banks (rows 56-73)."""
     n = state.body.pos.shape[0]
     rows = [
         state.body.pos.T,
@@ -111,14 +164,18 @@ def pack_state(state: quadx.QuadXState) -> Tensor:
         state.pids.ang_vel.prev_error.T,
         state.contact.to(torch.float32)[None, :],
     ]
+    if mode == 7:
+        rows.append(state.body.pos.new_zeros((_LP_INT - _ANY, n)))
+        rows += [b.T for b in _cascade_banks(state.pids)]
     packed = torch.cat([r.to(torch.float32) for r in rows], dim=0)
-    pad = packed.new_zeros((ROWS - packed.shape[0], n))
+    pad = packed.new_zeros((rows_for(mode) - packed.shape[0], n))
     return torch.cat([packed, pad], dim=0).contiguous()
 
 
 def unpack_state(packed: Tensor, template: quadx.QuadXState) -> quadx.QuadXState:
-    """``(ROWS, N)`` → ``QuadXState``; PID banks outside the layout keep the
-    template's values."""
+    """``(rows, N)`` → ``QuadXState``; PID banks outside the layout keep the
+    template's values (the cascade's banks are read from the mode-7 layouts
+    only: rows 56+ of the 88-row waypoints layout hold waypoints)."""
     g = lambda r, k: packed[r : r + k].T  # noqa: E731
     n = packed.shape[1]
     pids = dataclasses.replace(
@@ -127,6 +184,13 @@ def unpack_state(packed: Tensor, template: quadx.QuadXState) -> quadx.QuadXState
             template.pids.ang_vel, integral=g(_PINT, 3), prev_error=g(_PPRV, 3)
         ),
     )
+    if packed.shape[0] in (ROWS_MODE7, rows_for_waypoints(7)):
+        bank = lambda st, r, k: dataclasses.replace(st, integral=g(r, k), prev_error=g(r + k, k))  # noqa: E731
+        pids = dataclasses.replace(
+            pids, lin_pos=bank(pids.lin_pos, _LP_INT, 2), lin_vel=bank(pids.lin_vel, _LV_INT, 2),
+            ang_pos=bank(pids.ang_pos, _AP_INT, 3), z_pos=bank(pids.z_pos, _ZP_INT, 1),
+            z_vel=bank(pids.z_vel, _ZV_INT, 1),
+        )
     return dataclasses.replace(
         template,
         body=dataclasses.replace(
@@ -192,11 +256,11 @@ class HoverConsts:
 
 
 @dataclasses.dataclass(frozen=True)
-class GenericConsts:
-    """Vehicle constants of the generic step (``HoverConsts`` without the
-    task fields), the wind of the launch and the convention, as Python
-    values: the kernel gets them as one POD struct by value
-    (``_GenericConstsC``, these fields in this order)."""
+class CascadeVehicle:
+    """The vehicle fields of ``HoverConsts`` and the gains of the mode-7
+    position cascade's five PID banks (``lp`` lin_pos, ``lv`` lin_vel,
+    ``ap`` ang_pos, ``zp`` z_pos, ``zv`` z_vel): the leading fields of the
+    generic and the waypoints constants."""
 
     mass: float
     inertia: tuple = _floats(3)
@@ -219,12 +283,55 @@ class GenericConsts:
     min_pwm: float
     max_pwm: float
     half_ext: tuple = _floats(3)
+    lp_kp: tuple = _floats(2)
+    lp_ki: tuple = _floats(2)
+    lp_kd: tuple = _floats(2)
+    lp_lim: tuple = _floats(2)
+    lv_kp: tuple = _floats(2)
+    lv_ki: tuple = _floats(2)
+    lv_kd: tuple = _floats(2)
+    lv_lim: tuple = _floats(2)
+    ap_kp: tuple = _floats(3)
+    ap_ki: tuple = _floats(3)
+    ap_kd: tuple = _floats(3)
+    ap_lim: tuple = _floats(3)
+    zp_kp: tuple = _floats(1)
+    zp_ki: tuple = _floats(1)
+    zp_kd: tuple = _floats(1)
+    zp_lim: tuple = _floats(1)
+    zv_kp: tuple = _floats(1)
+    zv_ki: tuple = _floats(1)
+    zv_kd: tuple = _floats(1)
+    zv_lim: tuple = _floats(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenericConsts(CascadeVehicle):
+    """Constants of the generic step: the vehicle and its cascade gains,
+    the wind of the launch and the convention, as Python values. The
+    kernel gets them as one POD struct by value (``_GenericConstsC``,
+    these fields in this order)."""
+
     wind_base: tuple = _floats(3)  # WIND_GAUSSIAN: the baked base, ENU
     max_gust: float  # gaussian kinds: the gust clip (0: no gusts)
     wind_strength: float  # WIND_SIMPLE: the thermal strength
     wind_kind: int
     ned: int
     ratio: int
+
+
+@dataclasses.dataclass(frozen=True)
+class WaypointsConsts(CascadeVehicle):
+    """Constants of the waypoints agent step: the vehicle and its cascade
+    gains, then the task's, as Python values (``_WaypointsConstsC``,
+    these fields in this order)."""
+
+    dome2: float
+    max_steps: float
+    goal: float  # goal_reach_distance
+    inner_steps: int
+    ratio: int
+    num_targets: int
 
 
 def _vehicle(params: quadx.QuadXParams, cfg: quadx.QuadXConfig) -> dict:
@@ -261,6 +368,19 @@ def _vehicle(params: quadx.QuadXParams, cfg: quadx.QuadXConfig) -> dict:
         half_ext=f(params.collision_half_extents),
         ratio=int(cfg.physics_control_ratio),
     )
+
+
+_BANKS = {"lp": "lin_pos", "lv": "lin_vel", "ap": "ang_pos", "zp": "z_pos", "zv": "z_vel"}
+
+
+def _cascade_gains(params: quadx.QuadXParams) -> dict:
+    """The five cascade banks' gains, read once from the parameter tensors."""
+    f = lambda t: tuple(float(v) for v in np.asarray(t.detach().cpu(), np.float64).reshape(-1))  # noqa: E731
+    return {
+        f"{short}_{g}": f(getattr(getattr(params, f"pid_{name}"), g))
+        for short, name in _BANKS.items()
+        for g in ("kp", "ki", "kd", "lim")
+    }
 
 
 def hover_consts(
@@ -308,7 +428,31 @@ def generic_consts(
     """Reads the parameter tensors once into ``GenericConsts``, with the
     wind baked in (see ``_wind_fields``; None: no wind)."""
     return GenericConsts(
-        **_vehicle(params, cfg), **_wind_fields(wind), ned=int(cfg.orn_conv == "NED_FRD")
+        **_vehicle(params, cfg), **_cascade_gains(params), **_wind_fields(wind),
+        ned=int(cfg.orn_conv == "NED_FRD"),
+    )
+
+
+def waypoints_consts(
+    params: quadx.QuadXParams,
+    cfg: quadx.QuadXConfig,
+    inner_steps: int,
+    dome: float,
+    max_steps: int,
+    num_targets: int,
+    goal: float,
+) -> WaypointsConsts:
+    """Reads the parameter tensors once into ``WaypointsConsts``."""
+    if cfg.orn_conv != "ENU_FLU":
+        raise NotImplementedError("the fused waypoints step is ENU only")
+    if not 1 <= num_targets <= MAX_TARGETS:
+        raise NotImplementedError(
+            f"the waypoints layout carries 1..{MAX_TARGETS} targets, not {num_targets}"
+        )
+    return WaypointsConsts(
+        **_vehicle(params, cfg), **_cascade_gains(params), dome2=float(dome) ** 2,
+        max_steps=float(max_steps), goal=float(goal), inner_steps=int(inner_steps),
+        num_targets=int(num_targets),
     )
 
 
@@ -330,16 +474,33 @@ def ops_per_env(c: HoverConsts) -> int:
     return c.inner_steps * per_aviary
 
 
-def generic_ops_per_env(c: GenericConsts) -> int:
+def generic_ops_per_env(c: GenericConsts, mode: int = 0) -> int:
     """f32 operations one generic aviary step does per env (for the bound)."""
     wind = 0 if c.wind_kind == WIND_NONE else OPS_PER_WIND
-    return OPS_PER_CONTROL + c.ratio * (OPS_PER_PHYSICS_ITER + wind)
+    cascade = OPS_PER_CASCADE if mode == 7 else 0
+    return OPS_PER_CONTROL + cascade + c.ratio * (OPS_PER_PHYSICS_ITER + wind)
 
 
-def generic_rows_read(c: GenericConsts) -> int:
-    """The f32 rows the generic kernel reads per env: the drone's 50, and
-    the per-env wind base where it has one."""
-    return _CON + 1 + (3 if c.wind_kind == WIND_GAUSSIAN_ENV else 0)
+def generic_rows_read(c: GenericConsts, mode: int = 0) -> int:
+    """The f32 rows the generic kernel reads per env: the drone's 50, the
+    per-env wind base where it has one, the cascade's 18 in mode 7."""
+    return _CON + 1 + (3 if c.wind_kind == WIND_GAUSSIAN_ENV else 0) + (CASCADE_ROWS if mode == 7 else 0)
+
+
+def waypoints_ops_per_env(c: WaypointsConsts, mode: int) -> int:
+    """f32 operations one waypoints agent step does per env (for the bound)."""
+    cascade = OPS_PER_CASCADE if mode == 7 else 0
+    per_aviary = OPS_PER_CONTROL + cascade + c.ratio * OPS_PER_PHYSICS_ITER + OPS_PER_WAYPOINT_TASK
+    return c.inner_steps * per_aviary
+
+
+def waypoints_rows_moved(mode: int) -> tuple[int, int]:
+    """(rows read, rows written) per env by the waypoints kernel: it reads
+    the drone's 50, the 5 env rows but the reward (re-armed), the
+    cascade's 18 in mode 7 and the 28 waypoint rows, and writes every row
+    of the layout, padding included."""
+    read = _CON + 1 + 5 + (CASCADE_ROWS if mode == 7 else 0) + WP_ROWS
+    return read, rows_for_waypoints(mode)
 
 
 def _ctype(f: dataclasses.Field):
@@ -374,6 +535,14 @@ class _GenericConstsC(_ConstsC):
     field from ``GenericConsts`` (a test holds the C struct to it)."""
 
     _fields_ = [(f.name, _ctype(f)) for f in dataclasses.fields(GenericConsts)]
+
+
+class _WaypointsConstsC(_ConstsC):
+    """Mirror of ``struct WaypointsConsts`` in
+    csrc/quadx_waypoints_step.cu, field by field from ``WaypointsConsts``
+    (a test holds the C struct to it)."""
+
+    _fields_ = [(f.name, _ctype(f)) for f in dataclasses.fields(WaypointsConsts)]
 
 
 # ---------------------------------------------------------------------------
@@ -411,10 +580,26 @@ GENERIC_KERNEL = Kernel(
     ],
 )
 
+WAYPOINTS_KERNEL = Kernel(
+    "quadx_waypoints_step.cu",
+    "quadx_waypoints_step",
+    [
+        ctypes.c_void_p,  # in
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # n
+        ctypes.c_void_p,  # seed (device int64)
+        ctypes.c_void_p,  # consts (host struct)
+        ctypes.c_int,  # mode
+        ctypes.c_int,  # noisy
+        ctypes.c_int,  # sparse
+        ctypes.c_void_p,  # stream
+    ],
+)
 
-def _check_packed(packed: Tensor, seed: Tensor) -> None:
-    if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != ROWS:
-        raise ValueError(f"packed must be ({ROWS}, N) float32, got {tuple(packed.shape)} {packed.dtype}")
+
+def _check_packed(packed: Tensor, seed: Tensor, rows: int = ROWS) -> None:
+    if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != rows:
+        raise ValueError(f"packed must be ({rows}, N) float32, got {tuple(packed.shape)} {packed.dtype}")
     if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != packed.device:
         raise ValueError("seed must be one int64 on the packed state's device")
 
@@ -427,19 +612,26 @@ def _check_args(packed: Tensor, seed: Tensor, mode: int) -> None:
     _check_packed(packed, seed)
 
 
-def _check_generic(packed: Tensor, seed: Tensor, mode: int) -> None:
-    if mode == 7:
-        raise NotImplementedError(
-            "mode 7 in the generic QuadX step needs the position cascade and "
-            "its 80-row layout: ROADMAP.md, item 6 (quadx mode 7), with the "
-            "waypoints slice (slice 5)"
-        )
+def _check_generic(packed: Tensor, seed: Tensor, mode: int, c: GenericConsts) -> None:
     if mode not in GENERIC_MODES:
         raise NotImplementedError(
-            f"the generic QuadX step covers modes 0, 8 and 9, not {mode} "
+            f"the generic QuadX step covers modes 0, 7, 8 and 9, not {mode} "
             "(models/quadx.step runs the others it has)"
         )
-    _check_packed(packed, seed)
+    if mode == 7 and c.ned:
+        raise NotImplementedError(
+            "mode 7 in the QuadX kernels carries the ENU cascade only, as the "
+            "Pallas kernel does; NED mode 7 runs on models/quadx.step"
+        )
+    _check_packed(packed, seed, rows_for(mode))
+
+
+def _check_waypoints(packed: Tensor, seed: Tensor, mode: int, c: WaypointsConsts) -> None:
+    if mode not in WAYPOINT_MODES:
+        raise NotImplementedError(f"the fused waypoints step covers modes 0, 7 and 8, not {mode}")
+    if not 1 <= c.num_targets <= MAX_TARGETS:
+        raise NotImplementedError(f"the waypoints layout carries 1..{MAX_TARGETS} targets, not {c.num_targets}")
+    _check_packed(packed, seed, rows_for_waypoints(mode))
 
 
 def _launch(kernel: Kernel, packed: Tensor, seed: Tensor, cstruct, *flags) -> Tensor:
@@ -490,11 +682,29 @@ def packed_step(
     ``core/wind.py`` field, see ``_wind_fields``) replaces the wind baked
     into ``consts``; a per-env gaussian base is read from rows 51-53, in
     ENU. ``seed`` is a one-element int64 tensor on the state's device."""
-    _check_generic(packed, seed, mode)
     consts = with_wind(consts, wind)
+    _check_generic(packed, seed, mode, consts)
     if packed.device.type == "cpu":
         return packed_step_plain(packed, seed, consts, mode, noisy)
     return _launch(GENERIC_KERNEL, packed, seed, _GenericConstsC.of(consts), mode, int(noisy))
+
+
+def packed_waypoints_step(
+    packed: Tensor,
+    seed: Tensor,
+    consts: WaypointsConsts,
+    mode: int,
+    noisy: bool,
+    sparse: bool = False,
+) -> Tensor:
+    """One full waypoints agent step on the packed
+    ``(rows_for_waypoints(mode), N)`` state: returns the new packed state (a
+    new tensor). ``seed`` is a one-element int64 tensor on the state's
+    device (the motor-noise key of this step)."""
+    _check_waypoints(packed, seed, mode, consts)
+    if packed.device.type == "cpu":
+        return packed_waypoints_step_plain(packed, seed, consts, mode, noisy, sparse)
+    return _launch(WAYPOINTS_KERNEL, packed, seed, _WaypointsConstsC.of(consts), mode, int(noisy), int(sparse))
 
 
 def step(
@@ -514,7 +724,7 @@ def step(
     the seed when ``generator`` is None). ``consts`` saves re-reading
     ``params`` on every call (``generic_consts(params, cfg)``)."""
     c = with_wind(consts if consts is not None else generic_consts(params, cfg), wind)
-    packed = pack_state(state)
+    packed = pack_state(state, mode)
     if c.wind_kind == WIND_GAUSSIAN_ENV:
         if not isinstance(wind, wind_models.GaussianWind):
             raise ValueError("step takes a per-env wind base from a GaussianWind")
@@ -535,9 +745,10 @@ def step(
 # ---------------------------------------------------------------------------
 
 
-def _unpack_rows(S: list[Tensor]) -> dict:
-    """The drone rows 0-49 of ``S`` (a list of row tensors) by name."""
-    return {
+def _unpack_rows(S: list[Tensor], mode: int = 0) -> dict:
+    """The drone rows 0-49 of ``S`` (a list of row tensors) by name, and
+    in mode 7 the cascade's 18 rows (``cas``)."""
+    st = {
         "pos": S[_POS:_POS + 3], "quat": S[_QUAT:_QUAT + 4],
         "lvel": S[_LVEL:_LVEL + 3], "avel": S[_AVEL:_AVEL + 3],
         "view": S[_VIEW:_VIEW + 12], "avb": S[_AVB:_AVB + 3],
@@ -545,6 +756,9 @@ def _unpack_rows(S: list[Tensor]) -> dict:
         "pwm": S[_PWM:_PWM + 4], "pint": S[_PINT:_PINT + 3],
         "pprv": S[_PPRV:_PPRV + 3], "contact": S[_CON],
     }
+    if mode == 7:
+        st["cas"] = S[_LP_INT:_LP_INT + CASCADE_ROWS]
+    return st
 
 
 def _pack_rows(out: list, st: dict, sp: list[Tensor]) -> None:
@@ -556,6 +770,27 @@ def _pack_rows(out: list, st: dict, sp: list[Tensor]) -> None:
             out[base + k] = v
     out[_SP:_SP + 4] = sp
     out[_CON] = st["contact"]
+    if "cas" in st:
+        out[_LP_INT:_LP_INT + CASCADE_ROWS] = st["cas"]
+
+
+# the cascade's banks in its 18 rows: (name, first integral row, lanes)
+_CASCADE_LAYOUT = (("lp", 0, 2), ("lv", 4, 2), ("ap", 8, 3), ("zp", 14, 1), ("zv", 16, 1))
+
+
+def _pid_bank_plain(cas: list[Tensor], bank: str, c, meas: list, setp: list) -> list[Tensor]:
+    """quadx_lane.cuh::pid_bank: one PID bank of the cascade, in place on
+    its integral and prev-error rows of ``cas``."""
+    _, r0, k = next(b for b in _CASCADE_LAYOUT if b[0] == bank)
+    kp, ki, kd, lim = (getattr(c, f"{bank}_{g}") for g in ("kp", "ki", "kd", "lim"))
+    out = []
+    for i in range(k):
+        err = setp[i] - meas[i]
+        cas[r0 + i] = torch.clamp(cas[r0 + i] + ki[i] * err * c.period, -lim[i], lim[i])
+        deriv = kd[i] * (err - cas[r0 + k + i]) / c.period
+        cas[r0 + k + i] = err
+        out.append(torch.clamp(kp[i] * err + cas[r0 + i] + deriv, -lim[i], lim[i]))
+    return out
 
 
 def _control_plain(s: dict, sp: list[Tensor], c, mode: int, ned: bool) -> None:
@@ -571,13 +806,28 @@ def _control_plain(s: dict, sp: list[Tensor], c, mode: int, ned: bool) -> None:
     else:
         cmd = []
         pint, pprv = list(s["pint"]), list(s["pprv"])
+        a_sp = sp
+        if mode == 7:  # the position cascade (ENU): its ang-vel setpoint and thrust
+            v = s["view"]
+            cas = list(s["cas"])
+            xy = _pid_bank_plain(cas, "lp", c, v[9:11], sp[0:2])
+            cy, sy = torch.cos(v[5]), torch.sin(v[5])
+            xy = [cy * xy[0] + sy * xy[1], -sy * xy[0] + cy * xy[1]]
+            xy = _pid_bank_plain(cas, "lv", c, v[6:8], xy)
+            a_sp = _pid_bank_plain(cas, "ap", c, v[3:6], [-xy[1], xy[0], sp[2]])
+            z1 = _pid_bank_plain(cas, "zp", c, v[11:12], sp[3:4])
+            z1 = _pid_bank_plain(cas, "zv", c, v[8:9], z1)
+            s["cas"] = cas
         for k in range(3):
-            err = sp[k] - s["view"][k]
+            err = a_sp[k] - s["view"][k]
             pint[k] = clip(pint[k] + c.ki[k] * err * c.period, -c.lim[k], c.lim[k])
             deriv = c.kd[k] * (err - pprv[k]) / c.period
             pprv[k] = err
             cmd.append(clip(c.kp[k] * err + pint[k] + deriv, -c.lim[k], c.lim[k]))
-        cmd.append(clip(-clip(sp[3], -1.0, 0.0), 0.0, 1.0) if ned else clip(sp[3], 0.0, 1.0))
+        if mode == 7:
+            cmd.append(clip(z1[0], 0.0, 1.0))
+        else:
+            cmd.append(clip(-clip(sp[3], -1.0, 0.0), 0.0, 1.0) if ned else clip(sp[3], 0.0, 1.0))
         s["pint"], s["pprv"] = pint, pprv
         raw = [
             mm[4 * m] * cmd[0] + mm[4 * m + 1] * cmd[1]
@@ -687,6 +937,16 @@ def _physics_plain(s: dict, c, gen, noisy: bool, ned: bool, wind: list[Tensor] |
              avb=avb_new, drg=drg_new, contact=hit.to(like.dtype))
 
 
+def _freeze(st: dict, nw: dict, frozen: Tensor) -> None:
+    """The done-freeze as a select, in place on ``st``: a frozen lane keeps
+    its registers, the others take ``nw``'s."""
+    for key, old in st.items():
+        if isinstance(old, list):
+            st[key] = [torch.where(frozen, o, v) for o, v in zip(old, nw[key])]
+        else:
+            st[key] = torch.where(frozen, old, nw[key])
+
+
 def _twin_generator(seed: Tensor, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed.reshape(()).item()))
@@ -736,12 +996,7 @@ def packed_hover_step_plain(
         nw["term"] = torch.clamp(nw["term"] + fatal, max=1.0)
         nw["coll"] = torch.clamp(nw["coll"] + any_contact, max=1.0)
         nw["oob"] = torch.clamp(nw["oob"] + oob_i, max=1.0)
-        # done-freeze as a select
-        for key, old in st.items():
-            if isinstance(old, list):
-                st[key] = [torch.where(frozen, o, v) for o, v in zip(old, nw[key])]
-            else:
-                st[key] = torch.where(frozen, old, nw[key])
+        _freeze(st, nw, frozen)
 
     out = [None] * ROWS
     _pack_rows(out, st, sp)
@@ -764,14 +1019,14 @@ def packed_step_plain(
 ) -> Tensor:
     """The generic kernel's arithmetic in plain PyTorch, row by row (any
     device); ``wind`` as in ``packed_step``."""
-    _check_generic(packed, seed, mode)
     c = with_wind(consts, wind)
+    _check_generic(packed, seed, mode, c)
     S = list(packed.unbind(0))
     stochastic = noisy or c.wind_kind == WIND_SIMPLE or (
         c.wind_kind in (WIND_GAUSSIAN, WIND_GAUSSIAN_ENV) and c.max_gust > 0.0
     )
     gen = _twin_generator(seed, packed.device) if stochastic else None
-    st = _unpack_rows(S)
+    st = _unpack_rows(S, mode)
     sp = S[_SP:_SP + 4]
     zero = torch.zeros_like(S[_CON])
     wbase = S[_WBASE:_WBASE + 3] if c.wind_kind == WIND_GAUSSIAN_ENV else None
@@ -782,9 +1037,106 @@ def packed_step_plain(
         w = _wind_plain(st, wbase, c, gen)
         _physics_plain(st, c, gen, noisy, ned=bool(c.ned), wind=w)
         any_contact = torch.maximum(any_contact, st["contact"])
-    out = [zero] * ROWS
+    out = [zero] * rows_for(mode)
     _pack_rows(out, st, sp)
     out[_ANY] = any_contact
     if wbase is not None:
         out[_WBASE:_WBASE + 3] = wbase
+    return torch.stack(out, dim=0)
+
+
+def _waypoint_track_plain(R, lp, tgt, rem, ndist, nt: int, goal: float):
+    """quadx_math.cuh::waypoint_track (pallas_math.py:239-294): body-frame
+    deltas of the rolled targets, the distance to the current one, the
+    masked delta observation, the reach and the cyclic advance. Returns
+    ``(tgt, rem, ndist, odist, progress, tdlt, reached, all_reached)``."""
+    deltas = []
+    for k in range(nt):
+        d = [tgt[3 * k + i] - lp[i] for i in range(3)]
+        deltas.append([R[i] * d[0] + R[3 + i] * d[1] + R[6 + i] * d[2] for i in range(3)])
+    d0 = deltas[0]
+    ndist_new = torch.sqrt(d0[0] * d0[0] + d0[1] * d0[1] + d0[2] * d0[2])
+    progress = ndist - ndist_new
+    zero = torch.zeros_like(rem)
+    tdlt = []
+    for k in range(MAX_TARGETS):
+        keep = (rem > k + 0.5).to(rem.dtype) if k < nt else None
+        tdlt += [deltas[k][i] * keep if k < nt else zero for i in range(3)]
+    reached = (ndist_new < goal) & (rem > 0.5)
+    n3 = 3 * nt
+    tgt = [torch.where(reached, tgt[(j + 3) % n3], tgt[j]) for j in range(n3)] + list(tgt[n3:])
+    rem = rem - reached.to(rem.dtype)
+    return tgt, rem, ndist_new, ndist, progress, tdlt, reached, rem < 0.5
+
+
+def packed_waypoints_step_plain(
+    packed: Tensor,
+    seed: Tensor,
+    consts: WaypointsConsts,
+    mode: int,
+    noisy: bool,
+    sparse: bool = False,
+) -> Tensor:
+    """The waypoints kernel's arithmetic in plain PyTorch, row by row (any
+    device)."""
+    c = consts
+    _check_waypoints(packed, seed, mode, c)
+    S = list(packed.unbind(0))
+    gen = _twin_generator(seed, packed.device) if noisy else None
+    wb = rows_for(mode)
+    st = _unpack_rows(S, mode)
+    st.update(term=S[_TERM], trunc=S[_TRUNC], coll=S[_COLL], oob=S[_OOB],
+              tgt=S[wb + _WP_TGT : wb + _WP_TGT + 12], rem=S[wb + _WP_REM], ndist=S[wb + _WP_NDIST],
+              odist=S[wb + _WP_ODIST], tdlt=S[wb + _WP_TDLT : wb + _WP_TDLT + 12], cplt=S[wb + _WP_CPLT])
+    sp = S[_SP:_SP + 4]
+    stepc = S[_STEP]
+    st["rwd"] = torch.full_like(stepc, -0.1)
+    trunc_hit = (stepc > c.max_steps).to(stepc.dtype)
+    one = torch.ones_like(stepc)
+
+    for _ in range(c.inner_steps):
+        frozen = torch.clamp(torch.maximum(st["term"], st["trunc"]), max=1.0) > 0.0
+        nw = dict(st)
+        any_contact = torch.zeros_like(stepc)
+        for it in range(c.ratio):
+            if it == 0:
+                _control_plain(nw, sp, c, mode, ned=False)
+            quat_pre = nw["quat"]
+            _physics_plain(nw, c, gen, noisy, ned=False, wind=None)
+            any_contact = torch.maximum(any_contact, nw["contact"])
+        # the task update on the lagged position, deltas rotated by the last
+        # iteration's pre-integration rotation (pallas_quadx.py:677-680)
+        vx, vy, vz = nw["view"][9], nw["view"][10], nw["view"][11]
+        oob_i = ((vx * vx + vy * vy + vz * vz) > c.dome2).to(stepc.dtype)
+        fatal = torch.maximum(any_contact, oob_i)
+        trunc = torch.clamp(nw["trunc"] + trunc_hit, max=1.0)
+        rwd = torch.where(fatal > 0.0, -100.0, nw["rwd"])
+        (nw["tgt"], nw["rem"], ndist, nw["odist"], progress, nw["tdlt"], reached,
+         all_reached) = _waypoint_track_plain(cm.quat_rotmat(quat_pre), (vx, vy, vz), nw["tgt"], nw["rem"],
+                                              nw["ndist"], c.num_targets, c.goal)
+        nw["ndist"] = ndist
+        if not sparse:
+            rwd = rwd + torch.clamp(3.0 * progress, min=0.0) + 0.1 / ndist
+        nw["rwd"] = torch.where(reached, 100.0, rwd)
+        nw["trunc"] = torch.where(all_reached, one, trunc)
+        nw["cplt"] = torch.where(all_reached, one, nw["cplt"])
+        nw["term"] = torch.clamp(nw["term"] + fatal, max=1.0)
+        nw["coll"] = torch.clamp(nw["coll"] + any_contact, max=1.0)
+        nw["oob"] = torch.clamp(nw["oob"] + oob_i, max=1.0)
+        _freeze(st, nw, frozen)
+
+    out = [torch.zeros_like(stepc)] * rows_for_waypoints(mode)
+    _pack_rows(out, st, sp)
+    out[_RWD] = st["rwd"]
+    out[_TERM] = st["term"]
+    out[_TRUNC] = st["trunc"]
+    out[_COLL] = st["coll"]
+    out[_OOB] = st["oob"]
+    out[_STEP] = stepc + 1.0
+    out[wb + _WP_TGT : wb + _WP_TGT + 12] = st["tgt"]
+    out[wb + _WP_REM] = st["rem"]
+    out[wb + _WP_NDIST] = st["ndist"]
+    out[wb + _WP_ODIST] = st["odist"]
+    out[wb + _WP_TDLT : wb + _WP_TDLT + 12] = st["tdlt"]
+    out[wb + _WP_CPLT] = st["cplt"]
     return torch.stack(out, dim=0)

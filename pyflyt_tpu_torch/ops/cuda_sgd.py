@@ -16,7 +16,8 @@ launches its kernel for CUDA tensors and runs its plain twin
 (``*_plain``) for CPU tensors; the twins' matmuls are the module-level
 ``_mm``, ``_mm_tn`` and ``_mm_nt``, which a test may replace with f32
 products. The twins take any widths; the kernels cover two 256-wide tanh
-layers per trunk, obs width <= 32 and at most 8 actions, and raise
+layers per trunk and at most 8 actions, K3 obs widths up to 64 (K4's
+loader) and K2 up to 32 (ROADMAP.md, item 26), and raise
 ``NotImplementedError`` outside that.
 
 Parameters travel as the ordered leaf list of ``leaf_specs`` (flax layout:
@@ -35,7 +36,8 @@ from torch import Tensor
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 
 HIDDEN = 256
-MAX_OBS_DIM = 32
+MAX_OBS_DIM = 64  # K3 (K4's obs loader)
+EPOCH_MAX_OBS_DIM = 32  # K2: wider observations are ROADMAP.md, item 26
 MAX_ACT_DIM = 8
 
 # Adam constants (optax.adam defaults; eps as rl/ppo.py)
@@ -178,14 +180,18 @@ LOGP_KERNEL = Kernel("policy_value_forward.cu", "logp_forward", [ctypes.c_void_p
 
 
 def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> None:
+    """K3's envelope (the actor trunk only), or K2's when ``vf_sizes`` is
+    given (both trunks; obs widths up to 32)."""
     trunks = [("pi", tuple(pi_sizes))] + ([("vf", tuple(vf_sizes))] if vf_sizes is not None else [])
     for name, sizes in trunks:
         if sizes != (HIDDEN, HIDDEN):
             raise NotImplementedError(
                 f"the CUDA SGD kernels cover two {HIDDEN}-wide layers per trunk, got {name} {sizes}"
             )
-    if not 0 < obs_dim <= MAX_OBS_DIM:
-        raise NotImplementedError(f"obs width {obs_dim} outside 1..{MAX_OBS_DIM}")
+    max_obs = MAX_OBS_DIM if vf_sizes is None else EPOCH_MAX_OBS_DIM
+    if not 0 < obs_dim <= max_obs:
+        item = " (ROADMAP.md, item 26: K2 at observation widths above 32)" if max_obs == EPOCH_MAX_OBS_DIM else ""
+        raise NotImplementedError(f"obs width {obs_dim} outside 1..{max_obs}{item}")
     if not 0 < act_dim <= MAX_ACT_DIM:
         raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM}")
 
@@ -481,7 +487,7 @@ def fused_epoch(
     pad = n_tiles * _TILE_M
     empty = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
     ws = dict(
-        ws_x=empty(pad, MAX_OBS_DIM, dtype=torch.bfloat16),
+        ws_x=empty(pad, EPOCH_MAX_OBS_DIM, dtype=torch.bfloat16),
         ws_a=empty(4, pad, HIDDEN, dtype=torch.bfloat16),
         ws_dz=empty(4, pad, HIDDEN),
         ws_dmean=empty(pad, MAX_ACT_DIM),

@@ -12,6 +12,11 @@ are Python loops and the hot pieces are the port's kernels.
   ``ActorCritic`` with optax's ``clip_by_global_norm`` and Adam written
   out, the exact-semantics path, as the XLA scan is in the JAX package.
 
+Dict observations (the waypoints envs) are flattened in sorted-key order
+(``_flat_obs``, ``ppo.py:224-230``) wherever PPO takes an observation:
+the batch it starts from, every rollout step, the truncation bootstrap's
+terminal observation and ``evaluate``.
+
 Differences from the JAX package, by design: a ``torch.Generator`` in the
 runner draws the action noise and the epoch permutations (threefry and
 Philox give other numbers from one seed); the network's parameters are
@@ -127,6 +132,19 @@ class Transition:
 # ---------------------------------------------------------------------------
 
 
+def _flat_obs(obs) -> Tensor:
+    """Dict observations are flattened (sorted keys) for the MLP policy."""
+    if isinstance(obs, dict):
+        return torch.cat([obs[k].reshape(obs[k].shape[0], -1) for k in sorted(obs)], dim=-1)
+    return obs
+
+
+def obs_width(env) -> int:
+    """The width of the policy's input: ``flat_obs_size`` where the env
+    has a dict observation, else ``obs_size``."""
+    return getattr(env, "flat_obs_size", env.obs_size)
+
+
 def apply_policy(
     network: ActorCritic, obs: Tensor, fused: bool = True
 ) -> tuple[Tensor, Tensor, Tensor]:
@@ -169,17 +187,20 @@ def action_bounds(env, device: torch.device) -> tuple[Tensor, Tensor]:
 
 
 def env_init(env, num_envs: int, generator: torch.Generator | None, refresh: int):
-    """The batch a rollout starts from (``ppo.py:307-325``): a natively
-    batched env resets itself (``cached_autoreset_init`` when ``refresh >
-    0``); any other env through ``envs/base`` (``autoreset_init`` when
-    ``refresh > 0``)."""
+    """The batch a rollout starts from and its flat observation
+    (``ppo.py:307-326``): a natively batched env resets itself
+    (``cached_autoreset_init`` when ``refresh > 0``); any other env through
+    ``envs/base`` (``autoreset_init`` when ``refresh > 0``)."""
     if getattr(env, "native_batch", False):
         if refresh > 0:
-            return env.cached_autoreset_init(num_envs, generator)
-        return env.reset(num_envs, generator)
-    if refresh > 0:
-        return autoreset_init(env, num_envs, generator)
-    return env.reset(num_envs, generator)
+            ars, obs = env.cached_autoreset_init(num_envs, generator)
+        else:
+            ars, obs = env.reset(num_envs, generator)
+    elif refresh > 0:
+        ars, obs = autoreset_init(env, num_envs, generator)
+    else:
+        ars, obs = env.reset(num_envs, generator)
+    return ars, _flat_obs(obs)
 
 
 def env_step(env, ars, action: Tensor, refresh: int):
@@ -211,7 +232,8 @@ def rollout(
     """Collects ``num_steps`` steps from a batch under auto-reset
     (``env_step``: cached when ``refresh > 0``, else exact).
 
-    ``ars``/``obs`` come from ``env_init`` with the same ``refresh``;
+    ``ars``/``obs`` come from ``env_init`` with the same ``refresh`` (a
+    dict observation is flattened, ``_flat_obs``);
     ``generator`` draws the action noise. With ``gamma`` set, a step truncated but not terminated
     gets ``gamma·V(terminal_obs)`` added to its reward (SB3's time-limit
     bootstrap, f32 critic): at every step (``slot=False``), or once after
@@ -238,7 +260,7 @@ def rollout(
         ars, out = env_step(env, ars, clipped, refresh)
         reward = out.reward
         if gamma is not None:
-            term_obs = out.info["terminal_observation"]
+            term_obs = _flat_obs(out.info["terminal_observation"])
             trunc_only = out.truncation & ~out.termination
             if slot:
                 slot_obs = torch.where(trunc_only[:, None], term_obs, slot_obs)
@@ -252,7 +274,7 @@ def rollout(
         traj.value[t] = value
         traj.reward[t] = reward
         traj.done[t] = out.termination | out.truncation
-        obs = out.obs
+        obs = _flat_obs(out.obs)
     if gamma is not None and slot:
         adj = gamma * network.value(slot_obs) * slot_has
         traj.reward.index_put_((slot_t, torch.arange(n, device=obs.device)), adj, accumulate=True)
@@ -355,6 +377,11 @@ class PPO:
             raise ValueError(
                 f"{type(env).__name__} has no cached auto-reset; set cached_reset_refresh=0"
             )
+        if config.fused_sgd and obs_width(env) > cuda_sgd.EPOCH_MAX_OBS_DIM:
+            raise NotImplementedError(
+                f"fused_sgd at observation width {obs_width(env)}: K2 covers widths up to "
+                f"{cuda_sgd.EPOCH_MAX_OBS_DIM} (ROADMAP.md, item 26: K2 at observation widths above 32)"
+            )
         self.env = env
         self.config = config
         self.device = env.device
@@ -369,7 +396,7 @@ class PPO:
         cfg = self.config
         dev = self.device
         network = ActorCritic(
-            self.env.obs_size, self.action_dim,
+            obs_width(self.env), self.action_dim,
             feature_sizes=cfg.feature_sizes, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes,
             init_log_std=cfg.init_log_std, log_std_range=cfg.log_std_range,
             device=dev, generator=torch.Generator().manual_seed(seed),
@@ -571,6 +598,7 @@ class PPO:
                 f"{type(self.env).__name__} does not define it"
             )
         state, obs = self.env.reset(num_episodes, generator)
+        obs = _flat_obs(obs)
         zeros = lambda: torch.zeros(num_episodes, device=obs.device)  # noqa: E731
         done, ep_rew, ep_len = zeros(), zeros(), zeros()
         for _ in range(int(self.env.max_steps) + 2):
@@ -580,7 +608,7 @@ class PPO:
             ep_rew = ep_rew + out.reward * (1.0 - done)
             ep_len = ep_len + (1.0 - done)
             done = torch.maximum(done, step_done)
-            obs = out.obs
+            obs = _flat_obs(out.obs)
         std = lambda x: x.std(correction=0)  # noqa: E731
         return {
             "mean_reward": ep_rew.mean(), "std_reward": std(ep_rew),

@@ -11,8 +11,10 @@ Usage::
     python -m pyflyt_tpu_torch.rl_training.hovering eval --checkpoint runs/hover/best_model_*
     python -m pyflyt_tpu_torch.rl_training.hovering eval-pid-expert
 
-``eval-pid-expert`` flies the PID expert in mode 7 or 10, which the port
-does not have yet: it raises ``NotImplementedError`` (ROADMAP.md, item 6).
+``eval-pid-expert`` flies the PID expert on the same scenario, in mode 7
+(the default: the position cascade, through ``models/quadx``) or 10; mode
+10 (ga_pid) is not ported yet and raises ``NotImplementedError``
+(ROADMAP.md, item 6).
 """
 
 from __future__ import annotations
@@ -181,7 +183,7 @@ def cmd_eval_pid_expert(args):
     args.flight_mode = args.expert_mode
     args.normalize_obs = False
     args.normalize_actions = False
-    env = build_env(args, eval_scenario=True)  # modes 7/10 raise here (ROADMAP.md, item 6)
+    env = build_env(args, eval_scenario=True)  # mode 10 raises here (ROADMAP.md, item 6)
 
     def policy(state, obs):
         return hovering_pid_expert(state.state16)

@@ -246,9 +246,10 @@ def test_constructor_quirk_and_unported_modes():
         JModEnv()
     with pytest.raises(ValueError, match="only -1, 7, 8, 9, 10"):
         QuadXModHoveringEnv(device="cpu")
-    for mode in (-1, 7, 10):
+    for mode in (-1, 10):
         with pytest.raises(NotImplementedError, match="item 6"):
             QuadXModHoveringEnv(flight_mode=mode, device="cpu")
+    assert QuadXModHoveringEnv(flight_mode=7, device="cpu").flight_mode == 7  # ported
 
 
 def test_reset_draws_follow_the_recipe():
@@ -408,8 +409,12 @@ def test_cli_train_eval_and_the_pid_expert(tmp_path):
         rows = list(csv.reader(f))
     assert rows[0] == tlog.COLUMNS and len(rows) == 1 + length
     assert all(len(r) == 34 for r in rows)
+    # the PID expert in mode 7 (the default), through models/quadx's NED
+    # position cascade: one 0.1 s episode (9 steps); mode 10 is not ported
+    total, length = cli.main(["eval-pid-expert", *common])
+    assert length == 9 and np.isfinite(total)
     with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["eval-pid-expert", *common])
+        cli.main(["eval-pid-expert", *common, "--expert_mode", "10"])
 
 
 def test_cli_eval_scenario_is_the_fixed_ned_one():

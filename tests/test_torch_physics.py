@@ -281,7 +281,7 @@ def test_quadx_step_matches_jax(params, mode):
     np.testing.assert_array_equal(ts.physics_steps.numpy(), np.asarray(js.physics_steps))
 
 
-@pytest.mark.parametrize("mode", [-1, 1, 7, 10])
+@pytest.mark.parametrize("mode", [-1, 1, 2, 10])
 def test_unported_modes_raise_with_roadmap_item(params, mode):
     _, _, tp = params
     cfg = tq.QuadXConfig(noisy_motors=False)

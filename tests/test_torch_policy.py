@@ -82,6 +82,25 @@ def test_fused_forward_plain_matches_pallas_kernel(carried):
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-3)
 
 
+def test_fused_forward_plain_matches_pallas_kernel_at_obs_33():
+    """The same at the waypoints env's flat width (attitude 21 + 4 target
+    deltas x 3), which the kernel pads to 64; the tolerance is the bf16
+    boundary argument above."""
+    obs33 = np.random.default_rng(12).normal(size=(64, 33)).astype(np.float32)
+    net = jnet.ActorCritic(action_dim=ACT_DIM, init_log_std=-0.5)
+    params = net.init(jax.random.PRNGKey(5), jnp.asarray(obs33))
+    tp = actor_critic_from_flax(jax.tree.map(np.asarray, params), device="cpu")
+    run = pallas_policy.build_policy_value_forward(
+        obs_dim=33, act_dim=ACT_DIM, pi_sizes=(256, 256), vf_sizes=(256, 256), chunk=64, interpret=True,
+    )
+    jm, jv = run(jnp.asarray(obs33), pallas_sgd.params_to_leaves(params))
+    w = tp.kernel_weights()
+    assert w.obs_dim == 33 <= cuda_policy.MAX_OBS_DIM
+    tm, tv = cuda_policy.policy_value_forward(torch.from_numpy(obs33), w)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-4)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-3)
+
+
 def test_leaf_order_matches_pallas_sgd(carried):
     _, params, tp = carried
     net = dict(obs_dim=OBS_DIM, act_dim=ACT_DIM, pi_sizes=(256, 256), vf_sizes=(256, 256), log_std_range=None)

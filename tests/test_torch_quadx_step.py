@@ -264,14 +264,21 @@ def test_consts_struct_carries_the_values():
 
 
 def test_mode_7_and_other_modes_raise():
+    """Mode 7 takes its 80-row layout and the ENU cascade only (NED mode 7
+    runs on models/quadx.step); modes outside 0/7/8/9 raise."""
     packed = torch.zeros(cq.ROWS, 4)
     seed = torch.zeros(1, dtype=torch.int64)
     _, tp = _params("ENU_FLU")
     _, tc = _cfgs("ENU_FLU")
     c = cq.generic_consts(tp, tc)
-    with pytest.raises(NotImplementedError, match="item 6.*waypoints"):
+    with pytest.raises(ValueError, match="80, N"):
         cq.packed_step(packed, seed, c, 7, False)
-    with pytest.raises(NotImplementedError, match="modes 0, 8 and 9"):
+    assert cq.packed_step(torch.zeros(cq.ROWS_MODE7, 4), seed, c, 7, False).shape == (cq.ROWS_MODE7, 4)
+    _, tp_ned = _params("NED_FRD")
+    _, tc_ned = _cfgs("NED_FRD")
+    with pytest.raises(NotImplementedError, match="ENU cascade only"):
+        cq.packed_step(torch.zeros(cq.ROWS_MODE7, 4), seed, cq.generic_consts(tp_ned, tc_ned), 7, False)
+    with pytest.raises(NotImplementedError, match="modes 0, 7, 8 and 9"):
         cq.packed_step_plain(packed, seed, c, 1, False)
     with pytest.raises(ValueError):
         cq.packed_step(packed.double(), seed, c, 9, False)

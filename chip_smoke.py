@@ -56,8 +56,24 @@ Phases, each of which fails the script on a failed check:
      use_kernel=True), a warm-up and a timed iteration, env_step_ratio K1
      launches per env step (``wp_train``);
  22. times and bounds at the waypoints shapes (row 4, K1 generic mode 7,
-     K4 and K3 at obs 33), then K4, K3 and K2 at the recipe's shapes, and
-     the ``kernels`` line for all six kernels.
+     K4 and K3 at obs 33), then K4, K3 and K2 at the recipe's shapes;
+ 23. ``fw_checks``: K5's row 5 against its twin on 4096 and 1000 random
+     airborne states, modes -1/0 x fixedwing/acrowing, per row group;
+     the main path of rows 7 -> 5 (``cuda_fixedwing.step`` against
+     ``models.fixedwing.step``, 30 steps per case) and the noise;
+ 24. ``fw_waypoints_checks``: row 6 against its twin at 4096 stock envs
+     and with a 25 m reach, reach, all-reached, termination, truncation,
+     out-of-dome, collision and the freeze all firing;
+ 25. ``fw_rollout``: the archived r5 policy acting (sampled) through K4 at
+     obs 35 in 4096 stock PackedFixedwingWaypointsEnv envs for 128 steps,
+     one row-6 and one K4 launch per step, the per-step split and the
+     device's busy share;
+ 26. ``fw_eval``: that policy flown deterministically for 256 full
+     episodes, against the archive's numbers (fails under 3.0 targets);
+ 27. ``fw_train``: fixedwing_rl_r5.py's lr3e-4 recipe on the plain env, a
+     warm-up and a timed iteration;
+ 28. ``fw_kernel_times``: rows 5 and 6 with 32- and 64-thread blocks, K4
+     at obs 35, and the ``kernels`` line for all eight kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -272,7 +288,9 @@ def check_hover_noise() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_policy(net, n: int) -> float:
+def check_policy(net, n: int, atol: tuple[float, float] = (POLICY_MEAN_ATOL, POLICY_VALUE_ATOL)) -> tuple[float, float]:
+    """K4 against its twin on ``n`` rows of seeded normal observations;
+    ``atol`` is (mean, value)."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_policy
 
@@ -285,9 +303,30 @@ def check_policy(net, n: int) -> float:
     e_m = (mk - mp).abs().max().item()
     e_v = (vk - vp).abs().max().item()
     check(mk.shape == (n, net.action_dim) and vk.shape == (n,), "policy: output shapes")
-    check(e_m <= POLICY_MEAN_ATOL, f"policy n={n}: mean error {e_m}")
-    check(e_v <= POLICY_VALUE_ATOL, f"policy n={n}: value error {e_v}")
-    return max(e_m, e_v)
+    check(e_m <= atol[0], f"policy n={n}: mean error {e_m}")
+    check(e_v <= atol[1], f"policy n={n}: value error {e_v}")
+    return e_m, e_v
+
+
+def policy_atol(net) -> tuple[float, float]:
+    """(mean, value) tolerance of K4 against its twin from ``net``'s own
+    weights: POLICY_MEAN_ATOL's bf16 boundary argument with the actual
+    heads (trained, or a 1.0-gain value head over a wider trunk input,
+    where the fixed 1e-3 is no bound). One trunk activation moved by
+    one bf16 ulp (<= 2^-8) moves an output by at most 2^-8 x the largest
+    head weight (a last-layer activation) or 2^-8 x max_j sum_k
+    |head[o, k] W[k, j]| (one layer before, through tanh' <= 1); allow one
+    of each, and never less than the random-weight tolerances. The
+    earlier layer's term is needed: on an H100 the r5 policy's value is
+    0.133 off its twin, above the 0.052 that a last-layer flip alone
+    allows (PERF.md)."""
+    def bound(trunk, head):
+        h = head.weight.detach().abs()
+        deeper = (h @ trunk.layers[-1].weight.detach().abs()).max().item() if len(trunk.layers) > 1 else 0.0
+        return 2.0**-8 * (h.max().item() + deeper)
+
+    return (max(POLICY_MEAN_ATOL, bound(net.pi_trunk, net.pi_head)),
+            max(POLICY_VALUE_ATOL, bound(net.vf_trunk, net.vf_head)))
 
 
 # ---------------------------------------------------------------------------
@@ -889,9 +928,12 @@ def all_kernels():
     from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+
     return {"quadx_hover_step": cq.KERNEL, "quadx_step": cq.GENERIC_KERNEL,
             "quadx_waypoints_step": cq.WAYPOINTS_KERNEL, "policy_value_forward": cuda_policy.KERNEL,
-            "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL}
+            "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL,
+            "fixedwing_step": cf.STEP_KERNEL, "fixedwing_waypoints_step": cf.WAYPOINTS_KERNEL}
 
 
 def zero_launches() -> None:
@@ -1524,6 +1566,420 @@ def time_waypoint_kernels(wp_state, net33, obs33) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 23-28: Fixedwing-Waypoints (kernel K5: rows 5-7)
+# ---------------------------------------------------------------------------
+
+
+FW_ENVS = 4096  # fixedwing_rl_r5.py's num_envs, bench_suite.py's fixedwing width
+FW_STEPS = 20  # agent steps of the row-6 checks
+FW_DROPIN_STEPS = 30  # tests/test_pallas_fixedwing.py's trajectory
+FW_ROLLOUT_STEPS = 128
+FW_EVAL_EPISODES = 256
+FW_EVAL_MIN_TARGETS = 3.0
+FW_POLICY = "fixedwing_r5_lr3e-4_seed0"
+FW_ARCHIVE_LOG = "docs/artifacts/fixedwing_rl_r5_tpu.jsonl"
+# row groups of the fixedwing layout, held at tests/test_pallas_fixedwing.py:59-93's
+# tolerances for one aviary step against the twin
+FW_GROUPS = {"pos": (0, 3, 3e-5), "quat": (3, 7, 1e-5), "lin_vel": (7, 10, 1e-3), "ang_vel": (10, 13, 2e-3),
+             "view": (13, 25, 1e-3), "surface_local_vel": (25, 40, 1e-3), "actuation": (40, 45, 1e-5),
+             "throttle": (45, 46, 1e-5)}
+
+
+def fw_ppo_config():
+    """fixedwing_rl_r5.py's lr3e-4 recipe (docs/artifacts/fixedwing_rl_r5.py:89-92)."""
+    from pyflyt_tpu_torch.rl import PPOConfig
+
+    return PPOConfig(num_envs=FW_ENVS, rollout_steps=128, num_epochs=4, num_minibatches=16, learning_rate=3e-4,
+                     clip_eps=0.2, init_log_std=-0.5, cached_reset_refresh=64)
+
+
+def fw_airborne(model: str, mode: int, n: int, seed: int):
+    """tests/test_pallas_fixedwing.py's states on the card: 45-55 m up,
+    tilted and spinning, cruise, slow (post-stall) and climbing speeds,
+    surfaces and throttle away from rest, a held setpoint."""
+    import torch
+    from pyflyt_tpu_torch.models import fixedwing
+
+    cfg = fixedwing.FixedwingConfig(drone_model=model, noisy_motors=False)
+    params = fixedwing.build_params(cfg, "cuda")
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(n, 3, generator=g) * 10 - 5
+    pos[:, 2] += 50.0
+    st = fixedwing.init_state(params, cfg, pos.cuda(), (torch.rand(n, 3, generator=g) - 0.5).cuda(), mode)
+    st.body.lin_vel = (torch.tensor([15.0, 0.0, 0.0]) + 6.0 * torch.randn(n, 3, generator=g)).cuda()
+    st.body.ang_vel = (0.6 * torch.randn(n, 3, generator=g)).cuda()
+    st.actuation = (0.4 * torch.randn(n, 5, generator=g)).cuda()
+    st.throttle = (0.5 * torch.randn(n, 1, generator=g)).abs().cuda()
+    st.read = fixedwing.update_state(st.body, params, cfg, st.physics_steps)
+    sp = torch.rand(n, 6 if mode == -1 else 4, generator=g) * 1.2 - 0.6
+    sp[:, -1] = sp[:, -1].abs()
+    st.setpoint = sp.cuda()
+    return cfg, params, st
+
+
+def check_fw_step() -> tuple[dict, dict]:
+    """Row 5 against its twin (noise off) on 4096 and a ragged 1000 random
+    airborne states, modes -1 and 0 x fixedwing and acrowing: the worst
+    error per row group of one aviary step at the test tolerances, the
+    any-contact row exact and rows 54-87 zero. Then the main path of rows
+    7 -> 5: ``cuda_fixedwing.step`` against the card's
+    ``models.fixedwing.step`` over 30 steps per case (position 2e-3 at the
+    end, as tests/test_pallas_fixedwing.py:118-132), its launches counted
+    from all kernels at zero. Then the noise: identical lanes, one noisy
+    step, the throttle's relative spread against the twin's and the motor's
+    noise ratio."""
+    import torch
+    from pyflyt_tpu_torch.models import fixedwing
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+
+    out = {}
+    zero = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for model in ("fixedwing", "acrowing"):
+        for mode in (-1, 0):
+            for n in (FW_ENVS, N_RAGGED):
+                cfg, params, st = fw_airborne(model, mode, n, seed=80 + n + mode)
+                c = cf.fixedwing_consts(params, cfg)
+                packed = cf.pack_state(st)
+                kern = cf.packed_step(packed, zero, c, mode, False)
+                plain = cf.packed_step_plain(packed, zero, c, mode, False)
+                torch.cuda.synchronize()
+                where = f"fixedwing step {model} mode {mode} N={n}"
+                check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+                errs = {name: (kern[a:b] - plain[a:b]).abs().max().item() for name, (a, b, _) in FW_GROUPS.items()}
+                bad = {k: v for k, v in errs.items() if v > FW_GROUPS[k][2]}
+                check(not bad, f"{where}: beyond tolerance {bad}")
+                check(torch.equal(kern[cf._CON : cf._RWD + 1], plain[cf._CON : cf._RWD + 1]), f"{where}: contact rows")
+                check(not bool(kern[cf._RWD + 1 :].any()), f"{where}: rows 54-87 not zero")
+                out[f"{model}/mode{mode}/N{n}"] = {"max_abs_err": max(errs.values()), "per_group": errs}
+
+    zero_launches()  # the main path of rows 7 -> 5
+    dropin = {}
+    for model in ("fixedwing", "acrowing"):
+        for mode in (-1, 0):
+            cfg, params, st = fw_airborne(model, mode, FW_ENVS, seed=90 + mode)
+            c = cf.fixedwing_consts(params, cfg)
+            ref, got = st, st
+            err = 0.0
+            for i in range(FW_DROPIN_STEPS):
+                ref, rc = fixedwing.step(ref, params, cfg, mode)
+                got, gc = cf.step(got, params, cfg, mode, consts=c)
+                check(torch.equal(gc, rc), f"step drop-in {model} mode {mode} step {i}: contact differs")
+                if i == 0:
+                    err = max((a - b).abs().max().item() for a, b in (
+                        (got.body.pos, ref.body.pos), (got.body.quat, ref.body.quat), (got.read.view, ref.read.view)))
+            torch.cuda.synchronize()
+            check(err <= 1e-3, f"step drop-in {model} mode {mode}: first-step error {err}")
+            pos_err = (got.body.pos - ref.body.pos).abs().max().item()
+            check(pos_err <= 2e-3, f"step drop-in {model} mode {mode}: position error {pos_err} after 30 steps")
+            check(torch.equal(got.physics_steps, ref.physics_steps), "step drop-in: physics_steps")
+            dropin[f"{model}/mode{mode}"] = {"first_step_max_abs_err": err, "pos_err_after_30": pos_err}
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "fixedwing_step": 4 * FW_DROPIN_STEPS}
+    check(launches == want, f"fixedwing step drop-in launches {launches}, expected {want}")
+    out["step_dropin"] = dropin
+
+    cfg, params, st = fw_airborne("fixedwing", 0, 8, seed=95)
+    c = cf.fixedwing_consts(params, fixedwing.FixedwingConfig())
+    packed = cf.pack_state(st)[:, :1].expand(-1, FW_ENVS).contiguous()  # identical lanes
+    seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
+    quiet = cf.packed_step(packed, seed, c, 0, False)[cf._THR]
+    rk = cf.packed_step(packed, seed, c, 0, True)[cf._THR] / quiet - 1.0
+    rp = cf.packed_step_plain(packed, seed, c, 0, True)[cf._THR] / quiet - 1.0
+    torch.cuda.synchronize()
+    se = float(rk.std()) * 6 / FW_ENVS**0.5
+    check(float(rk.std()) > 0, "noisy fixedwing step: no spread")
+    check(abs(float(rk.mean()) - float(rp.mean())) <= 2 * se, f"noisy fixedwing step: means {rk.mean()} {rp.mean()}")
+    check(abs(float(rk.std()) / float(rp.std()) - 1.0) <= 0.1, f"noisy fixedwing step: std {rk.std()} vs {rp.std()}")
+    out["noise"] = {"throttle_rel_std_kernel": float(rk.std()), "throttle_rel_std_plain": float(rp.std()),
+                    "noise_ratio": c.mot_noise}
+    return out, launches
+
+
+def fw_env(**kw):
+    from pyflyt_tpu_torch.envs import FixedwingWaypointsEnv, PackedFixedwingWaypointsEnv
+
+    return PackedFixedwingWaypointsEnv(FixedwingWaypointsEnv(device="cuda", **kw))
+
+
+def check_fw_waypoints() -> dict:
+    """Row 6 against its twin (noise off) over FW_STEPS agent steps at 4096
+    stock envs, then with a 25 m reach, from the env's reset with traps:
+    an eighth of the fleet 0.4 m up falling (collision), an eighth at the
+    dome's edge flying out (out-of-dome), a sixteenth one step short of
+    the time limit (truncation), a sixteenth with its last target at its
+    own position (reach and all-reached). Per lane, the largest difference
+    over all rows: at most WP_DIVERGED_SHARE of the lanes beyond 5e-4 +
+    4e-4 * step, every row of the others (flags included) within it. A
+    frozen lane keeps every row but the setpoint, the re-armed reward and
+    the step count."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+
+    out = {}
+    n = FW_ENVS
+    for name, kw in (("stock", {}), ("reach25", dict(goal_reach_distance=25.0))):
+        env = fw_env(noisy_motors=False, **kw)
+        state, _ = env.reset(n, torch.Generator(device="cuda").manual_seed(100))
+        packed = state.packed.clone()
+        e, s = n // 8, n // 16
+        packed[cf._POS + 2, :e] = 0.4
+        packed[cf._LVEL + 2, :e] = -8.0
+        packed[cf._POS, e : 2 * e] = 99.5
+        packed[cf._STEP, 2 * e : 2 * e + s] = float(env.base.max_steps + 1)
+        t = slice(2 * e + s, 2 * e + 2 * s)
+        packed[cf._TGT : cf._TGT + 3, t] = packed[cf._VIEW + 9 : cf._VIEW + 12, t]
+        packed[cf._REM, t] = 1.0
+        seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+        kern, plain = packed.clone(), packed.clone()
+        ev = dict.fromkeys(("reach", "all_reached", "termination", "truncation", "out_of_bounds", "collision",
+                            "frozen"), 0)
+        err, diverged = 0.0, 0
+        keep = torch.ones(cf.ROWS, dtype=torch.bool, device="cuda")
+        keep[cf._SP : cf._SP + 6] = False
+        keep[cf._RWD] = False
+        keep[cf._STEP] = False
+        g = torch.Generator().manual_seed(110)
+        for i in range(FW_STEPS):
+            a = torch.rand(4, n, generator=g) * 0.8 - 0.4
+            a[3] = a[3].abs() + 0.3
+            a = a.cuda()
+            kern[cf._SP : cf._SP + 4] = a
+            plain[cf._SP : cf._SP + 4] = a
+            before = kern.clone()
+            kern = cf.packed_waypoints_step(kern, seed, env.consts, 0, False)
+            plain = cf.packed_waypoints_step_plain(plain, seed, env.consts, 0, False)
+            torch.cuda.synchronize()
+            where = f"fixedwing waypoints {name} step {i}"
+            check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+            lane = (kern - plain).abs().amax(0)
+            bad = lane > 5e-4 + 4e-4 * i
+            diverged = max(diverged, int(bad.sum()))
+            check(int(bad.sum()) <= WP_DIVERGED_SHARE * n, f"{where}: {int(bad.sum())} lanes diverged")
+            err = max(err, lane[~bad].max().item())
+            done0 = (before[cf._TERM] > 0.5) | (before[cf._TRUNC] > 0.5)
+            check(torch.equal(kern[keep][:, done0], before[keep][:, done0]), f"{where}: a frozen lane moved")
+            check(torch.equal(kern[cf._STEP], before[cf._STEP] + 1.0), f"{where}: step count")
+            ev["frozen"] += int(done0.sum())
+            ev["reach"] += int((kern[cf._REM] < before[cf._REM] - 0.5).sum())
+        for key, row in (("all_reached", cf._CPLT), ("termination", cf._TERM), ("truncation", cf._TRUNC),
+                         ("out_of_bounds", cf._OOB), ("collision", cf._COLL)):
+            ev[key] = int((kern[row] > 0.5).sum())
+        check(all(v > 0 for v in ev.values()), f"fixedwing waypoints {name}: events {ev}")
+        out[name] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev}
+    return out
+
+
+def fw_rollout(net, seed: int, card: str):
+    """The serving path: ``net`` (obs 35) acting through K4 in 4096 stock
+    PackedFixedwingWaypointsEnv envs (noise on) for FW_ROLLOUT_STEPS steps,
+    sampled actions, no resets: one row-6 and one K4 launch per step,
+    nothing else. Then the per-step split, each part on its own, and the
+    device's busy share over 16 profiled steps."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = fw_env()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+
+    def run(state, obs, steps):
+        rewards = []
+        for _ in range(steps):
+            action, _, _ = ppo.act(net, obs, gen, fused=True)
+            state, out = env.step(state, torch.clamp(action, low, high))
+            obs = ppo._flat_obs(out.obs)
+            rewards.append(out.reward)
+        return state, obs, out, torch.stack(rewards)
+
+    t0 = time.perf_counter()
+    state, obs = env.reset(FW_ENVS, gen)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    obs = ppo._flat_obs(obs)
+    state, obs, _, _ = run(state, obs, 4)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, obs, out, rewards = run(state, obs, FW_ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "fixedwing_waypoints_step": FW_ROLLOUT_STEPS,
+            "policy_value_forward": FW_ROLLOUT_STEPS}
+    check(launches == want, f"fixedwing rollout launches {launches}, expected {want}")
+    check(obs.shape == (FW_ENVS, 35) and bool(torch.isfinite(obs).all()), "fixedwing rollout: final obs")
+    check(bool(torch.isfinite(rewards).all()), "fixedwing rollout: non-finite rewards")
+    reached = out.info["num_targets_reached"]
+    check(bool(((reached >= 0) & (reached <= 4)).all()), "fixedwing rollout: num_targets_reached")
+
+    w = net.kernel_weights()
+    k4_ms, k4_host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=200)
+    packed = state.packed.contiguous()
+    seed_t = torch.tensor([5], dtype=torch.int64, device="cuda")
+    kernel_ms, kernel_host = time_ms(lambda: cf.packed_waypoints_step(packed, seed_t, env.consts, 0, True), iters=200)
+    obs_ms = host_wall_ms(lambda: ppo._flat_obs(env._obs(packed)), iters=50)
+    action = torch.zeros(FW_ENVS, 4, device="cuda")
+    step_ms = host_wall_ms(lambda: env.step(state, action), iters=50)
+    act_ms = host_wall_ms(lambda: ppo.act(net, obs, gen, fused=True), iters=50)
+    prof = profiled(lambda: run(state, obs, 16), "fw_rollout_profile_16_steps")
+    zero_launches()  # the split's launches are not the main path's
+    done = out.termination | out.truncation
+    return {
+        "card": card, "num_envs": FW_ENVS, "steps": FW_ROLLOUT_STEPS, "wall_s": wall,
+        "env_steps_per_s": FW_ENVS * FW_ROLLOUT_STEPS / wall, "ms_per_step": 1e3 * wall / FW_ROLLOUT_STEPS,
+        "reset_s": reset_s, "lanes_done": int(done.sum()), "targets_reached": int(reached.sum()),
+        "mean_reward": float(rewards.mean()), "launches": launches,
+        "split_ms": {"k4_device": k4_ms, "k4_wrapper_host": k4_host, "act_total_host": act_ms,
+                     "kernel_device": kernel_ms, "kernel_wrapper_host": kernel_host,
+                     "obs_assembly_host": obs_ms, "env_step_total_host": step_ms},
+        "profiled_16_steps": {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+                              "device_busy_share": prof["device_busy_ms"] / prof["wall_ms"]},
+    }, state, obs
+
+
+def fw_archive_eval() -> dict:
+    """The JAX package's 256-episode evals of FW_POLICY from its training
+    log (recipe lr3e-4, seed 0): the archived parameters are the best
+    ones, so ``best_eval_256`` is theirs; ``final_eval_256`` is the last
+    iteration's."""
+    with open(os.path.join(HERE, FW_ARCHIVE_LOG)) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    row = next(r for r in rows if r.get("recipe") == "lr3e-4" and r.get("seed") == 0)
+    keys = ("targets_mean", "complete_rate", "collision_rate", "oob_rate")
+    return {k: {m: row[k][m] for m in keys} for k in ("best_eval_256", "final_eval_256")}
+
+
+def fw_eval(net, seed: int, card: str) -> dict:
+    """The archived r5 policy flown deterministically (K4's mean, clipped)
+    in FW_EVAL_EPISODES stock packed envs (noise on) for max_steps + 2
+    steps, with fixedwing_rl_r5.py:48-84's accounting: finished lanes stay
+    frozen, so the last state carries each episode's targets reached,
+    completion, collision and out-of-dome flags. Fails under
+    FW_EVAL_MIN_TARGETS targets on average."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = fw_env()
+    n = FW_EVAL_EPISODES
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+    w = net.kernel_weights()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, obs = env.reset(n, torch.Generator(device="cuda").manual_seed(seed + 999))
+    obs = ppo._flat_obs(obs)
+    done = torch.zeros(n, dtype=torch.bool, device="cuda")
+    ep_rew = torch.zeros(n, device="cuda")
+    steps = env.base.max_steps + 2
+    for _ in range(steps):
+        mean, _ = cuda_policy.policy_value_forward(obs, w)
+        state, out = env.step(state, torch.clamp(mean, low, high))
+        ep_rew = ep_rew + out.reward * ~done
+        done = done | out.termination | out.truncation
+        obs = ppo._flat_obs(out.obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "fixedwing_waypoints_step": steps, "policy_value_forward": steps}
+    check(launches == want, f"fixedwing eval launches {launches}, expected {want}")
+    p = state.packed
+    targets = (env.base.num_targets - p[cf._REM]).round()
+    res = {
+        "card": card, "episodes": n, "steps": steps, "wall_s": wall, "all_done": bool(done.all()),
+        "targets_mean": float(targets.mean()), "complete_rate": float((p[cf._CPLT] > 0.5).float().mean()),
+        "collision_rate": float((p[cf._COLL] > 0.5).float().mean()),
+        "oob_rate": float((p[cf._OOB] > 0.5).float().mean()), "mean_ep_reward": float(ep_rew.mean()),
+        "archive": fw_archive_eval(), "policy": FW_POLICY, "launches": launches,
+    }
+    check(res["all_done"], "fixedwing eval: an episode did not end")
+    check(res["targets_mean"] >= FW_EVAL_MIN_TARGETS, f"fixedwing eval: targets_mean {res['targets_mean']}")
+    zero_launches()
+    return res
+
+
+def fw_train(seed: int, card: str) -> dict:
+    """fixedwing_rl_r5.py's lr3e-4 recipe on the plain FixedwingWaypointsEnv()
+    (cached auto-reset, refresh 64; the f32 module acts and the f32
+    autograd step learns, as in the JAX recipe, so no kernel of the port
+    launches): a warm-up iteration and one timed, split iteration. Adam's
+    count advances by 4 x 16 per iteration."""
+    import torch
+    from pyflyt_tpu_torch.envs import FixedwingWaypointsEnv
+    from pyflyt_tpu_torch.rl import PPO
+
+    cfg = fw_ppo_config()
+    tp = PPO(FixedwingWaypointsEnv(device="cuda"), cfg)
+    t0 = time.perf_counter()
+    runner = tp.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(runner.obs.shape == (FW_ENVS, 35), "fixedwing training: flat obs width")
+    rows = []
+    for it in range(2):
+        count0 = int(runner.opt_state.count)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, metrics, split = run_iteration(tp, runner, split=it == 1)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches == dict.fromkeys(launches, 0), f"fixedwing training iteration {it}: launches {launches}")
+        check(int(runner.opt_state.count) - count0 == cfg.num_epochs * cfg.num_minibatches,
+              f"fixedwing training iteration {it}: Adam count")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"fixedwing training iteration {it}: metrics")
+        rows.append({"wall_s": wall, "split_s": split, "metrics": {k: float(v) for k, v in metrics.items()}})
+    check(all(bool(torch.isfinite(p).all()) for p in runner.network.parameters()), "fixedwing training: params")
+    wall = rows[-1]["wall_s"]
+    return {"card": card, "num_envs": cfg.num_envs, "rollout_steps": cfg.rollout_steps, "batch": cfg.batch_size,
+            "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches, "init_s": init_s,
+            "warmup_s": rows[0]["wall_s"], "wall_s": wall, "samples_per_s": cfg.batch_size / wall,
+            "split_s": rows[-1]["split_s"], "metrics": rows[-1]["metrics"]}
+
+
+def time_fw_kernels(fw_state, net35, obs35) -> dict:
+    """At the slice's shapes (4096 envs, noise on, mode 0): row 5 (one
+    aviary step of the fixedwing) and row 6 (the stock agent step), each
+    against the bound, the twin and the ptxas report (per variant: registers; summed: stack and spills); K4 at
+    obs 35 (the archived policy) with its cuBLAS yardstick."""
+    import re
+
+    import torch
+    from pyflyt_tpu_torch.models import fixedwing
+    from pyflyt_tpu_torch.ops import cuda_build
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+
+    out = {}
+    env = fw_env()
+    c = env.consts
+    packed = fw_state.packed.contiguous()
+    seed = torch.tensor([17], dtype=torch.int64, device="cuda")
+    cfg = fixedwing.FixedwingConfig()
+    c5 = cf.fixedwing_consts(fixedwing.build_params(cfg, "cuda"), cfg)
+    for name, kernel, plain_fn, consts, waypoints in (
+        ("fixedwing_step", cf.packed_step, cf.packed_step_plain, c5, False),
+        ("fixedwing_waypoints_step", cf.packed_waypoints_step, cf.packed_waypoints_step_plain, c, True),
+    ):
+        ms, host_ms = time_ms(lambda: kernel(packed, seed, consts, 0, True), iters=200)
+        plain, _ = time_ms(lambda: plain_fn(packed, seed, consts, 0, True), iters=2, repeats=3, device_timed=False)
+        rd, wr = cf.rows_moved(waypoints)
+        b_ms, by = bound_of((rd + wr) * 4 * FW_ENVS + 8, FW_ENVS * cf.ops_per_env(consts, waypoints), H100_F32_FLOPS)
+        out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+                     "rows_read": rd, "rows_written": wr, "ops_per_env": cf.ops_per_env(consts, waypoints),
+                     "physics_iterations": consts.ratio * (consts.inner_steps if waypoints else 1)}
+    out["ptxas"] = ptxas_usage("fixedwing_step.cu")
+    log = cuda_build.library_path("fixedwing_step.cu").with_suffix(".log")
+    variants = re.findall(r"entry function '_Z\w*?(step_kernel|waypoints_kernel)I(\w+?)EEv\w*'.*?Used (\d+) registers",
+                          log.read_text() if log.exists() else "", re.S)
+    out["ptxas_variants"] = [{"kernel": k, "template": t, "registers": int(r)} for k, t, r in variants]
+    out["policy_value_forward_obs35"] = time_policy_forward(net35, obs35)
+    print(json.dumps({"fw_kernel_times": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1579,7 +2035,7 @@ def main(argv=None) -> int:
 
     # 4. policy forward vs its twin
     net = ActorCritic(21, 4, device="cuda", generator=torch.Generator().manual_seed(args.seed))
-    err_b = max(check_policy(net, N_ENVS), check_policy(net, N_RAGGED))
+    err_b = max(*check_policy(net, N_ENVS), *check_policy(net, N_RAGGED))
     print(f"policy forward: max |kernel - twin| {err_b:.3g} (n={N_ENVS}, {N_RAGGED})", flush=True)
 
     # 5. the main path
@@ -1755,7 +2211,7 @@ def main(argv=None) -> int:
     print(json.dumps({"waypoints_checks": results["waypoints_checks"]}), flush=True)
     # 19. K4 at the waypoints env's obs width 33 vs its twin
     net33 = ActorCritic(33, 4, device="cuda", generator=torch.Generator().manual_seed(args.seed + 33))
-    err_b = max(err_b, check_policy(net33, N_ENVS), check_policy(net33, N_RAGGED))
+    err_b = max(err_b, *check_policy(net33, N_ENVS), *check_policy(net33, N_RAGGED))
     print(f"policy forward at obs 33: max |kernel - twin| {err_b:.3g}", flush=True)
     # 20. the waypoints serving path (row 4 + K4, one launch each per step)
     wp_roll, wp_state, wp_net, wp_obs = wp_rollout(args.seed, card)
@@ -1801,6 +2257,63 @@ def main(argv=None) -> int:
         if k["name"] in recipe_times:
             k["recipe"] = {f: recipe_times[k["name"]][f]
                            for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    # 23. row 5 vs its twin, the main path of rows 7 -> 5 (the drop-in), the noise
+    results["fw_checks"], fw_step_launches = check_fw_step()
+    err_fw5 = max(c["max_abs_err"] for k, c in results["fw_checks"].items() if k not in ("noise", "step_dropin"))
+    print(json.dumps({"fw_checks": results["fw_checks"]}), flush=True)
+    # 24. row 6 vs its twin (stock and a 25 m reach), every event firing
+    results["fw_waypoints_checks"] = check_fw_waypoints()
+    err_fw6 = max(c["max_abs_err"] for c in results["fw_waypoints_checks"].values())
+    print(json.dumps({"fw_waypoints_checks": results["fw_waypoints_checks"]}), flush=True)
+    # 25. the serving path: the archived policy (obs 35) through K4 and row 6
+    from pyflyt_tpu_torch.rl import checkpoint
+
+    rand35 = ActorCritic(35, 4, device="cuda", generator=torch.Generator().manual_seed(args.seed + 35))
+    err_b = max(err_b, *(e for n in (FW_ENVS, N_RAGGED) for e in check_policy(rand35, n, policy_atol(rand35))))
+    net35 = checkpoint.load_policy_npz(FW_POLICY, device="cuda")
+    check(net35.obs_dim == 35, "archived fixedwing policy: obs width")
+    atol35 = policy_atol(net35)
+    e35 = [check_policy(net35, n, atol35) for n in (FW_ENVS, N_RAGGED)]
+    mean_err35, value_err35 = max(e[0] for e in e35), max(e[1] for e in e35)
+    err_35 = max(mean_err35, value_err35)
+    results["k4_archived_policy"] = {"max_abs_err": err_35, "mean_err": mean_err35, "value_err": value_err35,
+                                     "atol": atol35}
+    print(f"policy forward at obs 35: max |kernel - twin| {err_b:.3g} (random weights); {err_35:.3g} "
+          f"(the archived policy: mean {mean_err35:.3g}, value {value_err35:.3g}; tolerance {atol35})", flush=True)
+    fw_roll, fw_state, fw_obs = fw_rollout(net35, args.seed, card)
+    results["fw_rollout"] = fw_roll
+    print(json.dumps({"fw_rollout": fw_roll}), flush=True)
+    # 26. the archived policy's 256-episode evaluation
+    results["fw_eval"] = fw_eval(net35, args.seed, card)
+    print(json.dumps({"fw_eval": results["fw_eval"]}), flush=True)
+    # 27. the r5 recipe on the plain env
+    results["fw_train"] = fw_train(args.seed, card)
+    print(json.dumps({"fw_train": results["fw_train"]}), flush=True)
+    # 28. times and bounds at the slice's shapes
+    ft = time_fw_kernels(fw_state, net35, fw_obs)
+    results["fw_kernel_times"] = ft
+    for name, line, launches_, err, extra in (
+        ("fixedwing_step", "pyflyt_tpu/ops/pallas_fixedwing.py:647", fw_step_launches["fixedwing_step"], err_fw5,
+         {"also_replaces": "pyflyt_tpu/ops/pallas_fixedwing.py:692 (step: pack -> this kernel -> unpack)",
+          "main_path": f"cuda_fixedwing.step, {FW_DROPIN_STEPS} steps x 2 vehicles x 2 modes"}),
+        ("fixedwing_waypoints_step", "pyflyt_tpu/ops/pallas_fixedwing.py:663",
+         fw_roll["launches"]["fixedwing_waypoints_step"], err_fw6,
+         {"main_path": f"fw_rollout, {FW_ROLLOUT_STEPS} steps x {FW_ENVS} envs",
+          "max_diverged_lanes": max(c["max_diverged_lanes"] for c in results["fw_waypoints_checks"].values())}),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "pyflyt_tpu_torch/csrc/fixedwing_step.cu", "replaces": line,
+            "launches": launches_, "max_abs_err": err,
+            **{k: ft[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+            "host_ms": ft[name]["host_ms"], "ptxas": ft["ptxas"], **extra,
+        })
+    by_name["policy_value_forward"].update(max_abs_err=err_b, obs35={
+        f: ft["policy_value_forward_obs35"].get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    for k in kernels:
+        k["launches_per_fw_rollout"] = fw_roll["launches"][k["name"]]
+        k["launches_per_fw_eval"] = results["fw_eval"]["launches"][k["name"]]
+        k["launches_per_fw_step_dropin"] = fw_step_launches[k["name"]]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -17,10 +17,11 @@ import torch
 from pyflyt_tpu_torch.core.state import Body6DoF
 from pyflyt_tpu_torch.core.wind import GaussianWind
 from pyflyt_tpu_torch.device import resolve_device
+from pyflyt_tpu_torch.envs.fixedwing_waypoints import FixedwingWaypointsState
 from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsState
 from pyflyt_tpu_torch.envs.utils.waypoints import WaypointState
-from pyflyt_tpu_torch.models import quadx
+from pyflyt_tpu_torch.models import fixedwing, quadx
 from pyflyt_tpu_torch.ops import motors, pid
 from pyflyt_tpu_torch.ops.cuda_sgd import params_to_leaves
 from pyflyt_tpu_torch.rl.networks import ActorCritic
@@ -151,6 +152,64 @@ def packed_waypoints_from_jax(packed, device: str | torch.device = "cuda") -> to
     fold; the row layout is the same)."""
     a = np.asarray(packed, dtype=np.float32)
     return torch.tensor(a.reshape(a.shape[0], -1), device=resolve_device(device))
+
+
+def fixedwing_state_from_jax(tree, device: str | torch.device = "cuda") -> fixedwing.FixedwingState:
+    """The port's batched ``FixedwingState`` from the numpy leaves of a JAX
+    ``FixedwingState`` (batch ``(N,)``; floats as f32, the contact flag as
+    bool, the physics step count as int32)."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    return fixedwing.FixedwingState(
+        body=Body6DoF(pos=f(tree.body.pos), quat=f(tree.body.quat),
+                      lin_vel=f(tree.body.lin_vel), ang_vel=f(tree.body.ang_vel)),
+        read=fixedwing.FixedwingRead(view=f(tree.read.view), surface_local_vel=f(tree.read.surface_local_vel)),
+        actuation=f(tree.actuation),
+        throttle=f(tree.throttle),
+        cmd=f(tree.cmd),
+        setpoint=f(tree.setpoint),
+        contact=torch.tensor(np.array(tree.contact, dtype=bool), device=dev),
+        physics_steps=torch.tensor(np.array(tree.physics_steps, dtype=np.int32), device=dev),
+    )
+
+
+def fixedwing_waypoints_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> FixedwingWaypointsState:
+    """The port's ``FixedwingWaypointsState`` from the numpy leaves of a
+    batched JAX ``FixedwingWaypointsState`` (a ``vmap``-ed reset or step).
+    The JAX PRNG keys become the one ``generator`` of the batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    i32 = lambda a: torch.tensor(np.array(a, dtype=np.int32), device=dev)  # noqa: E731
+    wp = tree.wp
+    return FixedwingWaypointsState(
+        drone=fixedwing_state_from_jax(tree.drone, dev),
+        step_count=i32(tree.step_count),
+        termination=b(tree.termination),
+        truncation=b(tree.truncation),
+        reward=f(tree.reward),
+        action=f(tree.action),
+        collision=b(tree.collision),
+        out_of_bounds=b(tree.out_of_bounds),
+        env_complete=b(tree.env_complete),
+        generator=generator,
+        wp=WaypointState(
+            targets=f(wp.targets), yaw_targets=f(wp.yaw_targets), idx=i32(wp.idx),
+            old_distance=f(wp.old_distance), new_distance=f(wp.new_distance), yaw_error=f(wp.yaw_error),
+        ),
+        target_deltas=f(tree.target_deltas),
+    )
+
+
+def packed_fixedwing_waypoints_from_jax(packed, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The port's ``(88, N)`` packed Fixedwing-Waypoints state from a JAX
+    ``PackedWaypointsState.packed`` of ``envs/packed_fixedwing_waypoints``
+    (``(88, 8, N/8)``, the TPU's sublane fold; the row layout is the
+    same). It is ``packed_waypoints_from_jax`` under the fixedwing env's
+    name, kept beside the other ``*_from_jax`` converters of this env."""
+    return packed_waypoints_from_jax(packed, device)
 
 
 def _dense_layers(trunk: dict) -> list[dict]:

@@ -1,6 +1,9 @@
-"""Batched QuadX task envs of the port (``reset(num_envs, generator)`` and
-``step(state, action)`` take the whole batch)."""
+"""Batched QuadX and Fixedwing task envs of the port
+(``reset(num_envs, generator)`` and ``step(state, action)`` take the whole
+batch)."""
 
+from pyflyt_tpu_torch.envs.fixedwing_waypoints import FixedwingWaypointsEnv, FixedwingWaypointsState
+from pyflyt_tpu_torch.envs.packed_fixedwing_waypoints import PackedFixedwingWaypointsEnv
 from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
 from pyflyt_tpu_torch.envs.packed_quadx_waypoints import PackedQuadXWaypointsEnv, PackedWaypointsState
 from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
@@ -9,7 +12,10 @@ from pyflyt_tpu_torch.envs.utils.flatten_waypoints import FlattenWaypointEnv, fl
 from pyflyt_tpu_torch.envs.utils.waypoints import WaypointHandler, WaypointState
 
 __all__ = [
+    "FixedwingWaypointsEnv",
+    "FixedwingWaypointsState",
     "FlattenWaypointEnv",
+    "PackedFixedwingWaypointsEnv",
     "PackedQuadXHoverEnv",
     "PackedQuadXWaypointsEnv",
     "PackedWaypointsState",

@@ -11,7 +11,7 @@ PRNG key per instance.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Protocol
+from typing import Any, Callable, Protocol
 
 import torch
 from torch import Tensor
@@ -48,6 +48,77 @@ def tree_select(mask: Tensor, on_true: Any, on_false: Any) -> Any:
         return torch.where(m, t, f)
 
     return tree_map(pick, on_false, on_true)
+
+
+# ---------------------------------------------------------------------------
+# the agent-step loop of the single-vehicle task envs
+# ---------------------------------------------------------------------------
+
+
+class AviaryTaskEnv:
+    """The agent-step loop and base termination that the QuadX and Fixedwing
+    task envs share (``base_step`` and ``base_term_trunc_reward`` of the
+    JAX package's quadx_base.py and fixedwing_base.py). A subclass gives
+    ``aviary_step(drone, generator) -> (drone, contact)``, ``cfg.dtype``,
+    ``env_step_ratio``, ``max_steps`` and ``flight_dome_size``; its state
+    has the fields of ``QuadXEnvState``."""
+
+    def base_term_trunc_reward(self, state: Any, contact: Tensor) -> Any:
+        """Collision or leaving the dome: reward −100 and termination;
+        step-count truncation (on the count before this agent step's
+        increment)."""
+        truncation = state.truncation | (state.step_count > self.max_steps)
+        lin_pos = state.drone.read.view[..., 3, :]
+        oob = torch.linalg.vector_norm(lin_pos, dim=-1) > self.flight_dome_size
+        fatal = contact | oob
+        return dataclasses.replace(
+            state,
+            truncation=truncation,
+            termination=state.termination | fatal,
+            reward=torch.where(fatal, -100.0, state.reward),
+            collision=state.collision | contact,
+            out_of_bounds=state.out_of_bounds | oob,
+        )
+
+    def base_step(
+        self,
+        state: Any,
+        action: Tensor,
+        task_update: Callable[[Any, Tensor], Any],
+        obs_fn: Callable[[Any], Any],
+        extra_info: Callable[[Any], dict[str, Any]] | None = None,
+    ) -> tuple[Any, StepOut]:
+        """One agent step: the action becomes the setpoint, the reward is
+        re-armed to −0.1, then ``env_step_ratio`` aviary steps each followed
+        by ``task_update(state, contact)``, with the done-freeze; the step
+        count increments after the loop. ``extra_info(state)`` adds task
+        entries to the info."""
+        action = action.to(self.cfg.dtype)
+        state = dataclasses.replace(
+            state,
+            action=action,
+            reward=torch.full_like(state.reward, -0.1),
+            drone=dataclasses.replace(state.drone, setpoint=action),
+        )
+        for _ in range(self.env_step_ratio):
+            done_before = state.termination | state.truncation
+            drone, contact = self.aviary_step(state.drone, state.generator)
+            new_state = task_update(dataclasses.replace(state, drone=drone), contact)
+            state = tree_select(done_before, state, new_state)  # the done-freeze
+        state = dataclasses.replace(state, step_count=state.step_count + 1)
+        out = StepOut(
+            obs=obs_fn(state),
+            reward=state.reward,
+            termination=state.termination,
+            truncation=state.truncation,
+            info={
+                "collision": state.collision,
+                "out_of_bounds": state.out_of_bounds,
+                "env_complete": state.env_complete,
+                **(extra_info(state) if extra_info is not None else {}),
+            },
+        )
+        return state, out
 
 
 # ---------------------------------------------------------------------------

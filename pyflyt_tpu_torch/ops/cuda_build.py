@@ -14,6 +14,8 @@ and this host has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -120,3 +122,40 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol} ({self.source}) failed to launch: CUDA error {rc}"
             )
+
+
+# ---------------------------------------------------------------------------
+# constants structs passed to a kernel by value
+# ---------------------------------------------------------------------------
+
+
+def array_field(n: int, ctype: str = "float"):
+    """A dataclass field of ``n`` values: a ``float[n]`` (or ``int[n]``) in
+    the C struct that ``struct_fields`` mirrors."""
+    return dataclasses.field(metadata={"len": n, "ctype": ctype})
+
+
+def struct_fields(consts_class) -> list:
+    """ctypes ``_fields_`` mirroring a constants dataclass field by field:
+    ``array_field``s as arrays, ``float`` and ``int`` fields as scalars."""
+    types = {"float": ctypes.c_float, "int": ctypes.c_int}
+    return [
+        (f.name, types[f.metadata["ctype"]] * f.metadata["len"] if "len" in f.metadata else types[f.type])
+        for f in dataclasses.fields(consts_class)
+    ]
+
+
+class ConstsStruct(ctypes.Structure):
+    """Base of the ctypes mirrors of the kernels' constants structs."""
+
+    @classmethod
+    @functools.lru_cache(maxsize=16)  # one per env config; saves host time per launch
+    def of(cls, c) -> "ConstsStruct":
+        s = cls()
+        for name, _ in cls._fields_:
+            v = getattr(c, name)
+            if isinstance(v, tuple):
+                getattr(s, name)[:] = v
+            else:
+                setattr(s, name, v)
+        return s

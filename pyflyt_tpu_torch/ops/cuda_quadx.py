@@ -57,8 +57,9 @@ from torch import Tensor
 
 from pyflyt_tpu_torch.core import wind as wind_models
 from pyflyt_tpu_torch.models import quadx
+from pyflyt_tpu_torch.ops import cuda_build
 from pyflyt_tpu_torch.ops import cuda_math as cm
-from pyflyt_tpu_torch.ops.cuda_build import Kernel
+from pyflyt_tpu_torch.ops.cuda_build import Kernel, array_field
 
 ROWS = 56
 
@@ -214,11 +215,6 @@ def unpack_state(packed: Tensor, template: quadx.QuadXState) -> quadx.QuadXState
 # ---------------------------------------------------------------------------
 
 
-def _floats(n: int):
-    """A dataclass field of ``n`` floats (a ``float[n]`` in the C struct)."""
-    return dataclasses.field(metadata={"len": n})
-
-
 @dataclasses.dataclass(frozen=True)
 class HoverConsts:
     """Vehicle and task constants of one hover env, as Python floats.
@@ -229,26 +225,26 @@ class HoverConsts:
     """
 
     mass: float
-    inertia: tuple = _floats(3)
-    motor_map: tuple = _floats(16)  # row-major (4, 4)
-    mpos_x: tuple = _floats(4)
-    mpos_y: tuple = _floats(4)
-    thrust_coef: tuple = _floats(4)
-    torque_coef: tuple = _floats(4)
-    lag: tuple = _floats(4)  # physics_period / tau
-    max_rpm: tuple = _floats(4)
-    noise_ratio: tuple = _floats(4)
-    drag_xyz: tuple = _floats(3)
+    inertia: tuple = array_field(3)
+    motor_map: tuple = array_field(16)  # row-major (4, 4)
+    mpos_x: tuple = array_field(4)
+    mpos_y: tuple = array_field(4)
+    thrust_coef: tuple = array_field(4)
+    torque_coef: tuple = array_field(4)
+    lag: tuple = array_field(4)  # physics_period / tau
+    max_rpm: tuple = array_field(4)
+    noise_ratio: tuple = array_field(4)
+    drag_xyz: tuple = array_field(3)
     drag_pqr: float
-    kp: tuple = _floats(3)
-    ki: tuple = _floats(3)
-    kd: tuple = _floats(3)
-    lim: tuple = _floats(3)
+    kp: tuple = array_field(3)
+    ki: tuple = array_field(3)
+    kd: tuple = array_field(3)
+    lim: tuple = array_field(3)
     period: float
     dt: float
     min_pwm: float
     max_pwm: float
-    half_ext: tuple = _floats(3)
+    half_ext: tuple = array_field(3)
     dome2: float
     max_steps: float
     inner_steps: int
@@ -263,46 +259,46 @@ class CascadeVehicle:
     generic and the waypoints constants."""
 
     mass: float
-    inertia: tuple = _floats(3)
-    motor_map: tuple = _floats(16)  # row-major (4, 4)
-    mpos_x: tuple = _floats(4)
-    mpos_y: tuple = _floats(4)
-    thrust_coef: tuple = _floats(4)
-    torque_coef: tuple = _floats(4)
-    lag: tuple = _floats(4)  # physics_period / tau
-    max_rpm: tuple = _floats(4)
-    noise_ratio: tuple = _floats(4)
-    drag_xyz: tuple = _floats(3)
+    inertia: tuple = array_field(3)
+    motor_map: tuple = array_field(16)  # row-major (4, 4)
+    mpos_x: tuple = array_field(4)
+    mpos_y: tuple = array_field(4)
+    thrust_coef: tuple = array_field(4)
+    torque_coef: tuple = array_field(4)
+    lag: tuple = array_field(4)  # physics_period / tau
+    max_rpm: tuple = array_field(4)
+    noise_ratio: tuple = array_field(4)
+    drag_xyz: tuple = array_field(3)
     drag_pqr: float
-    kp: tuple = _floats(3)
-    ki: tuple = _floats(3)
-    kd: tuple = _floats(3)
-    lim: tuple = _floats(3)
+    kp: tuple = array_field(3)
+    ki: tuple = array_field(3)
+    kd: tuple = array_field(3)
+    lim: tuple = array_field(3)
     period: float
     dt: float
     min_pwm: float
     max_pwm: float
-    half_ext: tuple = _floats(3)
-    lp_kp: tuple = _floats(2)
-    lp_ki: tuple = _floats(2)
-    lp_kd: tuple = _floats(2)
-    lp_lim: tuple = _floats(2)
-    lv_kp: tuple = _floats(2)
-    lv_ki: tuple = _floats(2)
-    lv_kd: tuple = _floats(2)
-    lv_lim: tuple = _floats(2)
-    ap_kp: tuple = _floats(3)
-    ap_ki: tuple = _floats(3)
-    ap_kd: tuple = _floats(3)
-    ap_lim: tuple = _floats(3)
-    zp_kp: tuple = _floats(1)
-    zp_ki: tuple = _floats(1)
-    zp_kd: tuple = _floats(1)
-    zp_lim: tuple = _floats(1)
-    zv_kp: tuple = _floats(1)
-    zv_ki: tuple = _floats(1)
-    zv_kd: tuple = _floats(1)
-    zv_lim: tuple = _floats(1)
+    half_ext: tuple = array_field(3)
+    lp_kp: tuple = array_field(2)
+    lp_ki: tuple = array_field(2)
+    lp_kd: tuple = array_field(2)
+    lp_lim: tuple = array_field(2)
+    lv_kp: tuple = array_field(2)
+    lv_ki: tuple = array_field(2)
+    lv_kd: tuple = array_field(2)
+    lv_lim: tuple = array_field(2)
+    ap_kp: tuple = array_field(3)
+    ap_ki: tuple = array_field(3)
+    ap_kd: tuple = array_field(3)
+    ap_lim: tuple = array_field(3)
+    zp_kp: tuple = array_field(1)
+    zp_ki: tuple = array_field(1)
+    zp_kd: tuple = array_field(1)
+    zp_lim: tuple = array_field(1)
+    zv_kp: tuple = array_field(1)
+    zv_ki: tuple = array_field(1)
+    zv_kd: tuple = array_field(1)
+    zv_lim: tuple = array_field(1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,7 +308,7 @@ class GenericConsts(CascadeVehicle):
     kernel gets them as one POD struct by value (``_GenericConstsC``,
     these fields in this order)."""
 
-    wind_base: tuple = _floats(3)  # WIND_GAUSSIAN: the baked base, ENU
+    wind_base: tuple = array_field(3)  # WIND_GAUSSIAN: the baked base, ENU
     max_gust: float  # gaussian kinds: the gust clip (0: no gusts)
     wind_strength: float  # WIND_SIMPLE: the thermal strength
     wind_kind: int
@@ -503,46 +499,26 @@ def waypoints_rows_moved(mode: int) -> tuple[int, int]:
     return read, rows_for_waypoints(mode)
 
 
-def _ctype(f: dataclasses.Field):
-    if "len" in f.metadata:
-        return ctypes.c_float * f.metadata["len"]
-    return {"float": ctypes.c_float, "int": ctypes.c_int}[f.type]
-
-
-class _ConstsC(ctypes.Structure):
-    @classmethod
-    @functools.lru_cache(maxsize=16)  # one per env config; saves host time per launch
-    def of(cls, c) -> "_ConstsC":
-        s = cls()
-        for name, _ in cls._fields_:
-            v = getattr(c, name)
-            if isinstance(v, tuple):
-                getattr(s, name)[:] = v
-            else:
-                setattr(s, name, v)
-        return s
-
-
-class _HoverConstsC(_ConstsC):
+class _HoverConstsC(cuda_build.ConstsStruct):
     """Mirror of ``struct HoverConsts`` in csrc/quadx_hover_step.cu, field
     by field from ``HoverConsts`` (a test holds the C struct to it)."""
 
-    _fields_ = [(f.name, _ctype(f)) for f in dataclasses.fields(HoverConsts)]
+    _fields_ = cuda_build.struct_fields(HoverConsts)
 
 
-class _GenericConstsC(_ConstsC):
+class _GenericConstsC(cuda_build.ConstsStruct):
     """Mirror of ``struct GenericConsts`` in csrc/quadx_step.cu, field by
     field from ``GenericConsts`` (a test holds the C struct to it)."""
 
-    _fields_ = [(f.name, _ctype(f)) for f in dataclasses.fields(GenericConsts)]
+    _fields_ = cuda_build.struct_fields(GenericConsts)
 
 
-class _WaypointsConstsC(_ConstsC):
+class _WaypointsConstsC(cuda_build.ConstsStruct):
     """Mirror of ``struct WaypointsConsts`` in
     csrc/quadx_waypoints_step.cu, field by field from ``WaypointsConsts``
     (a test holds the C struct to it)."""
 
-    _fields_ = [(f.name, _ctype(f)) for f in dataclasses.fields(WaypointsConsts)]
+    _fields_ = cuda_build.struct_fields(WaypointsConsts)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ state and its auto-reset cache draw from one) stay shared after a restore.
 Orbax checkpoints of the JAX package are not read here (the port imports
 no orbax): ``pyflyt_tpu.rl.checkpoint.restore_params`` gives their params
 as numpy, and ``convert.actor_critic_from_flax`` builds the network.
+``save_policy_npz`` writes such a network as a plain ``.npz`` of its
+f32 parameters, which ``load_policy_npz`` reads with numpy and torch
+alone; the archived policies the port ships live in
+``pyflyt_tpu_torch/assets/policies/``.
 """
 
 from __future__ import annotations
@@ -19,8 +23,14 @@ import dataclasses
 import os
 from typing import Any
 
+import numpy as np
 import torch
 from torch import Tensor, nn
+
+from pyflyt_tpu_torch.device import resolve_device
+from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+POLICY_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "policies")
 
 
 def _dump(obj: Any, gens: list, ids: dict) -> Any:
@@ -125,3 +135,36 @@ def average_params(paths: list[str], network: nn.Module) -> nn.Module:
 def best_model_name(idx: int, mean_len: float, std_len: float, mean_rew: float, std_rew: float) -> str:
     """The reference's best-model naming convention."""
     return f"best_model_{idx}_{mean_len:.0f}_{std_len:.0f}_{mean_rew:.0f}_{std_rew:.0f}"
+
+
+def save_policy_npz(path: str, network: nn.Module) -> None:
+    """Writes ``network``'s parameters (its ``state_dict``, f32) to the
+    ``.npz`` file ``path``."""
+    arrays = {k: v.detach().cpu().to(torch.float32).numpy() for k, v in network.state_dict().items()}
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCritic:
+    """The ``ActorCritic`` saved by ``save_policy_npz`` at ``path`` (or
+    under that name in ``POLICY_DIR``), its widths read from the arrays,
+    on ``device``."""
+    device = resolve_device(device)
+    if not os.path.exists(path):
+        path = os.path.join(POLICY_DIR, path if path.endswith(".npz") else f"{path}.npz")
+    with np.load(path) as z:
+        state = {k: torch.from_numpy(z[k].copy()) for k in z.files}
+    widths = lambda trunk: [state[f"{trunk}.layers.{i}.weight"].shape[0]  # noqa: E731
+                            for i in range(sum(k.startswith(f"{trunk}.layers.") and k.endswith(".weight")
+                                               for k in state))]
+    pi_w, vf_w = widths("pi_trunk"), widths("vf_trunk")
+    n_common = 0
+    while n_common < min(len(pi_w), len(vf_w)) and pi_w[n_common] == vf_w[n_common]:
+        n_common += 1
+    obs_dim = state["pi_trunk.layers.0.weight"].shape[1] if pi_w else state["pi_head.weight"].shape[1]
+    net = ActorCritic(obs_dim, state["pi_head.weight"].shape[0], feature_sizes=pi_w[:n_common],
+                      pi_sizes=pi_w[n_common:], vf_sizes=vf_w[n_common:], device="cpu")
+    net.load_state_dict(state)
+    return net.to(device)

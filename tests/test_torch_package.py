@@ -37,6 +37,7 @@ def test_import_leaves_no_jax_flax_yaml_or_reference_package():
     assert "pyflyt_tpu_torch.ops.cuda_quadx" in mods and "pyflyt_tpu_torch.convert" in mods
     assert "pyflyt_tpu_torch.rl.train" in mods and "pyflyt_tpu_torch.ops.cuda_sgd" in mods
     assert "pyflyt_tpu_torch.rl_training.hovering" in mods and "pyflyt_tpu_torch.core.wind" in mods
+    assert "pyflyt_tpu_torch.ops.cuda_fixedwing" in mods and "pyflyt_tpu_torch.envs.packed_fixedwing_waypoints" in mods
     code = textwrap.dedent(f"""
         import importlib, json, sys
         for m in {mods!r}:
@@ -52,8 +53,9 @@ def test_import_leaves_no_jax_flax_yaml_or_reference_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def test_vehicle_json_equals_reference_yaml():
-    assert load_vehicle_json("cf2x") == load_vehicle_yaml("cf2x")
+@pytest.mark.parametrize("name", ["cf2x", "fixedwing", "acrowing"])
+def test_vehicle_json_equals_reference_yaml(name):
+    assert load_vehicle_json(name) == load_vehicle_yaml(name)
 
 
 def test_vehicle_json_is_a_fresh_copy():
@@ -64,17 +66,20 @@ def test_vehicle_json_is_a_fresh_copy():
 
 @pytest.mark.parametrize(
     "entry", ["hover_env", "packed_env", "actor_critic", "resolve", "build_params", "quat_identity",
-              "mod_hover_env", "packed_mod_hover_env", "gaussian_wind", "cli_env"]
+              "mod_hover_env", "packed_mod_hover_env", "gaussian_wind", "cli_env", "fixedwing_params",
+              "fixedwing_env", "packed_fixedwing_env", "archived_policy"]
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     from pyflyt_tpu_torch.core import math as tm
     from pyflyt_tpu_torch.core.wind import GaussianWind
+    from pyflyt_tpu_torch.envs import FixedwingWaypointsEnv, PackedFixedwingWaypointsEnv
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
     from pyflyt_tpu_torch.envs.quadx_mod import PackedQuadXModHoveringEnv
     from pyflyt_tpu_torch.rl_training import hovering
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
     from pyflyt_tpu_torch.envs.quadx_mod import QuadXModHoveringEnv
-    from pyflyt_tpu_torch.models import quadx
+    from pyflyt_tpu_torch.models import fixedwing, quadx
+    from pyflyt_tpu_torch.rl import checkpoint
     from pyflyt_tpu_torch.rl.networks import ActorCritic
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +94,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "packed_mod_hover_env": lambda: PackedQuadXModHoveringEnv.create(flight_mode=9),
         "gaussian_wind": lambda: GaussianWind.init(None, 2, base_wind=(0.0, 0.0, 0.0)),
         "cli_env": lambda: hovering.main(["eval", "--flight_mode", "9", "--checkpoint", "unused"]),
+        "fixedwing_params": lambda: fixedwing.build_params(fixedwing.FixedwingConfig()),
+        "fixedwing_env": lambda: FixedwingWaypointsEnv(),
+        "packed_fixedwing_env": lambda: PackedFixedwingWaypointsEnv(),
+        "archived_policy": lambda: checkpoint.load_policy_npz("fixedwing_r5_lr3e-4_seed0"),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()

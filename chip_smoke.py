@@ -72,8 +72,25 @@ Phases, each of which fails the script on a failed check:
      episodes, against the archive's numbers (fails under 3.0 targets);
  27. ``fw_train``: fixedwing_rl_r5.py's lr3e-4 recipe on the plain env, a
      warm-up and a timed iteration;
- 28. ``fw_kernel_times``: rows 5 and 6 with 32- and 64-thread blocks, K4
-     at obs 35, and the ``kernels`` line for all eight kernels.
+ 28. ``fw_kernel_times``: rows 5 and 6 against their bounds, K4 at obs 35;
+ 29. ``df_checks``: K7 (the dogfight agent step) against its twin, noise
+     off, stock 30 Hz, 20 agent steps at 4096 and a ragged 999 arenas,
+     with preset lanes that fire hits, mutual collision, ground contact,
+     out-of-dome, time-limit truncation and other-dead, the lanes beyond
+     tolerance counted per trap; then its noise by its statistics;
+ 30. ``df_rollout``: the league's s100 policy (K4 at obs 30, checked
+     against its twin first) acting, sampled, in SelfPlayDogfightEnv at
+     8192 rows with cached arena auto-reset 64 for 128 steps, one K7 and
+     one K4 launch per step, the per-step split and the device's busy
+     share; a short plain MAQuadXHoverEnv run;
+ 31. ``df_duel``: ``evaluate_versus`` of s100 against init and init
+     against s100, 256 matches each, deterministic actions, noise on,
+     beside the archive's rates (fails under 0.95 for s100 in either
+     seat);
+ 32. ``df_train``: the league recipe at 8192 rows, a warm-up and a timed
+     iteration on the default f32 path, then with ``fused_sgd``;
+ 33. ``df_kernel_times``: K7 against its bound and its twin, its ptxas
+     report, and the ``kernels`` line for all nine kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -83,6 +100,7 @@ imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -928,12 +946,14 @@ def all_kernels():
     from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
+    from pyflyt_tpu_torch.ops import cuda_dogfight as cd
     from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
 
     return {"quadx_hover_step": cq.KERNEL, "quadx_step": cq.GENERIC_KERNEL,
             "quadx_waypoints_step": cq.WAYPOINTS_KERNEL, "policy_value_forward": cuda_policy.KERNEL,
             "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL,
-            "fixedwing_step": cf.STEP_KERNEL, "fixedwing_waypoints_step": cf.WAYPOINTS_KERNEL}
+            "fixedwing_step": cf.STEP_KERNEL, "fixedwing_waypoints_step": cf.WAYPOINTS_KERNEL,
+            "dogfight_step": cd.KERNEL}
 
 
 def zero_launches() -> None:
@@ -1980,6 +2000,335 @@ def time_fw_kernels(fw_state, net35, obs35) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 29-33: the dogfight (K7)
+# ---------------------------------------------------------------------------
+
+DF_ARENAS = 4096  # the league's 8192 agent rows (dogfight_league_r5.py:47)
+DF_RAGGED = 999  # 1998 drones: a partial last warp
+DF_STEPS = 20  # agent steps of the K7 checks
+DF_ROLLOUT_STEPS = 128  # the league recipe's rollout length
+DF_MATCHES = 256  # the league's duels (dogfight_league_r5.py:90)
+DF_MIN_WIN = 0.95  # s100 against init, either seat (archive 0.992 / 0.996)
+DF_POLICY = "dogfight_league_r5_s100"
+DF_INIT = "dogfight_league_r5_init"
+DF_ARCHIVE_LOG = "docs/artifacts/dogfight_league_r5_tpu.jsonl"
+DF_DIVERGED_SHARE = 4 / 64  # of a trap's lanes, as WP_DIVERGED_SHARE
+# the traps of the K7 checks, by arena mod 8 (the rest fly free)
+DF_TRAPS = ("hit", "mutual", "ground", "out_of_dome", "time_limit", "other_dead")
+
+
+def df_env(**kw):
+    """The league's env (dogfight_league_r5.py:48-50: stock 30 Hz, 60 s,
+    noise on) as the self-play view over the packed env."""
+    from pyflyt_tpu_torch.envs import MAFixedwingDogfightEnv, PackedMAFixedwingDogfightEnv, SelfPlayDogfightEnv
+
+    return SelfPlayDogfightEnv(PackedMAFixedwingDogfightEnv(MAFixedwingDogfightEnv(device="cuda", **kw)))
+
+
+def df_traps(packed, arenas: int, max_steps: int):
+    """Presets the traps on a reset's packed state, in place, by arena
+    mod 8: drone 1 flying 8 m ahead of drone 0's nose and 0.4 m to its left
+    (hits), drone 1 0.5 m from drone 0 (mutual collision), drone 0 0.4 m up
+    falling at 8 m/s (ground), drone 0 at the dome's edge flying out,
+    the step count 5 short of the time limit; other-dead is a row the
+    caller writes every step. Returns the drone columns of each trap."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_dogfight as cd
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+
+    a = torch.arange(arenas, device=packed.device)
+    d0 = {name: 2 * a[a % 8 == k] for k, name in enumerate(DF_TRAPS)}
+    e = packed[cf._VIEW + 3 : cf._VIEW + 6]  # drone 0's euler
+    for name in ("hit", "mutual"):
+        c0 = d0[name]
+        c1 = c0 + 1
+        for base in (cf._QUAT, cf._LVEL, cf._AVEL):
+            width = 4 if base == cf._QUAT else 3
+            packed[base : base + width, c1] = packed[base : base + width, c0]
+        roll, pitch, yaw = e[0, c0], e[1, c0], e[2, c0]
+        fwd = torch.stack([torch.cos(yaw) * torch.cos(pitch), torch.sin(yaw) * torch.cos(pitch), -torch.sin(pitch)])
+        left = torch.stack([-torch.sin(yaw), torch.cos(yaw), torch.zeros_like(yaw)])
+        shift = 8.0 * fwd + 0.4 * left if name == "hit" else 0.5 * left
+        packed[cf._POS : cf._POS + 3, c1] = packed[cf._POS : cf._POS + 3, c0] + shift
+    g = d0["ground"]
+    packed[cf._POS + 2, g] = 0.4
+    packed[cf._LVEL + 2, g] = -8.0
+    o = d0["out_of_dome"]
+    packed[cf._POS, o] = 149.0
+    packed[cf._LVEL, o] = 20.0
+    t = d0["time_limit"]
+    packed[cd._STEPC, torch.cat([t, t + 1])] = float(max_steps - 5)
+    return {name: torch.cat([c, c + 1]) for name, c in d0.items()}
+
+
+def check_df_step() -> dict:
+    """K7 against its twin (noise off, stock 30 Hz) over DF_STEPS agent
+    steps at 4096 and a ragged 999 arenas, from the env's reset with the
+    traps of ``df_traps``, each chained on its own. Per lane, the largest
+    difference over the rows (the reward row relative to 1 + |reward|):
+    at most DF_DIVERGED_SHARE of a trap's lanes beyond 5e-4 + 4e-4 * step,
+    every trap firing. Then the noise: identical lanes, the throttle's
+    relative spread and mean against the twin's."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_dogfight as cd
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+
+    out = {}
+    for arenas in (DF_ARENAS, DF_RAGGED):
+        env = df_env(noisy_motors=False).penv
+        st, _ = env.reset(arenas, torch.Generator(device="cuda").manual_seed(290))
+        packed = st.packed.clone()
+        lanes = df_traps(packed, arenas, env.base.max_steps)
+        othd = torch.zeros(2 * arenas, device="cuda")
+        othd[lanes["other_dead"]] = 1.0
+        seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+        kern, plain = packed, packed.clone()
+        g = torch.Generator().manual_seed(291)
+        err, diverged = 0.0, dict.fromkeys(DF_TRAPS + ("free",), 0)
+        free = torch.ones(2 * arenas, dtype=torch.bool, device="cuda")
+        for c in lanes.values():
+            free[c] = False
+        groups = {**lanes, "free": free.nonzero().flatten()}
+        ev = dict.fromkeys(DF_TRAPS, 0)
+        for i in range(DF_STEPS):
+            a = torch.rand(4, 2 * arenas, generator=g) * 0.8 - 0.4
+            a[3] = 0.75
+            for p in (kern, plain):
+                p[cf._SP : cf._SP + 4] = a.to(p.device)
+                p[cd._OTHD] = othd
+            kern = cd.packed_dogfight_step(kern, seed, env.consts, False)
+            plain = cd.packed_dogfight_step_plain(plain, seed, env.consts, False)
+            torch.cuda.synchronize()
+            where = f"dogfight step N={arenas} step {i}"
+            check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+            diff = (kern - plain).abs()
+            diff[cd._RWD] = diff[cd._RWD] / (1.0 + plain[cd._RWD].abs())
+            lane = diff.amax(0)
+            bad = lane > 5e-4 + 4e-4 * i
+            for name, cols in groups.items():
+                nbad = int(bad[cols].sum())
+                diverged[name] = max(diverged[name], nbad)
+                check(nbad <= DF_DIVERGED_SHARE * len(cols), f"{where}: {nbad} of {len(cols)} {name} lanes diverged")
+            err = max(err, lane[~bad].max().item())
+            check(torch.equal(kern[cd._STEPC], plain[cd._STEPC]), f"{where}: step count")
+            check(not bool(kern[cd._STEPC + 1 :].any()), f"{where}: padding rows not zero")
+            ev["hit"] += int(kern[cd._HIT, lanes["hit"]].sum())
+            ev["mutual"] += int((kern[cd._COLLF, lanes["mutual"]] > 0.5).sum())
+            ev["ground"] += int((kern[cd._COLLF, lanes["ground"]] > 0.5).sum())
+            ev["out_of_dome"] += int((kern[cd._OOBF, lanes["out_of_dome"]] > 0.5).sum())
+            ev["time_limit"] += int((kern[cd._TRUNC, lanes["time_limit"]] > 0.5).sum())
+            ev["other_dead"] += int((kern[cd._TERM, lanes["other_dead"]] > 0.5).sum())
+        check(all(v > 0 for v in ev.values()), f"dogfight step N={arenas}: traps {ev}")
+        check(float(kern[cd._HP, lanes["hit"]].min()) < 1.0, f"dogfight step N={arenas}: no health lost to hits")
+        out[f"N{arenas}"] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev}
+
+    env = df_env().penv
+    st, _ = env.reset(2, torch.Generator(device="cuda").manual_seed(292))
+    packed = st.packed[:, :1].expand(-1, 2 * DF_ARENAS).contiguous()  # identical lanes
+    packed[cf._SP + 3] = 0.75
+    seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
+    quiet = cd.packed_dogfight_step(packed, seed, env.consts, False)[cf._THR]
+    rk = cd.packed_dogfight_step(packed, seed, env.consts, True)[cf._THR] / quiet - 1.0
+    rp = cd.packed_dogfight_step_plain(packed, seed, env.consts, True)[cf._THR] / quiet - 1.0
+    torch.cuda.synchronize()
+    se = float(rk.std()) * 6 / (2 * DF_ARENAS) ** 0.5
+    check(float(rk.std()) > 0, "noisy dogfight step: no spread")
+    check(abs(float(rk.mean()) - float(rp.mean())) <= 2 * se, f"noisy dogfight step: means {rk.mean()} {rp.mean()}")
+    check(abs(float(rk.std()) / float(rp.std()) - 1.0) <= 0.1, f"noisy dogfight step: std {rk.std()} vs {rp.std()}")
+    out["noise"] = {"throttle_rel_std_kernel": float(rk.std()), "throttle_rel_std_plain": float(rp.std()),
+                    "noise_ratio": env.consts.mot_noise}
+    return out
+
+
+def df_rollout(net, seed: int, card: str):
+    """The serving path: ``net`` (s100, obs 30) acting, sampled, through K4
+    in SelfPlayDogfightEnv at 8192 rows with the cached arena auto-reset
+    (refresh 64) for DF_ROLLOUT_STEPS steps: one K7 and one K4 launch per
+    step, nothing else. Then the per-step split, each part on its own,
+    the device's busy share over 16 profiled steps, and a short plain
+    MAQuadXHoverEnv run on the card."""
+    import torch
+    from pyflyt_tpu_torch.envs import MAQuadXHoverEnv
+    from pyflyt_tpu_torch.ops import cuda_dogfight as cd
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = df_env()
+    rows = 2 * DF_ARENAS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    ars, obs = env.cached_autoreset_init(rows, gen)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    ars, obs, _ = ppo.rollout(net, env, ars, obs, 4, gen, refresh=64)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ars, obs, traj = ppo.rollout(net, env, ars, obs, DF_ROLLOUT_STEPS, gen, refresh=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "dogfight_step": DF_ROLLOUT_STEPS, "policy_value_forward": DF_ROLLOUT_STEPS}
+    check(launches == want, f"dogfight rollout launches {launches}, expected {want}")
+    check(obs.shape == (rows, 30) and bool(torch.isfinite(obs).all()), "dogfight rollout: final obs")
+    check(bool(torch.isfinite(traj.reward).all()), "dogfight rollout: non-finite rewards")
+    n_done = int(traj.done.sum())  # arenas ended and respawned from the pool (recorded, not required)
+    check(ars.step_idx == DF_ROLLOUT_STEPS + 4, "dogfight rollout: the cached auto-reset's step count")
+
+    w = net.kernel_weights()
+    k4_ms, k4_host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=200)
+    inner = ars.env_state.inner
+    packed = inner.packed.contiguous()
+    seed_t = torch.tensor([5], dtype=torch.int64, device="cuda")
+    consts = env.penv.consts
+    kernel_ms, kernel_host = time_ms(lambda: cd.packed_dogfight_step(packed, seed_t, consts, True), iters=200)
+    obs_ms = host_wall_ms(lambda: env.penv._obs(packed, inner.current_actions), iters=50)
+    action = torch.zeros(rows, 4, device="cuda")
+    step_ms = host_wall_ms(lambda: env.step(ars.env_state, action), iters=50)
+    auto_ms = host_wall_ms(lambda: env.cached_autoreset_step(ars, action, refresh=10**9), iters=50)
+    refresh_ms = host_wall_ms(lambda: env.penv.reset(DF_ARENAS, gen), iters=3)
+    act_ms = host_wall_ms(lambda: ppo.act(net, obs, gen, fused=True), iters=50)
+    prof = profiled(lambda: ppo.rollout(net, env, ars, obs, 16, gen, refresh=64), "df_rollout_profile_16_steps")
+
+    quad = MAQuadXHoverEnv(device="cuda")  # the plain MA QuadX env: 1024 arenas x 4 drones, 40 steps
+    qgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    qs, qobs = quad.reset(1024, qgen)
+    t0 = time.perf_counter()
+    for _ in range(40):
+        qs, qout = quad.step(qs, torch.tensor([0.0, 0.0, 0.0, 0.6], device="cuda").expand(1024, 4, 4))
+    torch.cuda.synchronize()
+    quad_wall = time.perf_counter() - t0
+    check(qout.obs.shape == (1024, 4, quad.obs_size) and bool(torch.isfinite(qout.obs).all()), "MA QuadX obs")
+    check(bool(torch.isfinite(qout.reward).all()), "MA QuadX rewards")
+    zero_launches()  # the split's launches are not the main path's
+    return {
+        "card": card, "agent_rows": rows, "arenas": DF_ARENAS, "steps": DF_ROLLOUT_STEPS, "wall_s": wall,
+        "agent_steps_per_s": rows * DF_ROLLOUT_STEPS / wall, "ms_per_step": 1e3 * wall / DF_ROLLOUT_STEPS,
+        "reset_s": reset_s, "rows_done": n_done, "mean_reward": float(traj.reward.mean()), "launches": launches,
+        "split_ms": {"k4_device": k4_ms, "k4_wrapper_host": k4_host, "act_total_host": act_ms,
+                     "kernel_device": kernel_ms, "kernel_wrapper_host": kernel_host,
+                     "obs_assembly_host": obs_ms, "selfplay_step_host": step_ms,
+                     "cached_autoreset_step_host": auto_ms, "pool_refresh_host": refresh_ms},
+        "profiled_16_steps": {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+                              "device_busy_share": prof["device_busy_ms"] / prof["wall_ms"]},
+        "ma_quadx": {"arenas": 1024, "steps": 40, "wall_s": quad_wall, "agent_steps_per_s": 4 * 1024 * 40 / quad_wall,
+                     "alive_share": float(qs.alive.float().mean())},
+    }, packed
+
+
+def df_archive_duels() -> dict:
+    """The league's s100/init duels from its log (256 matches each)."""
+    with open(os.path.join(HERE, DF_ARCHIVE_LOG)) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    m = next(r for r in rows if r.get("stage") == "league")["matrix"]
+    return {k: m[k] for k in ("s100_vs_init", "init_vs_s100")}
+
+
+def df_duel(s100, init, seed: int, card: str) -> dict:
+    """``evaluate_versus`` on the league's env (noise on, deterministic
+    actions), DF_MATCHES matches of s100 against init and of init against
+    s100; fails if s100 wins under DF_MIN_WIN of either."""
+    import torch
+    from pyflyt_tpu_torch.rl.ppo import act_deterministic, action_bounds
+    from pyflyt_tpu_torch.rl_training.dogfight_selfplay import evaluate_versus
+
+    env = df_env()
+    low, high = action_bounds(env, torch.device("cuda"))
+    pol = {"s100": lambda o: act_deterministic(s100, o, low, high), "init": lambda o: act_deterministic(init, o, low, high)}
+    out = {"card": card, "archive": df_archive_duels()}
+    for i, (a, b) in enumerate((("s100", "init"), ("init", "s100"))):
+        zero_launches()
+        t0 = time.perf_counter()
+        res = evaluate_versus(env, pol[a], pol[b], torch.Generator(device="cuda").manual_seed(seed + 31 + i), DF_MATCHES)
+        torch.cuda.synchronize()
+        res.update(wall_s=time.perf_counter() - t0, launches=read_launches()["dogfight_step"])
+        out[f"{a}_vs_{b}"] = res
+        check(res["finished"] == DF_MATCHES, f"duel {a} vs {b}: {res['finished']} of {DF_MATCHES} matches ended")
+    out["s100_win_rate"] = {"seat_0": out["s100_vs_init"]["win_rate_a"], "seat_1": out["init_vs_s100"]["loss_rate_a"]}
+    check(min(out["s100_win_rate"].values()) >= DF_MIN_WIN, f"duel: s100's win rates {out['s100_win_rate']}")
+    zero_launches()
+    return out
+
+
+def df_train(seed: int, card: str) -> dict:
+    """The league recipe (dogfight_league_r5.py:47-55) at 8192 rows: a
+    warm-up and one timed, split iteration on the default f32 path, then a
+    warm-up and one timed iteration with ``fused_sgd`` (obs 30 is within
+    K2's 32). One K7 launch per rollout step on both paths, plus K3 once
+    and K2 once per epoch with ``fused_sgd``; Adam's count advances by 4 x
+    16 per iteration."""
+    import torch
+    from pyflyt_tpu_torch.rl import PPO
+    from pyflyt_tpu_torch.rl_training import dogfight_selfplay
+
+    args = argparse.Namespace(sparse_reward=False, noisy_motors=True, damage_per_hit=0.02, max_duration_seconds=60.0,
+                        agent_hz=30, layer_size=256, num_of_layers=2, init_log_std=-1.0, num_envs=2 * DF_ARENAS,
+                        rollout_steps=DF_ROLLOUT_STEPS, n_epochs=4, num_minibatches=16, learning_rate=3e-4,
+                        clip_eps=0.2, entropy_coef=0.0, cached_reset_refresh=64, device="cuda")
+    env = dogfight_selfplay.build_env(args)
+    out = {"card": card}
+    for path in ("default", "fused_sgd"):
+        tp = dogfight_selfplay.mk_ppo(args, env)
+        if path == "fused_sgd":
+            tp = PPO(env, dataclasses.replace(tp.config, fused_sgd=True))
+        cfg = tp.config
+        t0 = time.perf_counter()
+        runner = tp.init(seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(runner.obs.shape == (cfg.num_envs, 30), "dogfight training: obs width")
+        rows = []
+        for it in range(2):
+            count0 = int(runner.opt_state.count)
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner, metrics, split = run_iteration(tp, runner, split=it == 1)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            want = {**dict.fromkeys(launches, 0), "dogfight_step": cfg.rollout_steps}
+            if cfg.fused_sgd:
+                want.update(logp_forward=1, fused_epoch=cfg.num_epochs)
+            check(launches == want, f"dogfight training {path} iteration {it}: launches {launches}, expected {want}")
+            check(int(runner.opt_state.count) - count0 == cfg.num_epochs * cfg.num_minibatches,
+                  f"dogfight training {path} iteration {it}: Adam count")
+            check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"dogfight training {path}: metrics")
+            rows.append({"wall_s": wall, "split_s": split, "launches": launches,
+                         "metrics": {k: float(v) for k, v in metrics.items()}})
+        check(all(bool(torch.isfinite(p).all()) for p in runner.network.parameters()), "dogfight training: params")
+        wall = rows[-1]["wall_s"]
+        out[path] = {"agent_rows": cfg.num_envs, "rollout_steps": cfg.rollout_steps, "batch": cfg.batch_size,
+                     "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches, "init_s": init_s,
+                     "warmup_s": rows[0]["wall_s"], "wall_s": wall, "samples_per_s": cfg.batch_size / wall,
+                     "split_s": rows[-1]["split_s"], "launches_per_iteration": rows[-1]["launches"],
+                     "metrics": rows[-1]["metrics"]}
+    zero_launches()
+    return out
+
+
+def time_df_kernel(packed) -> dict:
+    """K7 at the league's shape (8192 drones, noise on): device time
+    against the bound and its twin's time, and the ptxas report."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_dogfight as cd
+
+    consts = df_env().penv.consts
+    packed = packed.contiguous()
+    seed = torch.tensor([17], dtype=torch.int64, device="cuda")
+    ms, host_ms = time_ms(lambda: cd.packed_dogfight_step(packed, seed, consts, True), iters=200)
+    plain, _ = time_ms(lambda: cd.packed_dogfight_step_plain(packed, seed, consts, True), iters=2, repeats=3,
+                       device_timed=False)
+    drones = packed.shape[1]
+    rd, wr = cd.rows_moved()
+    b_ms, by = bound_of((rd + wr) * 4 * drones + 8, drones * cd.ops_per_drone(consts), H100_F32_FLOPS)
+    out = {"ms": ms, "host_ms": host_ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by, "drones": drones,
+           "rows_read": rd, "rows_written": wr, "ops_per_drone": cd.ops_per_drone(consts),
+           "physics_iterations": consts.ratio * consts.inner_steps, "ptxas": ptxas_usage("dogfight_step.cu")}
+    print(json.dumps({"df_kernel_times": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2314,6 +2663,47 @@ def main(argv=None) -> int:
         k["launches_per_fw_rollout"] = fw_roll["launches"][k["name"]]
         k["launches_per_fw_eval"] = results["fw_eval"]["launches"][k["name"]]
         k["launches_per_fw_step_dropin"] = fw_step_launches[k["name"]]
+
+    # 29. K7 vs its twin (4096 and 999 arenas, every trap firing), its noise
+    results["df_checks"] = check_df_step()
+    err_df = max(c["max_abs_err"] for k, c in results["df_checks"].items() if k != "noise")
+    print(json.dumps({"df_checks": results["df_checks"]}), flush=True)
+    # 30. the serving path: the league's s100 (obs 30) through K4 and K7 in
+    # the self-play env, cached arena auto-reset; the plain MA QuadX env
+    s100 = checkpoint.load_policy_npz(DF_POLICY, device="cuda")
+    init = checkpoint.load_policy_npz(DF_INIT, device="cuda")
+    check(s100.obs_dim == 30 and init.obs_dim == 30, "league policies: obs width")
+    atol30 = policy_atol(s100)
+    e30 = [check_policy(s100, n, atol30) for n in (2 * DF_ARENAS, N_RAGGED)]
+    results["k4_league_policy"] = {"mean_err": max(e[0] for e in e30), "value_err": max(e[1] for e in e30),
+                                   "atol": atol30}
+    err_b = max(err_b, *(max(e) for e in e30))
+    print(json.dumps({"k4_league_policy": results["k4_league_policy"]}), flush=True)
+    df_roll, df_packed = df_rollout(s100, args.seed, card)
+    results["df_rollout"] = df_roll
+    print(json.dumps({"df_rollout": df_roll}), flush=True)
+    # 31. the league's duels on the card
+    results["df_duel"] = df_duel(s100, init, args.seed, card)
+    print(json.dumps({"df_duel": results["df_duel"]}), flush=True)
+    # 32. the league recipe, default and fused_sgd
+    results["df_train"] = df_train(args.seed, card)
+    print(json.dumps({"df_train": results["df_train"]}), flush=True)
+    # 33. K7's time and bound at the league's shape
+    dt = time_df_kernel(df_packed)
+    results["df_kernel_times"] = dt
+    kernels.append({
+        "name": "dogfight_step", "route": "cuda", "source": "pyflyt_tpu_torch/csrc/dogfight_step.cu",
+        "replaces": "pyflyt_tpu/ops/pallas_dogfight.py:259", "launches": df_roll["launches"]["dogfight_step"],
+        "max_abs_err": err_df, **{k: dt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "host_ms": dt["host_ms"], "ptxas": dt["ptxas"],
+        "main_path": f"df_rollout, {DF_ROLLOUT_STEPS} steps x {2 * DF_ARENAS} agent rows",
+        "max_diverged_lanes": {k: c["max_diverged_lanes"] for k, c in results["df_checks"].items() if k != "noise"},
+    })
+    by_name["policy_value_forward"]["max_abs_err"] = err_b
+    for k in kernels:
+        k["launches_per_df_rollout"] = df_roll["launches"][k["name"]]
+        for path in ("default", "fused_sgd"):
+            k[f"launches_per_df_train_{path}_iteration"] = results["df_train"][path]["launches_per_iteration"][k["name"]]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -18,6 +18,8 @@ from pyflyt_tpu_torch.core.state import Body6DoF
 from pyflyt_tpu_torch.core.wind import GaussianWind
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.envs.fixedwing_waypoints import FixedwingWaypointsState
+from pyflyt_tpu_torch.envs.ma_fixedwing_dogfight import DogfightState
+from pyflyt_tpu_torch.envs.ma_quadx_hover import MAQuadXState
 from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsState
 from pyflyt_tpu_torch.envs.utils.waypoints import WaypointState
@@ -210,6 +212,66 @@ def packed_fixedwing_waypoints_from_jax(packed, device: str | torch.device = "cu
     same). It is ``packed_waypoints_from_jax`` under the fixedwing env's
     name, kept beside the other ``*_from_jax`` converters of this env."""
     return packed_waypoints_from_jax(packed, device)
+
+
+def ma_quadx_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> MAQuadXState:
+    """The port's ``MAQuadXState`` from the numpy leaves of a batched JAX
+    ``MAQuadXState`` (a ``vmap``-ed reset or step over arenas: drones
+    ``(N, n)``). The JAX PRNG keys become the one ``generator`` of the
+    batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    return MAQuadXState(
+        drones=quadx_state_from_jax(tree.drones, dev),
+        generator=generator,
+        step_count=torch.tensor(np.array(tree.step_count, dtype=np.int32), device=dev),
+        alive=torch.tensor(np.array(tree.alive, dtype=bool), device=dev),
+        current_actions=f(tree.current_actions),
+        past_actions=f(tree.past_actions),
+    )
+
+
+def dogfight_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> DogfightState:
+    """The port's ``DogfightState`` from the numpy leaves of a batched JAX
+    ``DogfightState`` (a ``vmap``-ed reset or step over arenas: drones
+    ``(N, 2)``). The JAX PRNG keys become the one ``generator`` of the
+    batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    return DogfightState(
+        drones=fixedwing_state_from_jax(tree.drones, dev),
+        generator=generator,
+        step_count=torch.tensor(np.array(tree.step_count, dtype=np.int32), device=dev),
+        alive=b(tree.alive),
+        current_actions=f(tree.current_actions),
+        past_actions=f(tree.past_actions),
+        health=f(tree.health),
+        current_hits=b(tree.current_hits),
+        current_angles=f(tree.current_angles),
+        current_offsets=f(tree.current_offsets),
+        current_distance=f(tree.current_distance),
+        prev_angles=f(tree.prev_angles),
+        prev_distance=f(tree.prev_distance),
+        observations=f(tree.observations),
+    )
+
+
+def packed_dogfight_from_jax(packed, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The port's ``(72, 2N)`` packed dogfight state from a JAX
+    ``PackedDogfightEnvState.packed``: ``(72, 8, 2N/8)``, the TPU's sublane
+    fold of the drone order ``[d0 of every arena..., d1 of every
+    arena...]``, reordered into the port's arena-interleaved columns
+    (column ``2a + m`` is drone ``m`` of arena ``a``). The row layout is
+    the same."""
+    a = np.asarray(packed, dtype=np.float32)
+    rows = a.shape[0]
+    a = a.reshape(rows, 2, -1).transpose(0, 2, 1).reshape(rows, -1)
+    return torch.tensor(np.ascontiguousarray(a), device=resolve_device(device))
 
 
 def _dense_layers(trunk: dict) -> list[dict]:

@@ -122,8 +122,8 @@ def ground_contact(
     projection. Returns ``(state, contact)``."""
     if per_point_iters is not None:
         raise NotImplementedError(
-            "per-point Gauss-Seidel contact is queued in ROADMAP.md "
-            "(port queue, rocket slice: core/integrator per_point_iters)"
+            "per-point Gauss-Seidel contact: ROADMAP.md, open item 4 "
+            "(core/integrator per_point_iters, with the MuJoCo contact traces)"
         )
     R = pm.quat_to_rotmat(body.quat)
     pts_w = body.pos[..., None, :] + torch.einsum("...ij,nj->...ni", R, geom.points)

@@ -90,7 +90,29 @@ Phases, each of which fails the script on a failed check:
  32. ``df_train``: the league recipe at 8192 rows, a warm-up and a timed
      iteration on the default f32 path, then with ``fused_sgd``;
  33. ``df_kernel_times``: K7 against its bound and its twin, its ptxas
-     report, and the ``kernels`` line for all nine kernels.
+     report;
+ 34. ``rk_checks``: K6's row 8 (one rocket aviary step) against its twin,
+     noise off, on 8192 and a ragged 1000 random airborne states with the
+     booster lit and the finlets and gimbal swung, then with a fuel-out
+     burn; row 8's main path, 30 chained steps settling 8192 rockets on
+     the ground and 8192 on pads, each step held against its twin per
+     lane; row 9 (the Rocket-Landing agent step) against its twin over 30
+     steps in the L0 env at 8192 and 1000 envs with preset lanes that fire
+     a soft touchdown that completes, a hard touchdown, a ground hit,
+     below ground, out of bounds by displacement and by the ceiling,
+     truncation and the freeze, the lanes beyond tolerance counted per
+     trap; then the noise of both by the throttle's spread;
+ 35. ``k4_rocket_policy``: K4 at obs 33 with the archived L0 weights
+     against its twin;
+ 36. ``rk_rollout``: L0 acting (sampled, through K4) in 8192 stock
+     PackedRocketLandingEnv() envs for 128 steps, one row-9 and one K4
+     launch per step, the per-step split and the device's busy share;
+ 37. ``rk_eval``: L0 flown deterministically for 256 episodes in its env
+     with make_landing_eval's accounting, beside the archive's receipt
+     (fails under a 0.90 pad rate);
+ 38. ``rk_kernel_times``: rows 8 and 9 against their bounds and their
+     twins, their ptxas report, and the ``kernels`` line for all eleven
+     kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -948,12 +970,13 @@ def all_kernels():
 
     from pyflyt_tpu_torch.ops import cuda_dogfight as cd
     from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
 
     return {"quadx_hover_step": cq.KERNEL, "quadx_step": cq.GENERIC_KERNEL,
             "quadx_waypoints_step": cq.WAYPOINTS_KERNEL, "policy_value_forward": cuda_policy.KERNEL,
             "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL,
             "fixedwing_step": cf.STEP_KERNEL, "fixedwing_waypoints_step": cf.WAYPOINTS_KERNEL,
-            "dogfight_step": cd.KERNEL}
+            "dogfight_step": cd.KERNEL, "rocket_step": cr.STEP_KERNEL, "rocket_landing_step": cr.LANDING_KERNEL}
 
 
 def zero_launches() -> None:
@@ -2329,6 +2352,520 @@ def time_df_kernel(packed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 34-38: the rocket (K6)
+# ---------------------------------------------------------------------------
+
+RK_ENVS = 8192  # rocket_rl_r5h.py's num_envs (:85)
+RK_STEPS = 30  # steps of the row-8 settle chains and the row-9 checks
+RK_ROLLOUT_STEPS = 128  # the r5h recipe's rollout length
+RK_TIMING_STEP = 32  # the rollout step whose state times rows 8 and 9: every lane airborne and live
+RK_EVAL_EPISODES = 256  # make_landing_eval's 256 (rocket_rl_r5h.py:171)
+RK_MIN_PAD_RATE = 0.90  # archive 0.945; its binomial sigma at 256 episodes is ~0.014
+RK_POLICY = "rocket_landing_L0"
+RK_ARCHIVE_LOG = "docs/artifacts/rocket_rl_r5h_tpu.jsonl"
+RK_L0_ENV = dict(starting_fuel_ratio=0.02, ceiling=15.0, max_displacement=15.0, accelerate_drop=False)
+RK_DIVERGED_SHARE = 4 / 64  # of a trap's lanes, as WP_DIVERGED_SHARE
+# row groups of the rocket layout for one aviary step against the twin, at
+# tests/test_pallas_rocket.py:84-115's bounds (the finlet and drag-link
+# velocities as the view)
+RK_GROUPS = {"pos": (0, 3, 2e-4), "quat": (3, 7, 2e-5), "lin_vel": (7, 10, 2e-3), "ang_vel": (10, 13, 2e-3),
+             "view": (13, 25, 2e-3), "local_vel": (25, 40, 2e-3), "actuation": (40, 44, 1e-6),
+             "fuel": (44, 45, 1e-6), "throttle": (45, 46, 1e-6), "ignition": (46, 47, 0.0),
+             "gimbal": (47, 49, 1e-6)}
+# the traps of the row-9 checks, by env mod 16 (the rest fly free, burning)
+RK_TRAPS = ("soft_complete", "hard_touchdown", "ground_hit", "below_ground", "displacement", "ceiling",
+            "truncation", "frozen")
+RK_LEG_Z = 2.425  # the landing legs' tips below the base origin (rocket.json)
+
+
+def rk_env(**kw):
+    from pyflyt_tpu_torch.envs import PackedRocketLandingEnv, RocketLandingEnv
+
+    return PackedRocketLandingEnv(RocketLandingEnv(device="cuda", **kw))
+
+
+def rk_airborne(n: int, seed: int, fuel=(0.3, 0.3), z=(30.0, 80.0)):
+    """tests/test_pallas_rocket.py's states on the card: tilted, moving and
+    spinning rockets, finlets, gimbal and throttle away from rest, a lit
+    booster at 30-100% with finlets and gimbal swung (the setpoint)."""
+    import torch
+    from pyflyt_tpu_torch.models import rocket
+
+    cfg = rocket.RocketConfig(noisy_boosters=False)
+    params = rocket.build_params(cfg, "cuda")
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: (lo + (hi - lo) * torch.rand(s, generator=g)).cuda()  # noqa: E731
+    pos = u(-2.0, 2.0, n, 3)
+    pos[:, 2] = u(z[0], z[1], n)
+    st = rocket.init_state(params, cfg, pos, u(-0.3, 0.3, n, 3), u(-3.0, 3.0, n, 3), u(-0.5, 0.5, n, 3))
+    st.booster.ratio_fuel_remaining = u(fuel[0], fuel[1], n, 1)
+    st.booster.throttle = u(0.2, 0.8, n, 1)
+    st.booster.ignition_state = torch.ones(n, 1, dtype=torch.bool, device="cuda")
+    st.actuation = u(-0.5, 0.5, n, 4)
+    st.gimbal_state = u(-0.5, 0.5, n, 1, 2)
+    fuel_ratio = st.booster.ratio_fuel_remaining
+    com = rocket.mass_properties(params, fuel_ratio * params.booster.total_fuel_mass,
+                                 fuel_ratio[..., None] * params.booster.max_inertia)[1]
+    st.read = rocket.update_state(st.body, params, cfg, com, st.physics_steps)
+    sp = u(-1.0, 1.0, n, 7)
+    sp[:, 3] = 1.0
+    sp[:, 4] = u(0.3, 1.0, n)
+    st.setpoint = sp
+    return cfg, params, st
+
+
+def rk_settle(n: int, seed: int, on_pad: bool):
+    """Rockets upright or tilted by up to 0.05 rad, their legs between 1 cm
+    in and 2 cm above the ground (or a pad under each at z = 0.1, off
+    their centre by up to 1 m), drifting at up to 0.3 m/s, unlit."""
+    import torch
+    from pyflyt_tpu_torch.models import rocket
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+
+    cfg = rocket.RocketConfig(noisy_boosters=False, starting_fuel_ratio=0.3)
+    params = rocket.build_params(cfg, "cuda")
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: (lo + (hi - lo) * torch.rand(s, generator=g)).cuda()  # noqa: E731
+    pos = u(-50.0, 50.0, n, 3)
+    ground = 0.15 if on_pad else 0.0
+    pos[:, 2] = ground + RK_LEG_Z + u(-0.01, 0.02, n)
+    orn = u(-0.05, 0.05, n, 3)
+    vel = u(-0.3, 0.3, n, 3)
+    vel[:, 2] = u(-1.0, 0.0, n)
+    st = rocket.init_state(params, cfg, pos, orn, vel)
+    packed = cr.pack_state(st)
+    if on_pad:
+        packed[cr._PADP : cr._PADP + 2] = pos[:, :2].T + u(-0.7, 0.7, 2, n)
+        packed[cr._PADP + 2] = 0.1
+    return cfg, params, packed
+
+
+def rk_traps(st, env) -> dict:
+    """Presets the traps on a reset ``RocketLandingState``, in place, by
+    env mod 16 (tests/_rocket_reference.py's presets): legs 2 mm into the
+    pad at rest (a soft touchdown that completes), 2 cm above the pad at 3
+    m/s with a 3 m/s memo (hard), the same 6 m off the pad (a ground hit),
+    over a pad sunk 5 m into a pit at 8 m/s (below ground, no contact),
+    at the displacement bound and under the ceiling flying out, the step
+    count at the time limit, done before the first step (the freeze).
+    Returns the env columns of each trap."""
+    import torch
+    from pyflyt_tpu_torch.envs.base import tree_select
+    from pyflyt_tpu_torch.models import rocket
+
+    b = env.base
+    n = st.reward.shape[0]
+    idx = torch.arange(n, device="cuda")
+    lanes = {name: idx[idx % 16 == k] for k, name in enumerate(RK_TRAPS)}
+    pad = st.pad_position
+    st.ang_vel, st.lin_vel = st.ang_vel.clone(), st.lin_vel.clone()  # the memos may view the drone's read
+    pos = st.drone.read.view[:, 3].clone()
+    orn = st.drone.read.view[:, 1].clone()
+    vel = torch.zeros_like(pos)
+    top = pad[:, 2] + 0.05
+    for name, dz, dx, vz in (("soft_complete", -0.002, 0.0, 0.0), ("hard_touchdown", 0.02, 0.0, -3.0),
+                             ("ground_hit", 0.02, 6.0, -3.0)):
+        c = lanes[name]
+        ground = top[c] if name != "ground_hit" else torch.zeros_like(top[c])
+        pos[c] = torch.stack([pad[c, 0] + dx, pad[c, 1], ground + RK_LEG_Z + dz], dim=-1)
+        vel[c, 2] = vz
+        orn[c] = 0.0
+    c = lanes["below_ground"]
+    pad[c, 2] = -5.0
+    pos[c] = torch.stack([pad[c, 0], pad[c, 1], torch.full_like(pad[c, 0], 0.1)], dim=-1)
+    vel[c, 2] = -8.0
+    orn[c] = 0.0
+    c = lanes["displacement"]
+    pos[c] = torch.tensor([b.max_displacement - 0.05, 0.0, 0.8 * b.ceiling], device="cuda")
+    vel[c, 0] = 10.0
+    c = lanes["ceiling"]
+    pos[c] = torch.tensor([0.0, 0.0, b.ceiling - 0.05], device="cuda")
+    vel[c, 2] = 10.0
+    moved = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for name in RK_TRAPS[:6]:
+        moved[lanes[name]] = True
+    fresh = rocket.init_state(b.params, b.cfg, pos, orn, vel)
+    st.drone = tree_select(moved, fresh, st.drone)
+    for name in ("soft_complete", "hard_touchdown", "ground_hit", "below_ground"):
+        st.ang_vel[lanes[name]] = 0.0
+    st.lin_vel[lanes["soft_complete"]] = 0.0
+    st.lin_vel[lanes["hard_touchdown"], 2] = -3.0
+    st.lin_vel[lanes["ground_hit"], 2] = -3.0
+    st.step_count[lanes["truncation"]] = b.max_steps + 1
+    st.termination[lanes["frozen"]] = True
+    st.fatal_collision[lanes["frozen"]] = True
+    return lanes
+
+
+def check_rk_step() -> tuple[dict, dict]:
+    """Row 8 against its twin (noise off): one aviary step on 8192 and a
+    ragged 1000 random airborne states with the booster lit, the finlets and
+    gimbal swung, then with a fuel-out burn (0-20 ppm of fuel, most tanks
+    dry within the step), the worst error per row group at the test
+    bounds, the contact rows exact, the env rows zero and the pad rows
+    kept. Then row 8's main path: RK_STEPS chained steps settling 8192
+    rockets on the ground and 8192 on pads (the pad rows set), each step
+    held against its twin from the same state, per lane (position 2e-3,
+    velocities 5e-3, tests/test_pallas_rocket.py:213-248's bounds) with at
+    most RK_DIVERGED_SHARE of the lanes beyond them (a contact point at
+    zero depth flips the contact set), the flags of the rest exact; its
+    launches counted from all kernels at zero. Then the noise: identical
+    lit lanes, one noisy step, the throttle's relative spread against the
+    twin's."""
+    import torch
+    from pyflyt_tpu_torch.models import rocket
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+
+    out = {}
+    zero = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for case, fuel in (("burn", (0.3, 0.3)), ("fuel_out", (0.0, 2e-5))):
+        for n in (RK_ENVS, N_RAGGED):
+            cfg, params, st = rk_airborne(n, seed=340 + n + len(case), fuel=fuel)
+            c = cr.rocket_consts(params, cfg)
+            packed = cr.pack_state(st)
+            kern = cr.packed_step(packed, zero, c, False)
+            plain = cr.packed_step_plain(packed, zero, c, False)
+            torch.cuda.synchronize()
+            where = f"rocket step {case} N={n}"
+            check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+            errs = {name: (kern[a:b] - plain[a:b]).abs().max().item() for name, (a, b, _) in RK_GROUPS.items()}
+            bad = {k: v for k, v in errs.items() if v > RK_GROUPS[k][2]}
+            check(not bad, f"{where}: beyond tolerance {bad}")
+            check(torch.equal(kern[cr._CON : cr._TERM + 1], plain[cr._CON : cr._TERM + 1]), f"{where}: contact rows")
+            check(not bool(kern[cr._TRUNC : cr._PADP].any()) and not bool(kern[cr._PFLAG :].any()),
+                  f"{where}: env rows not zero")
+            check(torch.equal(kern[cr._PADP : cr._PADP + 3], packed[cr._PADP : cr._PADP + 3]), f"{where}: pad rows")
+            dry = int((kern[cr._FUEL] == 0.0).sum())
+            check(case == "burn" or dry > n // 2, f"{where}: only {dry} tanks ran dry")
+            out[f"{case}/N{n}"] = {"max_abs_err": max(errs.values()), "per_group": errs, "dry_tanks": dry}
+
+    zero_launches()  # row 8's main path: the settle chains
+    for case in ("ground", "pad"):
+        cfg, params, packed = rk_settle(RK_ENVS, seed=350 + len(case), on_pad=case == "pad")
+        c = cr.rocket_consts(params, cfg)
+        err, diverged, touched = 0.0, 0, torch.zeros(RK_ENVS, dtype=torch.bool, device="cuda")
+        flag_row = cr._RWD if case == "ground" else cr._TERM
+        for i in range(RK_STEPS):
+            plain = cr.packed_step_plain(packed, zero, c, False)
+            packed = cr.packed_step(packed, zero, c, False)
+            torch.cuda.synchronize()
+            where = f"rocket settle on the {case} step {i}"
+            check(bool(torch.isfinite(packed).all()), f"{where}: non-finite state")
+            d = (packed - plain).abs()
+            bad = ((d[cr._POS : cr._POS + 3].amax(0) > 2e-3) | (d[cr._LVEL : cr._AVEL + 3].amax(0) > 5e-3)
+                   | (d[cr._CON : cr._TERM + 1].amax(0) > 0.0))
+            diverged = max(diverged, int(bad.sum()))
+            check(int(bad.sum()) <= RK_DIVERGED_SHARE * RK_ENVS, f"{where}: {int(bad.sum())} lanes diverged")
+            err = max(err, d[:, ~bad].max().item())
+            touched |= packed[flag_row] > 0.5
+        check(not bool((packed[cr._TERM if case == "ground" else cr._RWD] > 0.5).any()), f"settle {case}: other flag")
+        check(int(touched.sum()) > 0.99 * RK_ENVS, f"settle on the {case}: {int(touched.sum())} rockets touched")
+        speed = packed[cr._LVEL : cr._LVEL + 3].norm(dim=0)
+        out[f"settle_{case}"] = {"max_abs_err": err, "max_diverged_lanes": diverged, "touched": int(touched.sum()),
+                                 "final_speed_median": float(speed.median())}
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "rocket_step": 2 * RK_STEPS}
+    check(launches == want, f"rocket settle launches {launches}, expected {want}")
+
+    cfg, params, st = rk_airborne(8, seed=359)
+    c = cr.rocket_consts(params, rocket.RocketConfig())
+    packed = cr.pack_state(st)[:, :1].expand(-1, RK_ENVS).contiguous()  # identical lanes
+    seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
+    quiet = cr.packed_step(packed, seed, c, False)[cr._BTHR]
+    rk = cr.packed_step(packed, seed, c, True)[cr._BTHR] / quiet - 1.0
+    rp = cr.packed_step_plain(packed, seed, c, True)[cr._BTHR] / quiet - 1.0
+    torch.cuda.synchronize()
+    se = float(rk.std()) * 6 / RK_ENVS**0.5
+    check(float(rk.std()) > 0, "noisy rocket step: no spread")
+    check(abs(float(rk.mean()) - float(rp.mean())) <= 2 * se, f"noisy rocket step: means {rk.mean()} {rp.mean()}")
+    check(abs(float(rk.std()) / float(rp.std()) - 1.0) <= 0.1, f"noisy rocket step: std {rk.std()} vs {rp.std()}")
+    out["noise"] = {"throttle_rel_std_kernel": float(rk.std()), "throttle_rel_std_plain": float(rp.std()),
+                    "noise_ratio": c.b_noise}
+    return out, launches
+
+
+def check_rk_landing() -> dict:
+    """Row 9 against its twin (noise off) over RK_STEPS agent steps in the
+    L0 env (rocket_rl_r5h.py:90-93) at 8192 and a ragged 1000 envs, from
+    the env's reset with ``rk_traps``' presets, the free lanes burning
+    with random finlets and gimbal. Per lane, the largest difference over
+    the rows (the reward row relative to 1 + |reward|): at most
+    RK_DIVERGED_SHARE of a trap's lanes beyond 5e-4 + 4e-4 * step, every
+    trap firing; a frozen lane keeps every row but the setpoint, the
+    re-armed reward and the step count. Then the noise, by the throttle's
+    spread on identical lit lanes."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+
+    out = {}
+    for n in (RK_ENVS, N_RAGGED):
+        env = rk_env(noisy_boosters=False, **RK_L0_ENV)
+        st, _ = env.base.reset(n, torch.Generator(device="cuda").manual_seed(360 + n))
+        lanes = rk_traps(st, env)
+        packed = env.pack_env_state(st)
+        seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+        kern, plain = packed, packed.clone()
+        g = torch.Generator().manual_seed(361)
+        free = torch.ones(n, dtype=torch.bool, device="cuda")
+        for cols in lanes.values():
+            free[cols] = False
+        groups = {**lanes, "free": free.nonzero().flatten()}
+        keep = torch.ones(cr.ROWS, dtype=torch.bool, device="cuda")
+        keep[cr._SP : cr._SP + 7] = False
+        keep[cr._RWD] = False
+        keep[cr._STEP] = False
+        err, diverged = 0.0, dict.fromkeys(groups, 0)
+        ev = dict.fromkeys(RK_TRAPS, 0)
+        first_rwd = None
+        for i in range(RK_STEPS):
+            a = (torch.rand(7, n, generator=g) * 0.8 - 0.4).cuda()
+            a[3] = 1.0
+            a[4] = (0.5 + 0.5 * torch.rand(n, generator=g)).cuda()
+            a[:, ~free] = 0.0
+            kern[cr._SP : cr._SP + 7] = a
+            plain[cr._SP : cr._SP + 7] = a
+            before = kern.clone()
+            kern = cr.packed_landing_step(kern, seed, env.consts, False)
+            plain = cr.packed_landing_step_plain(plain, seed, env.consts, False)
+            torch.cuda.synchronize()
+            where = f"rocket landing N={n} step {i}"
+            check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
+            diff = (kern - plain).abs()
+            diff[cr._RWD] = diff[cr._RWD] / (1.0 + plain[cr._RWD].abs())
+            lane = diff.amax(0)
+            bad = lane > 5e-4 + 4e-4 * i
+            for name, cols in groups.items():
+                nbad = int(bad[cols].sum())
+                diverged[name] = max(diverged[name], nbad)
+                check(nbad <= RK_DIVERGED_SHARE * len(cols), f"{where}: {nbad} of {len(cols)} {name} lanes diverged")
+            err = max(err, lane[~bad].max().item())
+            check(torch.equal(kern[cr._STEP], before[cr._STEP] + 1.0), f"{where}: step count")
+            done0 = (before[cr._TERM] > 0.5) | (before[cr._TRUNC] > 0.5)
+            check(torch.equal(kern[keep][:, done0], before[keep][:, done0]), f"{where}: a frozen lane moved")
+            check(not bool(kern[cr._RWD, done0].any()), f"{where}: a frozen lane's reward")
+            if first_rwd is None:
+                first_rwd = kern[cr._RWD].clone()
+            ev["frozen"] += int(done0[lanes["frozen"]].sum())
+        f = lambda row, name: int((kern[row, lanes[name]] > 0.5).sum())  # noqa: E731
+        ev.update(soft_complete=min(f(cr._CPLT, "soft_complete"),
+                                    int((first_rwd[lanes["soft_complete"]] > 500.0).sum())),
+                  hard_touchdown=f(cr._FATC, "hard_touchdown"), ground_hit=f(cr._FATC, "ground_hit"),
+                  below_ground=f(cr._FATC, "below_ground"), displacement=f(cr._OOB, "displacement"),
+                  ceiling=f(cr._OOB, "ceiling"), truncation=f(cr._TRUNC, "truncation"))
+        check(all(v > 0 for v in ev.values()), f"rocket landing N={n}: traps {ev}")
+        out[f"N{n}"] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev,
+                        "lanes_done": int(((kern[cr._TERM] > 0.5) | (kern[cr._TRUNC] > 0.5)).sum())}
+
+    env = rk_env(**RK_L0_ENV)
+    st, _ = env.reset(2, torch.Generator(device="cuda").manual_seed(362))
+    packed = st.packed[:, :1].expand(-1, RK_ENVS).contiguous()  # identical lanes
+    packed[cr._SP + 3] = 1.0  # lit at 60%
+    packed[cr._SP + 4] = 0.6
+    seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
+    quiet = cr.packed_landing_step(packed, seed, env.consts, False)[cr._BTHR]
+    rk = cr.packed_landing_step(packed, seed, env.consts, True)[cr._BTHR] / quiet - 1.0
+    rp = cr.packed_landing_step_plain(packed, seed, env.consts, True)[cr._BTHR] / quiet - 1.0
+    torch.cuda.synchronize()
+    se = float(rk.std()) * 6 / RK_ENVS**0.5
+    check(float(rk.std()) > 0, "noisy rocket landing step: no spread")
+    check(abs(float(rk.mean()) - float(rp.mean())) <= 2 * se, f"noisy landing step: means {rk.mean()} {rp.mean()}")
+    check(abs(float(rk.std()) / float(rp.std()) - 1.0) <= 0.1, f"noisy landing step: std {rk.std()} vs {rp.std()}")
+    out["noise"] = {"throttle_rel_std_kernel": float(rk.std()), "throttle_rel_std_plain": float(rp.std()),
+                    "noise_ratio": env.consts.b_noise}
+    return out
+
+
+def rk_rollout(net, seed: int, card: str):
+    """The serving path: ``net`` (L0, obs 33) acting, sampled, through K4
+    in 8192 stock PackedRocketLandingEnv() envs (noise on) for 4 warm-up
+    and RK_ROLLOUT_STEPS timed steps, no resets: one row-9 and one K4
+    launch per timed step, nothing else. Keeps the state of step RK_TIMING_STEP for the
+    kernel times. Then the per-step split, each part on its own, and the
+    device's busy share over 16 profiled steps."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = rk_env()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+    t0 = time.perf_counter()
+    state, obs = env.reset(RK_ENVS, gen)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    for _ in range(4):  # warm-up
+        state, out = env.step(state, torch.clamp(ppo.act(net, obs, gen, fused=True)[0], low, high))
+        obs = out.obs
+    torch.cuda.synchronize()
+    zero_launches()
+    rewards, timing_state = [], None
+    t0 = time.perf_counter()
+    for i in range(RK_ROLLOUT_STEPS):
+        if i == RK_TIMING_STEP:
+            timing_state = state.packed.clone()
+        action, _, _ = ppo.act(net, obs, gen, fused=True)
+        state, out = env.step(state, torch.clamp(action, low, high))
+        obs = out.obs
+        rewards.append(out.reward)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "rocket_landing_step": RK_ROLLOUT_STEPS,
+            "policy_value_forward": RK_ROLLOUT_STEPS}
+    check(launches == want, f"rocket rollout launches {launches}, expected {want}")
+    rewards = torch.stack(rewards)
+    check(obs.shape == (RK_ENVS, 33) and bool(torch.isfinite(obs).all()), "rocket rollout: final obs")
+    check(bool(torch.isfinite(rewards).all()), "rocket rollout: non-finite rewards")
+    done = out.termination | out.truncation
+
+    w = net.kernel_weights()
+    k4_ms, k4_host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=200)
+    packed = timing_state
+    seed_t = torch.tensor([5], dtype=torch.int64, device="cuda")
+    kernel_ms, kernel_host = time_ms(lambda: cr.packed_landing_step(packed, seed_t, env.consts, True), iters=200)
+    obs_ms = host_wall_ms(lambda: env._obs(packed), iters=50)
+    action = torch.zeros(RK_ENVS, 7, device="cuda")
+    step_ms = host_wall_ms(lambda: env.step(state, action), iters=50)
+    act_ms = host_wall_ms(lambda: ppo.act(net, obs, gen, fused=True), iters=50)
+
+    def run16():
+        s, o = state, obs
+        for _ in range(16):
+            a, _, _ = ppo.act(net, o, gen, fused=True)
+            s, r = env.step(s, torch.clamp(a, low, high))
+            o = r.obs
+
+    prof = profiled(run16, "rk_rollout_profile_16_steps")
+    zero_launches()  # the split's launches are not the main path's
+    return {
+        "card": card, "num_envs": RK_ENVS, "steps": RK_ROLLOUT_STEPS, "wall_s": wall,
+        "env_steps_per_s": RK_ENVS * RK_ROLLOUT_STEPS / wall, "ms_per_step": 1e3 * wall / RK_ROLLOUT_STEPS,
+        "reset_s": reset_s, "lanes_done": int(done.sum()),
+        "fatal": int(out.info["fatal_collision"].sum()), "complete": int(out.info["env_complete"].sum()),
+        "mean_reward": float(rewards.mean()), "launches": launches,
+        "split_ms": {"k4_device": k4_ms, "k4_wrapper_host": k4_host, "act_total_host": act_ms,
+                     "kernel_device": kernel_ms, "kernel_wrapper_host": kernel_host,
+                     "obs_assembly_host": obs_ms, "env_step_total_host": step_ms},
+        "profiled_16_steps": {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+                              "device_busy_share": prof["device_busy_ms"] / prof["wall_ms"]},
+    }, timing_state
+
+
+def rk_archive_eval() -> dict:
+    """The JAX package's 256-episode eval of the archived L0 params
+    (rocket_rl_r5h_tpu.jsonl, stage L0)."""
+    with open(os.path.join(HERE, RK_ARCHIVE_LOG)) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return next(r for r in rows if r.get("stage") == "L0")["eval_256_of_archived_params"]
+
+
+def rk_eval(net, seed: int, card: str) -> dict:
+    """The archived L0 policy flown deterministically (K4's mean, clipped)
+    for RK_EVAL_EPISODES episodes in its env (noise on) for max_steps + 2
+    steps with make_landing_eval's accounting (rocket_rl_r5h.py:98-146):
+    complete, pad touch, fatal and the episode reward over the live steps;
+    the touchdown speed is ``‖prev_lin_vel‖`` (rows _PLV) at the first pad
+    flag. Fails under RK_MIN_PAD_RATE pad touches."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = rk_env(**RK_L0_ENV)
+    n = RK_EVAL_EPISODES
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+    w = net.kernel_weights()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, obs = env.reset(n, torch.Generator(device="cuda").manual_seed(seed + 999))
+    z = lambda: torch.zeros(n, dtype=torch.bool, device="cuda")  # noqa: E731
+    done, complete, pad, fatal = z(), z(), z(), z()
+    ep_rew = torch.zeros(n, device="cuda")
+    tspeed = torch.full((n,), -1.0, device="cuda")
+    steps = env.max_steps + 2
+    all_done_at = []  # the step after which every episode had ended (read at the end: no sync in the loop)
+    for i in range(steps):
+        mean, _ = cuda_policy.policy_value_forward(obs, w)
+        state, out = env.step(state, torch.clamp(mean, low, high))
+        live = ~done
+        p = state.packed
+        complete |= out.info["env_complete"] & live
+        padn = (p[cr._PFLAG] > 0.5) & live
+        tspeed = torch.where(padn & ~pad, p[cr._PLV : cr._PLV + 3].norm(dim=0), tspeed)
+        pad |= padn
+        fatal |= out.info["fatal_collision"] & live
+        ep_rew += out.reward * live
+        done |= out.termination | out.truncation
+        all_done_at.append(done.all())
+        obs = out.obs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "rocket_landing_step": steps, "policy_value_forward": steps}
+    check(launches == want, f"rocket eval launches {launches}, expected {want}")
+    ts = tspeed[pad] if bool(pad.any()) else torch.tensor([-1.0], device="cuda")
+    res = {
+        "card": card, "episodes": n, "steps": steps, "wall_s": wall, "all_done": bool(done.all()),
+        "steps_until_all_done": int(torch.stack(all_done_at).float().argmax()) + 1,
+        "pad_rate": float(pad.float().mean()), "soft_rate": float((pad & ~fatal).float().mean()),
+        "complete_rate": float(complete.float().mean()), "fatal_rate": float(fatal.float().mean()),
+        "mean_ep_reward": float(ep_rew.mean()), "touchdown_speed_med": float(torch.quantile(ts, 0.5)),
+        "touchdown_speed_p10": float(torch.quantile(ts, 0.1)), "archive": rk_archive_eval(),
+        "policy": RK_POLICY, "launches": launches,
+    }
+    check(res["all_done"], "rocket eval: an episode did not end")
+    check(res["pad_rate"] >= RK_MIN_PAD_RATE, f"rocket eval: pad rate {res['pad_rate']}")
+    zero_launches()
+    return res
+
+
+def time_rk_kernels(packed) -> dict:
+    """Rows 8 and 9 at the serving path's shape (8192 envs, noise on) on
+    the rollout's state of step RK_TIMING_STEP, each against its bound, its
+    twin's time and the ptxas report. The bound counts what this state
+    needs: the script checks that every lane is live before and after the
+    timed step and that no lane touches the ground, so every lane runs
+    ``inner_steps`` airborne aviary steps (``cuda_rocket.ops_per_env``)."""
+    import re
+
+    import torch
+    from pyflyt_tpu_torch.models import rocket
+    from pyflyt_tpu_torch.ops import cuda_build
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+
+    env = rk_env()
+    c9 = env.consts
+    cfg = rocket.RocketConfig()
+    c8 = cr.rocket_consts(rocket.build_params(cfg, "cuda"), cfg)
+    packed = packed.contiguous()
+    seed = torch.tensor([17], dtype=torch.int64, device="cuda")
+    after = cr.packed_landing_step(packed, seed, c9, True)
+    live = lambda p: not bool(((p[cr._TERM] > 0.5) | (p[cr._TRUNC] > 0.5)).any())  # noqa: E731
+    check(live(packed) and live(after), "rocket kernel times: a lane is done, so the bound's count is off")
+    check(not bool((after[cr._CON] > 0.5).any() | (after[cr._PFLAG] > 0.5).any()), "rocket kernel times: a contact")
+    out = {}
+    for name, kernel, plain_fn, consts, landing in (
+        ("rocket_step", cr.packed_step, cr.packed_step_plain, c8, False),
+        ("rocket_landing_step", cr.packed_landing_step, cr.packed_landing_step_plain, c9, True),
+    ):
+        ms, host_ms = time_ms(lambda: kernel(packed, seed, consts, True), iters=200)
+        plain, _ = time_ms(lambda: plain_fn(packed, seed, consts, True), iters=2, repeats=3, device_timed=False)
+        rd, wr = cr.rows_moved(landing)
+        b_ms, by = bound_of((rd + wr) * 4 * RK_ENVS + 8, RK_ENVS * cr.ops_per_env(consts, landing), H100_F32_FLOPS)
+        out[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+                     "rows_read": rd, "rows_written": wr, "ops_per_env": cr.ops_per_env(consts, landing),
+                     "physics_iterations": consts.ratio * (consts.inner_steps if landing else 1)}
+    out["ptxas"] = ptxas_usage("rocket_step.cu")
+    log = cuda_build.library_path("rocket_step.cu").with_suffix(".log")
+    variants = re.findall(r"entry function '_Z\w*?rocket_kernelI(\w+?)EEv\w*'.*?(\d+) bytes stack frame.*?"
+                          r"Used (\d+) registers", log.read_text() if log.exists() else "", re.S)
+    out["ptxas_variants"] = [{"template": t, "stack_bytes": int(s), "registers": int(r)} for t, s, r in variants]
+    print(json.dumps({"rk_kernel_times": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2704,6 +3241,53 @@ def main(argv=None) -> int:
         k["launches_per_df_rollout"] = df_roll["launches"][k["name"]]
         for path in ("default", "fused_sgd"):
             k[f"launches_per_df_train_{path}_iteration"] = results["df_train"][path]["launches_per_iteration"][k["name"]]
+
+    # 34. row 8 vs its twin (a lit burn, a fuel-out burn; its main path, the
+    # settle chains on the ground and on pads) and row 9 with every trap firing
+    rk8, rk_step_launches = check_rk_step()
+    results["rk_checks"] = {"row8": rk8, "row9": check_rk_landing()}
+    err_rk8 = max(c["max_abs_err"] for k, c in rk8.items() if k != "noise")
+    err_rk9 = max(c["max_abs_err"] for k, c in results["rk_checks"]["row9"].items() if k != "noise")
+    print(json.dumps({"rk_checks": results["rk_checks"]}), flush=True)
+    # 35. K4 at obs 33 with the archived L0 weights
+    l0 = checkpoint.load_policy_npz(RK_POLICY, device="cuda")
+    check(l0.obs_dim == 33 and l0.action_dim == 7 and l0.log_std_range == (-3.5, -1.0), "the L0 policy's widths")
+    atol33 = policy_atol(l0)
+    e33 = [check_policy(l0, n, atol33) for n in (RK_ENVS, N_RAGGED)]
+    results["k4_rocket_policy"] = {"mean_err": max(e[0] for e in e33), "value_err": max(e[1] for e in e33),
+                                   "atol": atol33}
+    err_b = max(err_b, *(max(e) for e in e33))
+    print(json.dumps({"k4_rocket_policy": results["k4_rocket_policy"]}), flush=True)
+    # 36. the serving path: L0 through K4 and row 9 in 8192 stock envs
+    rk_roll, rk_state = rk_rollout(l0, args.seed, card)
+    results["rk_rollout"] = rk_roll
+    print(json.dumps({"rk_rollout": rk_roll}), flush=True)
+    # 37. the L0 policy's 256-episode landing eval
+    results["rk_eval"] = rk_eval(l0, args.seed, card)
+    print(json.dumps({"rk_eval": results["rk_eval"]}), flush=True)
+    # 38. rows 8 and 9 against their bounds
+    rt = time_rk_kernels(rk_state)
+    results["rk_kernel_times"] = rt
+    for name, line, launches_, err, extra in (
+        ("rocket_step", "pyflyt_tpu/ops/pallas_rocket.py:836", rk_step_launches["rocket_step"], err_rk8,
+         {"main_path": f"the settle chains of rk_checks, {RK_STEPS} steps x 2 x {RK_ENVS} envs",
+          "max_diverged_lanes": {k: rk8[k]["max_diverged_lanes"] for k in ("settle_ground", "settle_pad")}}),
+        ("rocket_landing_step", "pyflyt_tpu/ops/pallas_rocket.py:851", rk_roll["launches"]["rocket_landing_step"],
+         err_rk9, {"main_path": f"rk_rollout, {RK_ROLLOUT_STEPS} steps x {RK_ENVS} envs",
+                   "max_diverged_lanes": {k: c["max_diverged_lanes"] for k, c in results["rk_checks"]["row9"].items()
+                                          if k != "noise"}}),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "pyflyt_tpu_torch/csrc/rocket_step.cu", "replaces": line,
+            "launches": launches_, "max_abs_err": err,
+            **{k: rt[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+            "host_ms": rt[name]["host_ms"], "ptxas": rt["ptxas"], **extra,
+        })
+    by_name["policy_value_forward"]["max_abs_err"] = err_b
+    for k in kernels:
+        k["launches_per_rk_rollout"] = rk_roll["launches"][k["name"]]
+        k["launches_per_rk_eval"] = results["rk_eval"]["launches"][k["name"]]
+        k["launches_per_rk_settle"] = rk_step_launches[k["name"]]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -22,9 +22,10 @@ from pyflyt_tpu_torch.envs.ma_fixedwing_dogfight import DogfightState
 from pyflyt_tpu_torch.envs.ma_quadx_hover import MAQuadXState
 from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsState
+from pyflyt_tpu_torch.envs.rocket_landing import RocketLandingState
 from pyflyt_tpu_torch.envs.utils.waypoints import WaypointState
-from pyflyt_tpu_torch.models import fixedwing, quadx
-from pyflyt_tpu_torch.ops import motors, pid
+from pyflyt_tpu_torch.models import fixedwing, quadx, rocket
+from pyflyt_tpu_torch.ops import boosters, motors, pid
 from pyflyt_tpu_torch.ops.cuda_sgd import params_to_leaves
 from pyflyt_tpu_torch.rl.networks import ActorCritic
 from pyflyt_tpu_torch.rl.ppo import AdamState
@@ -272,6 +273,65 @@ def packed_dogfight_from_jax(packed, device: str | torch.device = "cuda") -> tor
     rows = a.shape[0]
     a = a.reshape(rows, 2, -1).transpose(0, 2, 1).reshape(rows, -1)
     return torch.tensor(np.ascontiguousarray(a), device=resolve_device(device))
+
+
+def rocket_state_from_jax(tree, device: str | torch.device = "cuda") -> rocket.RocketState:
+    """The port's batched ``RocketState`` from the numpy leaves of a JAX
+    ``RocketState`` (batch ``(N,)``; floats as f32, the ignition latch and
+    the contact flags as bool, the physics step count as int32)."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    return rocket.RocketState(
+        body=Body6DoF(pos=f(tree.body.pos), quat=f(tree.body.quat),
+                      lin_vel=f(tree.body.lin_vel), ang_vel=f(tree.body.ang_vel)),
+        read=rocket.RocketRead(view=f(tree.read.view), finlet_local_vel=f(tree.read.finlet_local_vel),
+                               drag_local_vel=f(tree.read.drag_local_vel)),
+        actuation=f(tree.actuation),
+        booster=boosters.BoosterState(ratio_fuel_remaining=f(tree.booster.ratio_fuel_remaining),
+                                      throttle=f(tree.booster.throttle),
+                                      ignition_state=b(tree.booster.ignition_state)),
+        gimbal_state=f(tree.gimbal_state),
+        cmd=f(tree.cmd),
+        setpoint=f(tree.setpoint),
+        contact=b(tree.contact),
+        ground_contact=b(tree.ground_contact),
+        pad_contact=b(tree.pad_contact),
+        physics_steps=torch.tensor(np.array(tree.physics_steps, dtype=np.int32), device=dev),
+    )
+
+
+def rocket_landing_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> RocketLandingState:
+    """The port's ``RocketLandingState`` from the numpy leaves of a batched
+    JAX ``RocketLandingState`` (a ``vmap``-ed reset or step). The JAX PRNG
+    keys become the one ``generator`` of the batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    return RocketLandingState(
+        drone=rocket_state_from_jax(tree.drone, dev),
+        generator=generator,
+        step_count=torch.tensor(np.array(tree.step_count, dtype=np.int32), device=dev),
+        termination=b(tree.termination),
+        truncation=b(tree.truncation),
+        reward=f(tree.reward),
+        action=f(tree.action),
+        fatal_collision=b(tree.fatal_collision),
+        out_of_bounds=b(tree.out_of_bounds),
+        env_complete=b(tree.env_complete),
+        **{k: f(getattr(tree, k)) for k in ("pad_position", "pad_contact_flag", "ang_vel", "lin_vel", "distance",
+                                            "prev_ang_vel", "prev_lin_vel", "prev_distance")},
+    )
+
+
+def packed_rocket_landing_from_jax(packed, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The port's ``(88, N)`` packed Rocket-Landing state from a JAX
+    ``PackedRocketEnvState.packed``: ``(88, 8, N/8)``, the TPU's sublane
+    fold, which keeps the column order; the row layout is the same."""
+    a = np.asarray(packed, dtype=np.float32)
+    return torch.tensor(a.reshape(a.shape[0], -1), device=resolve_device(device))
 
 
 def _dense_layers(trunk: dict) -> list[dict]:

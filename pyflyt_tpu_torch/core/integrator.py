@@ -105,7 +105,7 @@ def step(
 class ContactGeom:
     """Collision sample points of the vehicle in the body frame."""
 
-    points: Tensor  # (n_pts, 3)
+    points: Tensor  # (n_pts, 3), or (..., n_pts, 3) where the points move (the rocket's CoM)
     friction: float = 0.5
     restitution: float = 0.0
 
@@ -114,20 +114,22 @@ def ground_contact(
     body: Body6DoF,
     params: RigidBodyParams,
     geom: ContactGeom,
+    ground_z: float | Tensor = 0.0,
     per_point_iters: int | None = None,
 ) -> tuple[Body6DoF, Tensor]:
     """Detects and resolves contact of body-frame sample points with the
-    ground plane ``z = 0``: one normal + friction impulse at the
-    depth-weighted centroid of the penetrating points, then positional
-    projection. Returns ``(state, contact)``."""
+    ground ``z = ground_z`` (a float, or a ``(..., n_pts)`` height per
+    point, as the rocket's landing pad raises it): one normal + friction
+    impulse at the depth-weighted centroid of the penetrating points, then
+    positional projection. Returns ``(state, contact)``."""
     if per_point_iters is not None:
         raise NotImplementedError(
             "per-point Gauss-Seidel contact: ROADMAP.md, open item 4 "
             "(core/integrator per_point_iters, with the MuJoCo contact traces)"
         )
     R = pm.quat_to_rotmat(body.quat)
-    pts_w = body.pos[..., None, :] + torch.einsum("...ij,nj->...ni", R, geom.points)
-    depth = -pts_w[..., 2]
+    pts_w = body.pos[..., None, :] + torch.einsum("...ij,...nj->...ni", R, geom.points)
+    depth = ground_z - pts_w[..., 2]
     contact = torch.any(depth > 0.0, dim=-1)
 
     w = torch.clamp(depth, min=0.0)

@@ -1,4 +1,4 @@
-"""Batched QuadX and Fixedwing task envs of the port
+"""Batched QuadX, Fixedwing and Rocket task envs of the port
 (``reset(num_envs, generator)`` and ``step(state, action)`` take the whole
 batch; the multi-agent envs take ``(N, n, ...)`` arenas)."""
 
@@ -9,8 +9,10 @@ from pyflyt_tpu_torch.envs.packed_dogfight import PackedDogfightEnvState, Packed
 from pyflyt_tpu_torch.envs.packed_fixedwing_waypoints import PackedFixedwingWaypointsEnv
 from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
 from pyflyt_tpu_torch.envs.packed_quadx_waypoints import PackedQuadXWaypointsEnv, PackedWaypointsState
+from pyflyt_tpu_torch.envs.packed_rocket_landing import PackedRocketEnvState, PackedRocketLandingEnv
 from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsEnv, QuadXWaypointsState
+from pyflyt_tpu_torch.envs.rocket_landing import RocketLandingEnv, RocketLandingState
 from pyflyt_tpu_torch.envs.selfplay_dogfight import SelfPlayDogfightEnv
 from pyflyt_tpu_torch.envs.utils.flatten_waypoints import FlattenWaypointEnv, flatten_waypoint_obs
 from pyflyt_tpu_torch.envs.utils.waypoints import WaypointHandler, WaypointState
@@ -29,10 +31,14 @@ __all__ = [
     "PackedMAFixedwingDogfightEnv",
     "PackedQuadXHoverEnv",
     "PackedQuadXWaypointsEnv",
+    "PackedRocketEnvState",
+    "PackedRocketLandingEnv",
     "PackedWaypointsState",
     "QuadXHoverEnv",
     "QuadXWaypointsEnv",
     "QuadXWaypointsState",
+    "RocketLandingEnv",
+    "RocketLandingState",
     "SelfPlayDogfightEnv",
     "WaypointHandler",
     "WaypointState",

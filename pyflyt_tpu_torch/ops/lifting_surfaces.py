@@ -173,7 +173,8 @@ def wrench(
 
     ``actuation`` is ``(..., n)``, ``local_velocities`` ``(..., n, 3)`` (the
     body-frame air-relative velocity at each surface), ``com_offset`` the
-    ``(3,)`` body-frame vector from the base origin to the CoM."""
+    ``(3,)`` or batched ``(..., 3)`` body-frame vector from the base origin
+    to the CoM (the rocket's moves with its fuel)."""
     alpha, freestream = aoa_freestream(local_velocities, params)
     Cl, Cd, CM = aero_coefficients(alpha, actuation, params)
 
@@ -185,5 +186,5 @@ def wrench(
 
     force = params.lift_unit * force_normal[..., None] + params.drag_unit * force_parallel[..., None]
     torque = (Q_area * CM * params.chord)[..., None] * params.torque_unit
-    lever = torch.linalg.cross((params.positions - com_offset).expand_as(force), force)
+    lever = torch.linalg.cross((params.positions - com_offset[..., None, :]).expand_as(force), force)
     return torch.sum(force, dim=-2), torch.sum(torque + lever, dim=-2)

@@ -137,10 +137,16 @@ def best_model_name(idx: int, mean_len: float, std_len: float, mean_rew: float, 
     return f"best_model_{idx}_{mean_len:.0f}_{std_len:.0f}_{mean_rew:.0f}_{std_rew:.0f}"
 
 
+LOG_STD_RANGE_KEY = "log_std_range"
+
+
 def save_policy_npz(path: str, network: nn.Module) -> None:
     """Writes ``network``'s parameters (its ``state_dict``, f32) to the
-    ``.npz`` file ``path``."""
+    ``.npz`` file ``path``, and its ``log_std_range`` under one more key
+    when the network has one."""
     arrays = {k: v.detach().cpu().to(torch.float32).numpy() for k, v in network.state_dict().items()}
+    if getattr(network, "log_std_range", None) is not None:
+        arrays[LOG_STD_RANGE_KEY] = np.asarray(network.log_std_range, dtype=np.float32)
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "wb") as f:
@@ -149,13 +155,17 @@ def save_policy_npz(path: str, network: nn.Module) -> None:
 
 def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCritic:
     """The ``ActorCritic`` saved by ``save_policy_npz`` at ``path`` (or
-    under that name in ``POLICY_DIR``), its widths read from the arrays,
-    on ``device``."""
+    under that name in ``POLICY_DIR``), its widths read from the arrays and
+    its ``log_std_range`` from the file where the file has one, on
+    ``device``."""
     device = resolve_device(device)
     if not os.path.exists(path):
         path = os.path.join(POLICY_DIR, path if path.endswith(".npz") else f"{path}.npz")
     with np.load(path) as z:
         state = {k: torch.from_numpy(z[k].copy()) for k in z.files}
+    log_std_range = state.pop(LOG_STD_RANGE_KEY, None)
+    if log_std_range is not None:
+        log_std_range = tuple(float(v) for v in log_std_range)
     widths = lambda trunk: [state[f"{trunk}.layers.{i}.weight"].shape[0]  # noqa: E731
                             for i in range(sum(k.startswith(f"{trunk}.layers.") and k.endswith(".weight")
                                                for k in state))]
@@ -165,6 +175,7 @@ def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCrit
         n_common += 1
     obs_dim = state["pi_trunk.layers.0.weight"].shape[1] if pi_w else state["pi_head.weight"].shape[1]
     net = ActorCritic(obs_dim, state["pi_head.weight"].shape[0], feature_sizes=pi_w[:n_common],
-                      pi_sizes=pi_w[n_common:], vf_sizes=vf_w[n_common:], device="cpu")
+                      pi_sizes=pi_w[n_common:], vf_sizes=vf_w[n_common:], log_std_range=log_std_range,
+                      device="cpu")
     net.load_state_dict(state)
     return net.to(device)

@@ -369,6 +369,74 @@ def policy_atol(net) -> tuple[float, float]:
             max(POLICY_VALUE_ATOL, bound(net.vf_trunk, net.vf_head)))
 
 
+GRID_OBS = (16, 21, 30, 33, 35, 64)  # mod-hovering, hover, dogfight, waypoints/rocket, fixedwing, the widest
+GRID_ACT = (1, 4, 7, 8)
+GRID_ROWS = (1, 63, 65, N_RAGGED, 4096, N_ENVS)
+K3_WIDE_ROWS = 1_048_576  # the mod-hovering and dogfight recipes' PPO batch
+
+
+def check_policy_grid(seed: int) -> dict:
+    """K4 against its twin over every obs width x action width x row count
+    of the grid (random weights from ``seed``), at ``policy_atol``."""
+    import torch
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+    worst = {"mean": 0.0, "value": 0.0}
+    for o in GRID_OBS:
+        for a in GRID_ACT:
+            net = ActorCritic(o, a, device="cuda", generator=torch.Generator().manual_seed(seed + 100 * o + a))
+            atol = policy_atol(net)
+            for n in GRID_ROWS:
+                e_m, e_v = check_policy(net, n, atol)
+                worst["mean"], worst["value"] = max(worst["mean"], e_m), max(worst["value"], e_v)
+    return {"cases": len(GRID_OBS) * len(GRID_ACT) * len(GRID_ROWS), "obs": GRID_OBS, "act": GRID_ACT,
+            "rows": GRID_ROWS, "max_mean_err": worst["mean"], "max_value_err": worst["value"]}
+
+
+def check_logp_shapes(seed: int) -> dict:
+    """K3 against its twin at the dogfight's row width (obs 30, act 4: 37
+    floats, not 16-byte aligned), at act 7 with the L0 landing policy's
+    log_std range, and over the 1,048,576-row batch."""
+    import torch
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+    gen = lambda k: torch.Generator().manual_seed(seed + k)  # noqa: E731
+    df = ActorCritic(30, 4, device="cuda", generator=gen(30))
+    rk = ActorCritic(33, 7, device="cuda", generator=gen(33), log_std_range=(-3.5, -1.0))
+    hover = ActorCritic(21, 4, device="cuda", generator=gen(21))
+    return {
+        "obs30_act4_feat37": check_logp(df, BATCH),
+        "obs33_act7_l0_range": check_logp(rk, BATCH, ranges=(rk.log_std_range,)),
+        "rows_1048576": check_logp(hover, K3_WIDE_ROWS),
+    }
+
+
+def policy_mlp_record() -> dict:
+    """K4's and K3's build as ptxas reports it, entry by entry, and the
+    launch's shape (csrc/policy_value_forward.cu::policy_mlp_launch_info)."""
+    import ctypes
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library_path("policy_value_forward.cu")
+    text = lib.with_suffix(".log").read_text()
+    entries = {}
+    for m in re.finditer(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers", text):
+        name = "logp_forward" if "logp_kernel" in m.group(1) else "policy_value_forward"
+        entries[name] = {"registers_at_launch": int(m.group(5)), "stack_frame_bytes": int(m.group(2)),
+                         "spill_store_bytes": int(m.group(3)), "spill_load_bytes": int(m.group(4))}
+    info = (ctypes.c_int * 4)()
+    fn = ctypes.CDLL(str(lib)).policy_mlp_launch_info
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    fn(info)
+    check(set(entries) == {"policy_value_forward", "logp_forward"}, f"ptxas report: entries {sorted(entries)}")
+    return {"entries": entries, "threads": info[0], "dynamic_smem_bytes": info[1],
+            "consumer_registers": info[2], "producer_registers": info[3],
+            "wgmma_serialized": "C7511" in text}
+
+
 # ---------------------------------------------------------------------------
 # phases 7-8: the SGD kernels against their twins
 # ---------------------------------------------------------------------------
@@ -403,15 +471,15 @@ def pi_leaves(net):
     return [t.detach() for t in cuda_sgd.params_to_leaves(net)[: 2 * len(net.pi_trunk.layers) + 3]]
 
 
-def check_logp(net, n: int) -> float:
+def check_logp(net, n: int, ranges=(None, (-1.0, -0.2))) -> float:
     """K3 vs its twin over n packed rows, without and with a log_std range
-    that clips; returns the max error."""
+    that clips (``ranges``); returns the max error."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_sgd
 
     rows = packed_rows(net, n, seed=11 + n)
     err = 0.0
-    for rng in (None, (-1.0, -0.2)):
+    for rng in ranges:
         k = cuda_sgd.logp_forward(rows, pi_leaves(net), net.obs_dim, rng)
         p = cuda_sgd.logp_forward_plain(rows, pi_leaves(net), net.obs_dim, rng)
         torch.cuda.synchronize()
@@ -617,7 +685,7 @@ def time_sgd_kernels(tp, runner, label: str = "sgd_times") -> dict:
     lib, _ = time_ms(library_logp(net, rows), iters=max(1, 20 * BATCH // batch))
     b_ms, by = bound(nbytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a))
     out["logp_forward"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib,
-                           "bound_ms": b_ms, "bound_by": by, "rows": batch}
+                           "bound_ms": b_ms, "bound_by": by, "rows": batch, **logp_kernel_only(rows, pl_, o)}
 
     cfg = tp.config
     mbs = packed_rows(net, batch, seed=301).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
@@ -651,6 +719,18 @@ def time_sgd_kernels(tp, runner, label: str = "sgd_times") -> dict:
     }
     print(json.dumps({label: out}), flush=True)
     return out
+
+
+def logp_kernel_only(rows, leaves, obs_dim: int) -> dict:
+    """K3's launch alone on an image packed once (the wrapper packs the
+    actor's image from the leaves on every call), and the packing alone."""
+    from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
+
+    image = cuda_policy.pack_trunk(*leaves[:6])
+    it = max(1, 20 * BATCH // rows.shape[0])
+    kernel, _ = time_ms(lambda: cuda_sgd._launch_logp(rows, image, leaves[6], obs_dim), iters=it)
+    pack, _ = time_ms(lambda: cuda_policy.pack_trunk(*leaves[:6]), iters=20)
+    return {"kernel_ms": kernel, "pack_ms": pack}
 
 
 def profiled_device_ms(fn, iters: int) -> float:
@@ -1603,7 +1683,8 @@ def time_waypoint_kernels(wp_state, net33, obs33) -> dict:
     nb = sum(t.numel() * t.element_size() for t in (rows, *pl_)) + BATCH * 4
     b_ms, by = bound_of(nb, cuda_sgd.logp_flops(BATCH, 33, 4), H100_BF16_FLOPS)
     out["logp_forward_obs33"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib,
-                                 "bound_ms": b_ms, "bound_by": by, "rows": BATCH}
+                                 "bound_ms": b_ms, "bound_by": by, "rows": BATCH,
+                                 **logp_kernel_only(rows, pl_, 33)}
     print(json.dumps({"wp_kernel_times": out}), flush=True)
     return out
 
@@ -2919,10 +3000,13 @@ def main(argv=None) -> int:
     results["hover_noise"] = check_hover_noise()
     print(f"hover step: max |kernel - twin| {err_a:.3g} (N={N_ENVS}, {N_RAGGED}); noise spread ok", flush=True)
 
-    # 4. policy forward vs its twin
+    # 4. policy forward vs its twin, then over the shape grid
     net = ActorCritic(21, 4, device="cuda", generator=torch.Generator().manual_seed(args.seed))
     err_b = max(*check_policy(net, N_ENVS), *check_policy(net, N_RAGGED))
     print(f"policy forward: max |kernel - twin| {err_b:.3g} (n={N_ENVS}, {N_RAGGED})", flush=True)
+    results["policy_grid"] = check_policy_grid(args.seed)
+    results["policy_mlp"] = policy_mlp_record()
+    print(json.dumps({"policy_grid": results["policy_grid"], "policy_mlp": results["policy_mlp"]}), flush=True)
 
     # 5. the main path
     env = PackedQuadXHoverEnv(base=QuadXHoverEnv(device="cuda"))
@@ -3008,9 +3092,13 @@ def main(argv=None) -> int:
     if args.profile:
         results["profile"] = profile_rollout(net, env, ars, obs, gen)
 
-    # 7. K3 vs its twin
+    # 7. K3 vs its twin, then at the dogfight's row width, act 7 with the
+    # L0's log_std range and 1,048,576 rows
     err_c = max(check_logp(net, n) for n in (BATCH, N_RAGGED))
     print(f"logp forward: max |kernel - twin| {err_c:.3g} (rows={BATCH}, {N_RAGGED})", flush=True)
+    results["logp_shapes"] = check_logp_shapes(args.seed)
+    err_c = max(err_c, *results["logp_shapes"].values())
+    print(json.dumps({"logp_shapes": results["logp_shapes"]}), flush=True)
 
     # 8. K2 vs its twin
     epoch_checks = [check_epoch(net, n_mb, mb) for n_mb, mb in ((4, N_ENVS), (2, N_RAGGED))]
@@ -3040,6 +3128,7 @@ def main(argv=None) -> int:
             "launches": train["launches_per_iteration"][name], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("kernel_ms", "pack_ms") if k in t},
         })
     for k in kernels:
         k["launches_per_train_iteration"] = train["launches_per_iteration"][k["name"]]

@@ -11,20 +11,24 @@ kernel: bf16 matmul inputs with f32 accumulation, f32 bias and tanh.
 
 Bound on an H100 at 8192 rows: about 2.34 GFLOP on the bf16 tensor cores
 (about 2.4 µs at 989 TFLOP/s) against under 1.2 MB of traffic, so
-operations bound it. The kernel supports the rollouts' shapes: obs width
-at most 64 (padded to the next multiple of 32 inside the kernel: 21 and
-16 to 32, the waypoints env's 33 to 64), two 256-wide tanh layers per
-trunk, any number of rows and actions. The twin takes any widths.
+operations bound it. The kernel (``csrc/policy_mlp.cuh``: wgmma on
+weights resident in shared memory) supports the rollouts' shapes: obs
+width at most 64, two 256-wide tanh layers per trunk, at most 8 actions,
+any number of rows. The twin takes any widths.
 
 Weights are converted to bf16 once (``prepare_weights``), which gives the
 same values as the Pallas kernel's per-call cast: both round to nearest
-even.
+even. For the kernel each trunk is also packed into its shared-memory
+image (``pack_trunk``): the bytes the kernel's bulk copies land and its
+wgmma descriptors read, so no thread of the kernel rearranges a weight.
+``unpack_trunk`` is its plain inverse.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 from torch import Tensor
@@ -34,11 +38,102 @@ from pyflyt_tpu_torch.ops.cuda_sgd import leaf_specs, params_to_leaves  # noqa: 
 
 HIDDEN = 256
 MAX_OBS_DIM = 64
+HEAD_N = 8  # head outputs in the image: the actions (<= 8) or the value, zero-padded
+
+# One trunk's image (csrc/policy_mlp.cuh's Smem regions, in this order):
+# bf16 matrices W (in, out) stored K-major, as out rows of in, in 64-deep
+# K-chunks with the 128-byte swizzle (``swizzle_offset``), then the f32
+# biases. Every region starts 16-byte aligned and is a multiple of 16
+# bytes, as the bulk copies need.
+KC = 64  # K a chunk: one 128-byte row of bf16
+W0_BYTES = HIDDEN * KC * 2  # layer 0: K zero-padded to one chunk
+W1_BYTES = HIDDEN * HIDDEN * 2  # layer 1: 4 chunks
+HW_BYTES = HEAD_N * HIDDEN * 2  # the head: 8 rows, 4 chunks
+W1_OFF = W0_BYTES
+HW_OFF = W1_OFF + W1_BYTES
+B0_OFF = HW_OFF + HW_BYTES
+B1_OFF = B0_OFF + HIDDEN * 4
+HB_OFF = B1_OFF + HIDDEN * 4
+TRUNK_BYTES = HB_OFF + HEAD_N * 4
+
+
+def swizzle_offset(k, n, rows: int):
+    """Byte offset of entry ``(k, n)`` of a weight ``W (K, rows)`` in its
+    image: chunk ``k // 64`` of ``rows`` 128-byte rows, row ``n``, the
+    16-byte group ``(k % 64) // 8`` swizzled by ``n % 8``. Ints or integer
+    tensors. The kernel's copy of this formula is the top comment of
+    ``csrc/policy_mlp.cuh``, which its ``sw128_desc`` descriptors address;
+    the two must agree."""
+    return (k // KC) * rows * 128 + n * 128 + ((((k % KC) // 8) ^ (n % 8)) * 16) + (k % 8) * 2
+
+
+@functools.lru_cache(maxsize=16)
+def _image_index(obs_dim: int, outs: int, device: str) -> Tensor:
+    """bf16 slot of each entry of ``cat([w0, w1, hw])`` (row-major) in a
+    trunk's image."""
+    def slots(k_dim, n_dim, rows, base):
+        k, n = torch.meshgrid(torch.arange(k_dim), torch.arange(n_dim), indexing="ij")
+        return (base + swizzle_offset(k, n, rows)).reshape(-1) // 2
+
+    return torch.cat([slots(obs_dim, HIDDEN, HIDDEN, 0), slots(HIDDEN, HIDDEN, HIDDEN, W1_OFF),
+                      slots(HIDDEN, outs, HEAD_N, HW_OFF)]).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _gather_index(obs_dim: int, outs: int, device: str) -> Tensor:
+    """For each 16-bit word of a trunk's image, the word ``pack_trunk``
+    copies into it from ``[bf16(src) | src's f32 words | 0]``, where
+    ``src`` is ``cat([w0, w1, hw, b0, b1, hb])`` in f32: a matrix entry's
+    bf16, a bias's two f32 halves, and the zero word for the padding."""
+    n_mats = (obs_dim + HIDDEN + outs) * HIDDEN
+    n_src = n_mats + 2 * HIDDEN + outs
+    g = torch.full((TRUNK_BYTES // 2,), 3 * n_src, dtype=torch.int64)
+    g[_image_index(obs_dim, outs, "cpu")] = torch.arange(n_mats)
+    bias_words = 2 * (2 * HIDDEN + outs)
+    g[B0_OFF // 2 : B0_OFF // 2 + bias_words] = n_src + 2 * n_mats + torch.arange(bias_words)
+    return g.to(device)
+
+
+def pack_trunk(w0: Tensor, b0: Tensor, w1: Tensor, b1: Tensor, hw: Tensor, hb: Tensor) -> Tensor:
+    """One trunk's weights (flax layout: ``w0 (obs, 256)``, ``w1 (256,
+    256)``, ``hw (256, outs)``, biases of any shape) → its image, a
+    ``(TRUNK_BYTES,)`` uint8 tensor on their device: the matrices rounded
+    to bf16 (nearest even), the biases f32, the padding zero. One gather
+    (``_gather_index``), so a few small ops in all."""
+    obs_dim, outs = w0.shape[0], hw.shape[1]
+    if w0.shape[1] != HIDDEN or w1.shape != (HIDDEN, HIDDEN) or hw.shape[0] != HIDDEN:
+        raise NotImplementedError(f"the kernel's image holds two {HIDDEN}-wide layers")
+    if not 0 < obs_dim <= MAX_OBS_DIM or not 0 < outs <= HEAD_N:
+        raise NotImplementedError(f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} or {outs} outputs outside 1..{HEAD_N}")
+    src = torch.cat([t.detach().reshape(-1).float() for t in (w0, w1, hw, b0, b1, hb)])
+    words = torch.cat([src.to(torch.bfloat16).view(torch.int16), src.view(torch.int16),
+                       src.new_zeros(1, dtype=torch.int16)])
+    return words[_gather_index(obs_dim, outs, str(src.device))].view(torch.uint8)
+
+
+def unpack_trunk(image: Tensor, obs_dim: int, outs: int) -> tuple[Tensor, ...]:
+    """``pack_trunk``'s inverse: ``(w0, b0, w1, b1, hw, hb)`` with the
+    matrices bf16 ``(in, out)`` and the biases f32 ``(out,)``."""
+    mats = image[:B0_OFF].view(torch.bfloat16)[_image_index(obs_dim, outs, str(image.device))]
+    n0, n1 = obs_dim * HIDDEN, HIDDEN * HIDDEN
+    biases = image[B0_OFF:].view(torch.float32)
+    return (mats[:n0].reshape(obs_dim, HIDDEN), biases[:HIDDEN].clone(),
+            mats[n0 : n0 + n1].reshape(HIDDEN, HIDDEN), biases[HIDDEN : 2 * HIDDEN].clone(),
+            mats[n0 + n1 :].reshape(HIDDEN, outs), biases[2 * HIDDEN : 2 * HIDDEN + outs].clone())
+
+
+def image_pointers(image: Tensor) -> list[int]:
+    """The kernel's six weight pointers into a trunk's image: w0, b0, w1,
+    b1, hw, hb."""
+    base = image.data_ptr()
+    return [base + off for off in (0, B0_OFF, W1_OFF, B1_OFF, HW_OFF, HB_OFF)]
 
 
 @dataclasses.dataclass
 class PolicyWeights:
-    """The forward's weights: bf16 (in, out) matrices, f32 biases."""
+    """The forward's weights: bf16 (in, out) matrices, f32 biases (the
+    twin's), and each trunk's image (the kernel's; None where the shapes
+    are outside the kernel's)."""
 
     pi_w: list[Tensor]
     pi_b: list[Tensor]
@@ -48,6 +143,8 @@ class PolicyWeights:
     vf_b: list[Tensor]
     vf_head_w: Tensor
     vf_head_b: Tensor
+    pi_image: Tensor | None = None
+    vf_image: Tensor | None = None
 
     @property
     def obs_dim(self) -> int:
@@ -58,15 +155,29 @@ class PolicyWeights:
         return self.pi_head_w.shape[1]
 
 
+def _kernel_envelope(w: PolicyWeights) -> str | None:
+    """Why the kernel cannot take ``w``'s shapes, or None."""
+    widths = [t.shape[1] for t in (*w.pi_w, *w.vf_w)]
+    if len(w.pi_w) != 2 or len(w.vf_w) != 2 or any(h != HIDDEN for h in widths):
+        return (f"the CUDA forward covers two {HIDDEN}-wide layers per trunk, got "
+                f"pi {[t.shape[1] for t in w.pi_w]} vf {[t.shape[1] for t in w.vf_w]}")
+    if not 0 < w.obs_dim <= MAX_OBS_DIM or w.vf_w[0].shape[0] != w.obs_dim:
+        return f"obs width {w.obs_dim} outside 1..{MAX_OBS_DIM}"
+    if not 0 < w.act_dim <= HEAD_N:
+        return f"action width {w.act_dim} outside 1..{HEAD_N}"
+    return None
+
+
 def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights:
-    """Ordered leaves → ``PolicyWeights`` (one bf16 cast, contiguous)."""
+    """Ordered leaves → ``PolicyWeights`` (one bf16 cast, contiguous), with
+    the trunks' images where the kernel takes the shapes."""
     # copies, never views of the parameters: the set stays as converted
     w = lambda t: t.detach().to(torch.bfloat16, copy=True).contiguous()  # noqa: E731
     b = lambda t: t.detach().to(torch.float32, copy=True).reshape(-1).contiguous()  # noqa: E731
     i_head = 2 * n_pi
     i_vf0 = i_head + 3  # skip pi_head w/b + log_std
     i_vf_head = i_vf0 + 2 * n_vf
-    return PolicyWeights(
+    out = PolicyWeights(
         pi_w=[w(leaves[2 * i]) for i in range(n_pi)],
         pi_b=[b(leaves[2 * i + 1]) for i in range(n_pi)],
         pi_head_w=w(leaves[i_head]),
@@ -76,6 +187,10 @@ def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights
         vf_head_w=w(leaves[i_vf_head]),
         vf_head_b=b(leaves[i_vf_head + 1]),
     )
+    if _kernel_envelope(out) is None:
+        out.pi_image = pack_trunk(out.pi_w[0], out.pi_b[0], out.pi_w[1], out.pi_b[1], out.pi_head_w, out.pi_head_b)
+        out.vf_image = pack_trunk(out.vf_w[0], out.vf_b[0], out.vf_w[1], out.vf_b[1], out.vf_head_w, out.vf_head_b)
+    return out
 
 
 def _mm(a: Tensor, w_bf16: Tensor) -> Tensor:
@@ -116,22 +231,16 @@ KERNEL = Kernel(
 
 
 def _check_kernel_shapes(obs: Tensor, w: PolicyWeights) -> None:
-    tensors = [*w.pi_w, *w.pi_b, w.pi_head_w, w.pi_head_b,
-               *w.vf_w, *w.vf_b, w.vf_head_w, w.vf_head_b]
-    if any(t.device != obs.device for t in tensors):
+    why = _kernel_envelope(w)
+    if why is not None:
+        raise NotImplementedError(why)
+    images = (w.pi_image, w.vf_image)
+    if any(t is None or t.dtype != torch.uint8 or t.shape != (TRUNK_BYTES,) for t in images):
+        raise ValueError("the kernel reads the trunks' images (prepare_weights)")
+    if any(t.device != obs.device for t in images):
         raise ValueError("weights and obs must be on one device")
-    widths = [t.shape[1] for t in (*w.pi_w, *w.vf_w)]
-    if len(w.pi_w) != 2 or len(w.vf_w) != 2 or any(h != HIDDEN for h in widths):
-        raise NotImplementedError(
-            f"the CUDA forward covers two {HIDDEN}-wide layers per trunk, got "
-            f"pi {[t.shape[1] for t in w.pi_w]} vf {[t.shape[1] for t in w.vf_w]}"
-        )
-    if not 0 < w.obs_dim <= MAX_OBS_DIM or w.vf_w[0].shape[0] != w.obs_dim:
-        raise NotImplementedError(f"obs width {w.obs_dim} outside 1..{MAX_OBS_DIM}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError("weights must be contiguous and 16-byte aligned")
-    if any(t.dtype != torch.bfloat16 for t in (*w.pi_w, *w.vf_w, w.pi_head_w, w.vf_head_w)):
-        raise ValueError("weight matrices must be bf16 (prepare_weights)")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in images):
+        raise ValueError("weight images must be contiguous and 16-byte aligned")
 
 
 def policy_value_forward(obs: Tensor, w: PolicyWeights) -> tuple[Tensor, Tensor]:
@@ -148,15 +257,8 @@ def policy_value_forward(obs: Tensor, w: PolicyWeights) -> tuple[Tensor, Tensor]
     mean = torch.empty((n, w.act_dim), dtype=torch.float32, device=obs.device)
     value = torch.empty((n,), dtype=torch.float32, device=obs.device)
     args = _ForwardArgsC(
-        obs.data_ptr(),
-        w.pi_w[0].data_ptr(), w.pi_b[0].data_ptr(),
-        w.pi_w[1].data_ptr(), w.pi_b[1].data_ptr(),
-        w.pi_head_w.data_ptr(), w.pi_head_b.data_ptr(),
-        w.vf_w[0].data_ptr(), w.vf_b[0].data_ptr(),
-        w.vf_w[1].data_ptr(), w.vf_b[1].data_ptr(),
-        w.vf_head_w.data_ptr(), w.vf_head_b.data_ptr(),
-        mean.data_ptr(), value.data_ptr(),
-        n, w.obs_dim, w.act_dim,
+        obs.data_ptr(), *image_pointers(w.pi_image), *image_pointers(w.vf_image),
+        mean.data_ptr(), value.data_ptr(), n, w.obs_dim, w.act_dim,
     )
     with torch.cuda.device(obs.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -2,7 +2,9 @@
 
 - ``logp_forward`` (K3): the policy log-prob of the stored actions over the
   packed PPO rows ``[obs | action | ...]``, with the epoch kernel's own
-  arithmetic. CUDA entry ``logp_forward`` of ``csrc/policy_value_forward.cu``.
+  arithmetic. CUDA entry ``logp_forward`` of ``csrc/policy_value_forward.cu``;
+  the actor's weights reach it as K4's do, packed into their shared-memory
+  image (``cuda_policy.pack_trunk``) on each call.
 - ``fused_epoch`` (K2): a whole PPO epoch, per minibatch in order: forward,
   clipped-surrogate + value loss, backward by hand, global-norm clip, Adam,
   one metrics row. ``csrc/fused_epoch.cu``.
@@ -17,7 +19,7 @@ launches its kernel for CUDA tensors and runs its plain twin
 ``_mm``, ``_mm_tn`` and ``_mm_nt``, which a test may replace with f32
 products. The twins take any widths; the kernels cover two 256-wide tanh
 layers per trunk and at most 8 actions, K3 obs widths up to 64 (K4's
-loader) and K2 up to 32 (ROADMAP.md, item 26), and raise
+trunk, ``csrc/policy_mlp.cuh``) and K2 up to 32 (ROADMAP.md, item 26), and raise
 ``NotImplementedError`` outside that.
 
 Parameters travel as the ordered leaf list of ``leaf_specs`` (flax layout:
@@ -36,7 +38,7 @@ from torch import Tensor
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 
 HIDDEN = 256
-MAX_OBS_DIM = 64  # K3 (K4's obs loader)
+MAX_OBS_DIM = 64  # K3 (csrc/policy_mlp.cuh: layer 0's K is one 64-wide chunk)
 EPOCH_MAX_OBS_DIM = 32  # K2: wider observations are ROADMAP.md, item 26
 MAX_ACT_DIM = 8
 
@@ -221,19 +223,26 @@ def logp_forward(
     _check_envelope(obs_dim, act_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)])
     if any(t.device != packed.device for t in pi_leaves):
         raise ValueError("leaves and rows must be on one device")
-    packed = packed.contiguous()
+    from pyflyt_tpu_torch.ops import cuda_policy  # it imports this module
+
+    return _launch_logp(packed.contiguous(), cuda_policy.pack_trunk(*pi_leaves[:6]), pi_leaves[6], obs_dim,
+                        log_std_range)
+
+
+def _launch_logp(packed: Tensor, image: Tensor, log_std: Tensor, obs_dim: int, log_std_range=None) -> Tensor:
+    """K3's launch on the actor's image (``cuda_policy.pack_trunk``), which
+    ``logp_forward`` packs from the leaves on each call."""
+    from pyflyt_tpu_torch.ops import cuda_policy
+
     n = packed.shape[0]
-    w = lambda t: t.detach().to(torch.bfloat16).contiguous()  # noqa: E731
-    f = lambda t: t.detach().to(torch.float32).reshape(-1).contiguous()  # noqa: E731
-    keep = [w(pi_leaves[0]), f(pi_leaves[1]), w(pi_leaves[2]), f(pi_leaves[3]),
-            w(pi_leaves[4]), f(pi_leaves[5]), f(pi_leaves[6])]
     out = torch.empty((n,), dtype=torch.float32, device=packed.device)
     if n == 0:
         return out
+    log_std = log_std.detach().to(torch.float32).reshape(-1).contiguous()
     has_range, lo, hi = _range_args(log_std_range)
     args = _LogpArgsC(
-        packed.data_ptr(), *[t.data_ptr() for t in keep], out.data_ptr(),
-        n, packed.shape[1], obs_dim, act_dim, has_range, lo, hi,
+        packed.data_ptr(), *cuda_policy.image_pointers(image), log_std.data_ptr(), out.data_ptr(),
+        n, packed.shape[1], obs_dim, log_std.numel(), has_range, lo, hi,
     )
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -25,7 +25,15 @@ Phases, each of which fails the script on a failed check:
      batch's 262,144 packed rows and a ragged 1000, with TF32 off;
   8. holds the epoch kernel (K2) against its plain twin for one epoch of
      4 minibatches of 8192 rows and one of 2 minibatches of 1000 rows,
-     from seeded weights and seeded non-zero Adam moments;
+     from seeded weights and seeded non-zero Adam moments, then at obs
+     33, 35, 64 and 21 with 1 and 8 actions, with and without a log_std
+     range, at 8192 and 1000 rows, and at more row tiles than its
+     forward/backward has consumers (the dogfight recipe's 65,536 rows at
+     obs 30, and 20,000 rows at obs 64); checks that two calls give
+     bit-identical outputs and that the weight images the last Adam step
+     wrote equal ``pack_trunk`` of the returned leaves, byte for byte (at
+     the hover and the dogfight shapes); times K2 at obs 21 and 33 (8192
+     rows) and 30 (65,536 rows);
   9. drives the training path: PPO with ``fused_sgd`` and the fused
      rollout forward on 8192 PackedQuadXHoverEnv envs at PPOConfig's
      defaults (32 steps, 15 epochs x 32 minibatches), 3 iterations (the
@@ -35,7 +43,8 @@ Phases, each of which fails the script on a failed check:
      metrics and best-model checkpoint under build/) and a checkpoint
      round trip whose resumed iteration must equal the uninterrupted one;
  10. times K3 and K2 at the training path's shapes against their bounds,
-     their plain twins and a library yardstick;
+     their plain twins and a library yardstick, and counts the CUDA
+     kernels of one K2 call (torch.profiler);
  11-16. the generic QuadX kernel (K1 generic) against its twin over modes
      0/8/9 x ENU/NED x wind, its draws by their statistics, the
      ``cuda_quadx.step`` drop-in and the ``use_kernel`` env, the 8192-env
@@ -54,7 +63,9 @@ Phases, each of which fails the script on a failed check:
      step, and the per-step split (``wp_rollout``);
  21. PPOConfig's defaults at 8192 envs on QuadXWaypointsEnv(flight_mode=7,
      use_kernel=True), a warm-up and a timed iteration, env_step_ratio K1
-     launches per env step (``wp_train``);
+     launches per env step (``wp_train``); then one ``fused_sgd`` iteration
+     there, K3 and K2 at obs 33, with its launch counts
+     (``wp_fused_train``);
  22. times and bounds at the waypoints shapes (row 4, K1 generic mode 7,
      K4 and K3 at obs 33), then K4, K3 and K2 at the recipe's shapes;
  23. ``fw_checks``: K5's row 5 against its twin on 4096 and 1000 random
@@ -490,10 +501,26 @@ def check_logp(net, n: int, ranges=(None, (-1.0, -0.2))) -> float:
     return err
 
 
-def check_epoch(net, n_mb: int, mb: int) -> dict:
-    """K2 vs its twin for one epoch of n_mb minibatches of mb rows, from the
-    network's weights and seeded non-zero moments, with a log_std range and
-    an entropy term."""
+EPOCH_RANGE = (-1.0, 0.5)  # a log_std range that clips
+EPOCH_DF_ROWS = 65536  # the dogfight recipe's minibatch (8192 rows x 128 steps / 16), as df_train gives K2
+EPOCH_MULTI_ROWS = 20000  # 313 row tiles, the last ragged: 2-3 tiles for each of the 132 consumers
+# K2's shapes beyond the hover path's: the envs' obs widths (waypoints and
+# rocket 33, fixedwing 35, the widest 64, hover 21), both action extremes,
+# with and without a log_std range, full and ragged minibatches; and
+# minibatches of more tiles than K2's fwd_bwd has consumers (each then
+# runs several tiles): the dogfight recipe's, and a ragged one
+EPOCH_SHAPES = ((33, 1, None, N_ENVS), (33, 8, EPOCH_RANGE, N_RAGGED), (35, 1, EPOCH_RANGE, N_ENVS),
+                (35, 8, None, N_RAGGED), (64, 1, None, N_RAGGED), (64, 8, EPOCH_RANGE, N_ENVS),
+                (21, 1, EPOCH_RANGE, N_RAGGED), (21, 8, None, N_ENVS),
+                (30, 4, None, EPOCH_DF_ROWS), (64, 8, EPOCH_RANGE, EPOCH_MULTI_ROWS))
+# K2's time per minibatch at the hover, waypoints and dogfight widths: (obs, act, minibatches, rows)
+EPOCH_TIMED = ((21, 4, 8, N_ENVS), (33, 4, 8, N_ENVS), (30, 4, 2, EPOCH_DF_ROWS))
+
+
+def epoch_inputs(net, n_mb: int, mb: int, log_std_range=EPOCH_RANGE):
+    """One epoch's K2 inputs from the network's weights: n_mb minibatches of
+    mb packed rows, their advantage stats, Adam's count 7, seeded non-zero
+    moments, an entropy term."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_sgd
 
@@ -507,12 +534,22 @@ def check_epoch(net, n_mb: int, mb: int) -> dict:
     t0 = torch.tensor([7], dtype=torch.int32, device="cuda")
     cfg = cuda_sgd.EpochConfig(
         net.obs_dim, net.action_dim, (256, 256), (256, 256), learning_rate=3e-4, clip_eps=0.2,
-        entropy_coef=0.01, value_coef=0.5, max_grad_norm=0.5, log_std_range=(-1.0, 0.5),
+        entropy_coef=0.01, value_coef=0.5, max_grad_norm=0.5, log_std_range=log_std_range,
     )
+    return mbs, stats, t0, leaves, mu, nu, cfg
+
+
+def check_epoch(net, n_mb: int, mb: int, log_std_range=EPOCH_RANGE) -> dict:
+    """K2 vs its twin for one epoch of n_mb minibatches of mb rows
+    (``epoch_inputs``)."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_sgd
+
+    mbs, stats, t0, leaves, mu, nu, cfg = epoch_inputs(net, n_mb, mb, log_std_range)
     kl, km, kn, kmet = cuda_sgd.fused_epoch(mbs, stats, t0, leaves, mu, nu, cfg)
     pl, pm, pn, pmet = cuda_sgd.fused_epoch_plain(mbs, stats, t0, leaves, mu, nu, cfg)
     torch.cuda.synchronize()
-    where = f"epoch {n_mb}x{mb}"
+    where = f"epoch {n_mb}x{mb} obs {net.obs_dim} act {net.action_dim} range {log_std_range}"
     check(all(bool(torch.isfinite(t).all()) for t in (*kl, *km, *kn, kmet)), f"{where}: non-finite output")
     decay = cuda_sgd.B1**n_mb
     mu_rel = max(((a - decay * m) - (b - decay * m)).abs().max().item() / (b - decay * m).abs().max().item()
@@ -526,8 +563,56 @@ def check_epoch(net, n_mb: int, mb: int) -> dict:
     check(p_err <= EPOCH_PARAM_ATOL, f"{where}: param error {p_err}")
     check(met_rel <= EPOCH_METRIC_RTOL, f"{where}: metrics error {met_rel}")
     check(moved > 1e-4, f"{where}: the params did not move")
-    return {"n_mb": n_mb, "mb": mb, "mu_rel_err": mu_rel, "nu_rel_err": nu_rel, "max_abs_err": p_err,
+    return {"n_mb": n_mb, "mb": mb, "obs_dim": net.obs_dim, "act_dim": net.action_dim,
+            "log_std_range": log_std_range, "mu_rel_err": mu_rel, "nu_rel_err": nu_rel, "max_abs_err": p_err,
             "metric_rel_err": met_rel, "max_param_step": moved}
+
+
+def epoch_net(seed: int, obs: int, act: int):
+    """A random actor-critic of the given widths for K2's checks."""
+    import torch
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+    return ActorCritic(obs, act, device="cuda", generator=torch.Generator().manual_seed(seed + 100 * obs + act))
+
+
+def check_epoch_shapes(seed: int) -> list:
+    """K2 vs its twin at ``EPOCH_SHAPES``, two minibatches each."""
+    return [check_epoch(epoch_net(seed, obs, act), 2, mb, rng) for obs, act, rng, mb in EPOCH_SHAPES]
+
+
+def time_epoch_shapes(seed: int) -> list:
+    """K2's device time at ``EPOCH_TIMED`` (``epoch_inputs``), per call
+    and per minibatch."""
+    from pyflyt_tpu_torch.ops import cuda_sgd
+
+    out = []
+    for obs, act, n_mb, mb in EPOCH_TIMED:
+        inputs = epoch_inputs(epoch_net(seed, obs, act), n_mb, mb, None)
+        ms, _ = time_ms(lambda: cuda_sgd.fused_epoch(*inputs), iters=4, repeats=3)  # noqa: B023
+        out.append({"obs_dim": obs, "act_dim": act, "n_mb": n_mb, "mb": mb, "ms": ms, "ms_per_minibatch": ms / n_mb})
+    return out
+
+
+def check_epoch_repeat(net, n_mb: int, mb: int) -> dict:
+    """Two K2 calls on the same inputs give bit-identical parameters,
+    moments and metrics (fixed summation orders, no atomics), and the
+    weight images the last Adam step wrote are ``pack_trunk`` of the
+    returned leaves, byte for byte."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
+
+    inputs = epoch_inputs(net, n_mb, mb)
+    (a, images), (b, _) = cuda_sgd.launch_epoch(*inputs), cuda_sgd.launch_epoch(*inputs)
+    leaves = a[0]
+    want = torch.stack([cuda_policy.pack_trunk(*leaves[:6]), cuda_policy.pack_trunk(*leaves[7:])])
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip([*a[0], *a[1], *a[2], a[3]], [*b[0], *b[1], *b[2], b[3]]))
+    check(same, f"epoch {n_mb}x{mb}: two calls on the same inputs differ")
+    mismatched = int((images != want).sum())
+    check(mismatched == 0, f"epoch {n_mb}x{mb}: {mismatched} bytes of the device-written images differ from pack_trunk")
+    return {"n_mb": n_mb, "mb": mb, "bit_identical": same, "image_bytes": int(images.numel()),
+            "image_bytes_differing": mismatched}
 
 
 # ---------------------------------------------------------------------------
@@ -714,11 +799,33 @@ def time_sgd_kernels(tp, runner, label: str = "sgd_times") -> dict:
         "library_ms": lib_mb * cfg.num_minibatches, "library_ms_per_minibatch": lib_mb,
         "library_ms_source": "torch.profiler kernel time", "library_host_wall_ms_per_minibatch": lib_wall,
         "bound_ms": b_ms, "bound_by": by, "minibatches": cfg.num_minibatches,
-        "minibatch_size": cfg.minibatch_size,
-        "cuda_kernels_per_call": cuda_sgd.KERNELS_PER_MINIBATCH * cfg.num_minibatches,
+        "minibatch_size": cfg.minibatch_size, **epoch_kernel_count(run, cfg.num_minibatches),
     }
     print(json.dumps({label: out}), flush=True)
     return out
+
+
+def epoch_kernel_count(run, n_mb: int) -> dict:
+    """The CUDA kernels of one K2 call (torch.profiler): its own (they take
+    ``EpochArgs``), checked against ``KERNELS_PER_MINIBATCH`` per minibatch
+    plus ``KERNELS_PER_CALL``, and any other device operations the call
+    queued."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyflyt_tpu_torch.ops import cuda_sgd
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = [(evt.key, evt.count) for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
+    own = sum(c for k, c in counts if "EpochArgs" in k)
+    want = cuda_sgd.KERNELS_PER_MINIBATCH * n_mb + cuda_sgd.KERNELS_PER_CALL
+    check(own == want, f"fused_epoch: {own} CUDA kernels of its own in one call, expected {want}")
+    return {"cuda_kernels_per_call": own, "other_device_ops_per_call": sum(c for k, c in counts if "EpochArgs" not in k)}
 
 
 def logp_kernel_only(rows, leaves, obs_dim: int) -> dict:
@@ -1615,6 +1722,46 @@ def wp_train(seed: int, card: str) -> dict:
             "metrics": rows[-1]["metrics"]}
 
 
+def wp_fused_train(seed: int, card: str) -> dict:
+    """One ``fused_sgd`` PPO iteration at obs 33, built as ``wp_train`` builds
+    its PPO (PPOConfig's defaults at 8192 envs on QuadXWaypointsEnv(
+    flight_mode=7, use_kernel=True)) with ``fused_sgd``: the counts are
+    zeroed just before the iteration and read just after: env_step_ratio
+    K1 launches per env step, one K3 and num_epochs K2 launches, nothing
+    else; Adam's count advances by 15 x 32."""
+    import torch
+    from pyflyt_tpu_torch.envs import QuadXWaypointsEnv
+    from pyflyt_tpu_torch.rl import PPO, PPOConfig
+
+    env = QuadXWaypointsEnv(flight_mode=7, use_kernel=True, device="cuda")
+    cfg = PPOConfig(num_envs=N_ENVS, fused_sgd=True)
+    tp = PPO(env, cfg)
+    runner = tp.init(seed)
+    check(runner.obs.shape == (N_ENVS, 33), "waypoints fused training: flat obs width")
+    before = [p.detach().clone() for p in runner.network.parameters()]
+    count0 = int(runner.opt_state.count)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner, metrics, split = run_iteration(tp, runner, split=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "quadx_step": cfg.rollout_steps * env.env_step_ratio,
+            "logp_forward": 1, "fused_epoch": cfg.num_epochs}
+    check(launches == want, f"waypoints fused training: launches {launches}, expected {want}")
+    check(int(runner.opt_state.count) - count0 == cfg.num_epochs * cfg.num_minibatches,
+          "waypoints fused training: Adam count")
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "waypoints fused training: metrics")
+    check(all(bool(torch.isfinite(p).all()) for p in runner.network.parameters()), "waypoints fused training: params")
+    moved = max((a - b.detach()).abs().max().item() for a, b in zip(before, runner.network.parameters()))
+    check(moved > 1e-4, "waypoints fused training did not move the params")
+    zero_launches()
+    return {"card": card, "num_envs": cfg.num_envs, "obs_dim": 33, "batch": cfg.batch_size,
+            "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches, "wall_s": wall,
+            "samples_per_s": cfg.batch_size / wall, "split_s": split, "launches_per_iteration": launches,
+            "max_param_change": moved, "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
 def ptxas_usage(source: str) -> dict:
     """The most registers and stack bytes any instantiation of ``source``
     uses, and its spill bytes summed over the instantiations (the build's
@@ -2357,8 +2504,9 @@ def df_duel(s100, init, seed: int, card: str) -> dict:
 def df_train(seed: int, card: str) -> dict:
     """The league recipe (dogfight_league_r5.py:47-55) at 8192 rows: a
     warm-up and one timed, split iteration on the default f32 path, then a
-    warm-up and one timed iteration with ``fused_sgd`` (obs 30 is within
-    K2's 32). One K7 launch per rollout step on both paths, plus K3 once
+    warm-up and one timed iteration with ``fused_sgd`` (K2 at obs 30,
+    its 65,536-row minibatches held against the twin in phase 8 as
+    ``EPOCH_DF_ROWS``). One K7 launch per rollout step on both paths, plus K3 once
     and K2 once per epoch with ``fused_sgd``; Adam's count advances by 4 x
     16 per iteration."""
     import torch
@@ -2381,6 +2529,7 @@ def df_train(seed: int, card: str) -> dict:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         check(runner.obs.shape == (cfg.num_envs, 30), "dogfight training: obs width")
+        check(cfg.minibatch_size == EPOCH_DF_ROWS, "dogfight training: K2's minibatch is not phase 8's")
         rows = []
         for it in range(2):
             count0 = int(runner.opt_state.count)
@@ -3100,11 +3249,18 @@ def main(argv=None) -> int:
     err_c = max(err_c, *results["logp_shapes"].values())
     print(json.dumps({"logp_shapes": results["logp_shapes"]}), flush=True)
 
-    # 8. K2 vs its twin
+    # 8. K2 vs its twin at the hover shapes and EPOCH_SHAPES; two calls
+    # bit-identical and the images Adam wrote against pack_trunk, at the
+    # hover and the dogfight shapes; K2's time at EPOCH_TIMED
     epoch_checks = [check_epoch(net, n_mb, mb) for n_mb, mb in ((4, N_ENVS), (2, N_RAGGED))]
+    epoch_checks += check_epoch_shapes(args.seed)
     results["epoch_checks"] = epoch_checks
+    results["epoch_repeat"] = [check_epoch_repeat(net, 4, N_ENVS),
+                               check_epoch_repeat(epoch_net(args.seed, 30, 4), 2, EPOCH_DF_ROWS)]
+    results["epoch_times"] = time_epoch_shapes(args.seed)
     err_d = max(c["max_abs_err"] for c in epoch_checks)
-    print(json.dumps({"epoch_checks": epoch_checks}), flush=True)
+    print(json.dumps({"epoch_checks": epoch_checks, "epoch_repeat": results["epoch_repeat"],
+                      "epoch_times": results["epoch_times"]}), flush=True)
 
     # 9. the training path
     train, tp, runner = train_path(args.seed, card)
@@ -3128,8 +3284,10 @@ def main(argv=None) -> int:
             "launches": train["launches_per_iteration"][name], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("kernel_ms", "pack_ms") if k in t},
+            **{k: t[k] for k in ("kernel_ms", "pack_ms", "ms_per_minibatch", "cuda_kernels_per_call") if k in t},
         })
+    by_name = {k["name"]: k for k in kernels}
+    by_name["fused_epoch"]["ptxas"] = ptxas_usage("fused_epoch.cu")
     for k in kernels:
         k["launches_per_train_iteration"] = train["launches_per_iteration"][k["name"]]
 
@@ -3192,9 +3350,12 @@ def main(argv=None) -> int:
     wp_roll, wp_state, wp_net, wp_obs = wp_rollout(args.seed, card)
     results["wp_rollout"] = wp_roll
     print(json.dumps({"wp_rollout": wp_roll}), flush=True)
-    # 21. PPO on the plain waypoints env (K1 generic in mode 7)
+    # 21. PPO on the plain waypoints env (K1 generic in mode 7), then one
+    # fused_sgd iteration there (K3 and K2 at obs 33)
     results["wp_train"] = wp_train(args.seed, card)
     print(json.dumps({"wp_train": results["wp_train"]}), flush=True)
+    results["wp_fused_train"] = wp_fused_train(args.seed, card)
+    print(json.dumps({"wp_fused_train": results["wp_fused_train"]}), flush=True)
     # 22. times and bounds at the waypoints path's shapes
     wt = time_waypoint_kernels(wp_state, wp_net, wp_obs)
     results["wp_kernel_times"] = wt

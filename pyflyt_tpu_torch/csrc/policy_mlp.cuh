@@ -162,8 +162,8 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // ---------------------------------------------------------------------------
-// PTX: wgmma (bf16 x bf16 -> f32; A from registers, B K-major in shared
-// memory)
+// PTX: wgmma (bf16 x bf16 -> f32; A from registers or shared memory, B in
+// shared memory, K-major or MN-major)
 // ---------------------------------------------------------------------------
 
 // descriptor of a 128-byte-swizzled K-major operand at `p`: 8-row groups
@@ -172,6 +172,17 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // bytes per k16 step, so the base offset field stays 0.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// descriptor of a 128-byte-swizzled MN-major operand at `p` (read with the
+// wgmma's transpose bit): 64 MN values contiguous in each 128-byte row, one
+// row per K index; 8-row K groups `sbo` bytes apart and 64-wide MN atoms
+// `lbo` bytes apart (CUTLASS's canonical ((8,n),(8,k)):((1,LBO),(8,SBO)) in
+// 16-byte units). A k16 step starts 16 rows further on; `p` stays on the
+// swizzle's 1024-byte period, so the base offset field stays 0.
+__device__ __forceinline__ uint64_t mn_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -193,7 +204,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-// d (64 x 256) += A (64 x 16, this thread's fragment a0-a3) B (16 x 256, desc_b)
+// d (64 x 256) += A (64 x 16, this thread's fragment a0-a3) B (16 x 256, desc_b);
+// TRANS_B 1 reads B MN-major (mn_desc)
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -214,7 +227,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], uint32_t a0
       "%104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127},"
-      " {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -231,7 +244,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], uint32_t a0
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
 // d (64 x 8) += A (64 x 16, this thread's fragment a0-a3) B (16 x 8, desc_b)
@@ -246,14 +259,89 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], uint32_t a0, ui
 }
 
 
+// d (64 x 64) += A (64 x 16, registers) B (16 x 64, desc_b)
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 256) += A (64 x 16, desc_a) B (16 x 256, desc_b); TRANS_A / TRANS_B 1
+// read that operand MN-major (mn_desc)
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 8) += A (64 x 16, desc_a) B (16 x 8, desc_b)
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3},"
+      " %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+}
+
 // ---------------------------------------------------------------------------
 // the block
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ Smem& smem() {
+// the dynamic shared memory as an S at its first 1024-byte boundary
+template <class S = Smem>
+__device__ __forceinline__ S& smem() {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<Smem*>(smem_raw + pad);
+  return *reinterpret_cast<S*>(smem_raw + pad);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -261,8 +349,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// thread 0 of the producer: every region of the trunk's image, one barrier each
-__device__ __forceinline__ void load_weights(Smem& s, const TrunkSrc& w) {
+// thread 0 of the producer: every region of the trunk's image, one barrier
+// each (S: Smem, or a struct with the same weight fields and barriers)
+template <class S>
+__device__ __forceinline__ void load_weights(S& s, const TrunkSrc& w) {
   mbar_expect_tx(&s.bar_w[BAR_W0], W0_BYTES + (2 * HID + HEAD_N) * 4);
   bulk_copy(s.w0, w.w0, W0_BYTES, &s.bar_w[BAR_W0]);
   bulk_copy(s.b0, w.b0, HID * 4, &s.bar_w[BAR_W0]);
@@ -285,6 +375,22 @@ __device__ __forceinline__ void load_tile(float* x, const float* rows, int ld, i
     const int r = e / kpad, k = e % kpad;
     const bool in = row0 + r < n && k < obs_dim;
     cp_async4(x + r * OBS_LD + k, in ? rows + static_cast<size_t>(row0 + r) * ld + k : rows, in ? 4 : 0);
+  }
+}
+
+// The staged f32 obs tile xs as bf16 A fragments: k-block kb in x[4 kb ..
+// 4 kb + 3] (rows r0 (+ 8), columns 16 kb + 8 (e / 2) + 2 q (+ 1)), zero
+// past the obs width's k16 steps.
+__device__ __forceinline__ void obs_frags(const float* xs, int r0, int q, int ksteps, uint32_t (&x)[16]) {
+#pragma unroll
+  for (int kb = 0; kb < MAX_OBS / 16; ++kb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = kb < ksteps
+          ? *reinterpret_cast<const float2*>(xs + (r0 + 8 * (e & 1)) * OBS_LD + 16 * kb + 8 * (e >> 1) + 2 * q)
+          : make_float2(0.f, 0.f);
+      x[4 * kb + e] = pack_bf16(v.x, v.y);
+    }
   }
 }
 
@@ -320,19 +426,9 @@ __device__ __forceinline__ void consume(Smem& s, int n, int obs_dim, const Head&
   uint32_t a[64];
   int k = 0;
   for (int tile = blockIdx.x + j * gridDim.x; tile < tiles; tile += CONSUMERS * gridDim.x, ++k) {
-    // the obs tile as bf16 A fragments: k-block kb in x[4 kb .. 4 kb + 3]
     mbar_wait(&s.full[j], k & 1);
     uint32_t x[16];
-#pragma unroll
-    for (int kb = 0; kb < MAX_OBS / 16; ++kb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 v = kb < ksteps
-            ? *reinterpret_cast<const float2*>(xs + (r0 + 8 * (e & 1)) * OBS_LD + 16 * kb + 8 * (e >> 1) + 2 * q)
-            : make_float2(0.f, 0.f);
-        x[4 * kb + e] = pack_bf16(v.x, v.y);
-      }
-    }
+    obs_frags(xs, r0, q, ksteps, x);
     mbar_arrive(&s.empty[j]);
     // layer 0: K = ksteps x 16 of the zero-padded obs
     mbar_wait(&s.bar_w[BAR_W0], 0);

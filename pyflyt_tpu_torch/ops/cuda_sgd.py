@@ -7,7 +7,9 @@
   image (``cuda_policy.pack_trunk``) on each call.
 - ``fused_epoch`` (K2): a whole PPO epoch, per minibatch in order: forward,
   clipped-surrogate + value loss, backward by hand, global-norm clip, Adam,
-  one metrics row. ``csrc/fused_epoch.cu``.
+  one metrics row. ``csrc/fused_epoch.cu`` on ``csrc/policy_mlp.cuh``: each
+  trunk's weights reach it as the same image (``cuda_policy.pack_trunk``),
+  which the kernel writes itself after every Adam step (``image_slots``).
 
 Both compute the Pallas kernels' arithmetic: every matmul takes bf16-rounded
 inputs (round to nearest even) and accumulates in f32; everything
@@ -18,8 +20,8 @@ launches its kernel for CUDA tensors and runs its plain twin
 (``*_plain``) for CPU tensors; the twins' matmuls are the module-level
 ``_mm``, ``_mm_tn`` and ``_mm_nt``, which a test may replace with f32
 products. The twins take any widths; the kernels cover two 256-wide tanh
-layers per trunk and at most 8 actions, K3 obs widths up to 64 (K4's
-trunk, ``csrc/policy_mlp.cuh``) and K2 up to 32 (ROADMAP.md, item 26), and raise
+layers per trunk, obs widths up to 64 (K4's trunk: layer 0's K is one
+64-wide chunk of ``csrc/policy_mlp.cuh``) and at most 8 actions, and raise
 ``NotImplementedError`` outside that.
 
 Parameters travel as the ordered leaf list of ``leaf_specs`` (flax layout:
@@ -38,8 +40,7 @@ from torch import Tensor
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 
 HIDDEN = 256
-MAX_OBS_DIM = 64  # K3 (csrc/policy_mlp.cuh: layer 0's K is one 64-wide chunk)
-EPOCH_MAX_OBS_DIM = 32  # K2: wider observations are ROADMAP.md, item 26
+MAX_OBS_DIM = 64  # K3 and K2 (csrc/policy_mlp.cuh: layer 0's K is one 64-wide chunk)
 MAX_ACT_DIM = 8
 
 # Adam constants (optax.adam defaults; eps as rl/ppo.py)
@@ -51,12 +52,19 @@ ENT_C = 0.5 * math.log(2.0 * math.pi * math.e)
 
 METRICS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl")
 
-# rows of kernel A and the parts of csrc/fused_epoch.cu the wrapper sizes
-_TILE_M = 64
+# the parts of csrc/fused_epoch.cu the wrapper sizes
+TILE_M = 64  # rows a tile
+BLOCK_BYTES = TILE_M * 64 * 2  # a 64 x 64 bf16 workspace block
+TILE_BYTES = HIDDEN // 64 * BLOCK_BYTES  # a 64 x 256 activation tile
+HEAD_TILE_BYTES = 8 * TILE_M * 2  # dmean / dvalue of a tile, K-major (8 x 64)
+ACTS = 4  # workspace tiles a trunk and row tile: h1, h2, dz1, dz2
+COLS = 2 * HIDDEN + 8  # column sums of a tile: dz1, dz2, dhead
 _NPART = 3 + MAX_ACT_DIM
-_SLABS = 4
 _THREADS = 256
+WGRAD_JOBS = 12  # weight-gradient blocks a row split: per trunk W0, W1 x 4, head
+CONSUMERS = 2  # consumer warpgroups a block of the forward/backward kernel
 KERNELS_PER_MINIBATCH = 4  # CUDA kernels fused_epoch enqueues per minibatch
+KERNELS_PER_CALL = 1  # and once per call: the first minibatch's weight images
 
 
 # ---------------------------------------------------------------------------
@@ -183,17 +191,15 @@ LOGP_KERNEL = Kernel("policy_value_forward.cu", "logp_forward", [ctypes.c_void_p
 
 def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> None:
     """K3's envelope (the actor trunk only), or K2's when ``vf_sizes`` is
-    given (both trunks; obs widths up to 32)."""
+    given (both trunks)."""
     trunks = [("pi", tuple(pi_sizes))] + ([("vf", tuple(vf_sizes))] if vf_sizes is not None else [])
     for name, sizes in trunks:
         if sizes != (HIDDEN, HIDDEN):
             raise NotImplementedError(
                 f"the CUDA SGD kernels cover two {HIDDEN}-wide layers per trunk, got {name} {sizes}"
             )
-    max_obs = MAX_OBS_DIM if vf_sizes is None else EPOCH_MAX_OBS_DIM
-    if not 0 < obs_dim <= max_obs:
-        item = " (ROADMAP.md, item 26: K2 at observation widths above 32)" if max_obs == EPOCH_MAX_OBS_DIM else ""
-        raise NotImplementedError(f"obs width {obs_dim} outside 1..{max_obs}{item}")
+    if not 0 < obs_dim <= MAX_OBS_DIM:
+        raise NotImplementedError(f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the CUDA SGD kernels' envelope)")
     if not 0 < act_dim <= MAX_ACT_DIM:
         raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM}")
 
@@ -428,17 +434,62 @@ def _from_flat(flat: Tensor, shapes, offsets) -> list[Tensor]:
     return [flat[off : off + math.prod(s)].view(s) for s, off in zip(shapes, offsets)]
 
 
+def workspace_offset(r, c):
+    """Byte offset of (row ``r``, column ``c``) in a workspace tile of K2
+    (64 rows, 64-wide blocks of ``BLOCK_BYTES``, each row 128 bytes with
+    the 128-byte swizzle): where the forward/backward kernel writes a bf16
+    activation or dz, and what the weight-gradient kernel's bulk copies
+    land for its MN-major wgmma reads. Ints or integer tensors; the
+    kernel writes the layout through ``store_rows`` in csrc/fused_epoch.cu
+    (its comment states this formula)."""
+    return (c // 64) * BLOCK_BYTES + r * 128 + ((((c % 64) // 8) ^ (r % 8)) * 16) + (c % 8) * 2
+
+
+def image_slots(obs_dim: int, act_dim: int) -> tuple[Tensor, Tensor]:
+    """For each entry of K2's flat parameter vector (``flat_layout`` of
+    ``leaf_specs`` at two 256-wide layers per trunk): its byte offset in
+    the two trunks' images, actor then critic, ``cuda_policy.TRUNK_BYTES``
+    each, where the kernel writes it after every Adam step (-1 for log_std
+    and the padding), and whether it goes there as f32 (a bias) rather
+    than bf16 (a matrix entry). The kernel's copy of this rule is
+    ``write_image`` in csrc/fused_epoch.cu; scattering a flat vector
+    through it gives ``cuda_policy.pack_trunk`` of its leaves."""
+    from pyflyt_tpu_torch.ops import cuda_policy as cp
+
+    net = dict(obs_dim=obs_dim, act_dim=act_dim, pi_sizes=(HIDDEN, HIDDEN), vf_sizes=(HIDDEN, HIDDEN))
+    shapes = [sh for _, sh in leaf_specs(net)]
+    offsets, P = flat_layout(shapes)
+    slot = torch.full((P,), -1, dtype=torch.int64)
+    is_f32 = torch.zeros(P, dtype=torch.bool)
+    for leaf, (shape, off) in enumerate(zip(shapes, offsets)):
+        if leaf == 6:  # log_std: not in the images
+            continue
+        trunk, kind = (0, leaf) if leaf < 6 else (1, leaf - 7)
+        base = trunk * cp.TRUNK_BYTES
+        n = math.prod(shape)
+        if kind in (0, 2, 4):  # w0, w1, head: (in, out) row-major
+            k, o = torch.meshgrid(torch.arange(shape[0]), torch.arange(shape[1]), indexing="ij")
+            region, rows = {0: (0, HIDDEN), 2: (cp.W1_OFF, HIDDEN), 4: (cp.HW_OFF, cp.HEAD_N)}[kind]
+            slot[off : off + n] = base + region + cp.swizzle_offset(k, o, rows).reshape(-1)
+        else:  # b0, b1, head bias
+            region = {1: cp.B0_OFF, 3: cp.B1_OFF, 5: cp.HB_OFF}[kind]
+            slot[off : off + n] = base + region + 4 * torch.arange(n)
+            is_f32[off : off + n] = True
+    return slot, is_f32
+
+
 class _EpochArgsC(ctypes.Structure):
     """Mirror of ``struct EpochArgs`` in csrc/fused_epoch.cu."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics", "ws_x", "ws_a",
-            "ws_dz", "ws_dmean", "ws_dvalue", "tile_part", "gpart", "grad", "block_sq",
+            "mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics", "image", "ws_x", "ws_act",
+            "ws_head", "spill", "colsum", "tile_part", "gpart", "grad", "block_sq",
         )
     ] + [("off", ctypes.c_int * 13)] + [
-        (name, ctypes.c_int) for name in ("P", "n_mb", "mb", "feat", "obs_dim", "act_dim")
+        (name, ctypes.c_int)
+        for name in ("P", "n_mb", "mb", "feat", "obs_dim", "act_dim", "splits", "spill_slots")
     ] + [
         (name, ctypes.c_float)
         for name in ("lr", "clip_eps", "ent_coef", "vf_coef", "max_grad_norm")
@@ -463,8 +514,8 @@ def fused_epoch(
     (1,) int32 before the epoch. Returns ``(leaves, mu, nu, metrics)``,
     metrics ``(n_mb, len(METRICS))``; the inputs are not modified (Adam's
     count afterwards is ``t0 + n_mb``). The kernel for CUDA tensors (one
-    launch per call, ``KERNELS_PER_MINIBATCH`` CUDA kernels per
-    minibatch), the twin for CPU ones."""
+    launch per call: ``KERNELS_PER_MINIBATCH`` CUDA kernels per minibatch
+    and ``KERNELS_PER_CALL`` more), the twin for CPU ones."""
     if mbs.dtype != torch.float32 or mbs.dim() != 3:
         raise ValueError(f"mbs must be (n_mb, mb, feat) float32, got {tuple(mbs.shape)} {mbs.dtype}")
     n_mb, mb_size, feat = mbs.shape
@@ -482,37 +533,53 @@ def fused_epoch(
     if mbs.device.type != "cuda":
         raise ValueError(f"unsupported device {mbs.device}")
     _check_envelope(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
-    dev = mbs.device
-    if any(t.device != dev for t in (adv_stats, t0, *leaves, *mu, *nu)):
+    if any(t.device != mbs.device for t in (adv_stats, t0, *leaves, *mu, *nu)):
         raise ValueError("every input must be on the device of mbs")
+    out, _ = launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
+    return out
 
+
+def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg: EpochConfig):
+    """K2's launch, after ``fused_epoch``'s checks: ``((leaves, mu, nu,
+    metrics), images)``, where ``images`` (2, ``cuda_policy.TRUNK_BYTES``)
+    uint8 are the actor's and the critic's weight images as the last Adam
+    step wrote them (``cuda_policy.pack_trunk`` of the returned leaves)."""
+    from pyflyt_tpu_torch.ops import cuda_policy
+
+    dev = mbs.device
+    n_mb, mb_size, feat = mbs.shape
+    net = dict(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes)
+    shapes = [s for _, s in leaf_specs(net)]
     offsets, P = flat_layout(shapes)
     params, m1, m2 = (_to_flat(g, offsets, P) for g in (leaves, mu, nu))
     mbs = mbs.contiguous()
     adv_stats = adv_stats.to(torch.float32).contiguous()
     t0 = t0.to(torch.int32).reshape(1).contiguous()
     metrics = torch.empty((n_mb, len(METRICS)), dtype=torch.float32, device=dev)
-    n_tiles = -(-mb_size // _TILE_M)
-    pad = n_tiles * _TILE_M
+    tiles = -(-mb_size // TILE_M)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, sms // WGRAD_JOBS)  # about one wave of weight-gradient blocks
+    spill_slots = 2 * min(tiles, max(1, sms // 2)) * CONSUMERS  # the forward/backward's consumers
     empty = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
+    images = torch.zeros((2, cuda_policy.TRUNK_BYTES), dtype=torch.uint8, device=dev)
     ws = dict(
-        ws_x=empty(pad, EPOCH_MAX_OBS_DIM, dtype=torch.bfloat16),
-        ws_a=empty(4, pad, HIDDEN, dtype=torch.bfloat16),
-        ws_dz=empty(4, pad, HIDDEN),
-        ws_dmean=empty(pad, MAX_ACT_DIM),
-        ws_dvalue=empty(pad),
-        tile_part=empty(n_tiles, _NPART),
-        gpart=torch.zeros((_SLABS, P), dtype=torch.float32, device=dev),
+        ws_x=empty(tiles, BLOCK_BYTES, dtype=torch.uint8),
+        ws_act=empty(2, ACTS, tiles, TILE_BYTES, dtype=torch.uint8),
+        ws_head=empty(2, tiles, HEAD_TILE_BYTES, dtype=torch.uint8),
+        spill=empty(spill_slots, TILE_M * HIDDEN),
+        colsum=empty(2, tiles, COLS),
+        tile_part=empty(tiles, _NPART),
+        gpart=empty(splits, P),
         grad=empty(P),
         block_sq=empty(-(-P // _THREADS)),
     )
     has_range, lo, hi = _range_args(cfg.log_std_range)
     args = _EpochArgsC(
         mbs.data_ptr(), adv_stats.data_ptr(), t0.data_ptr(), params.data_ptr(),
-        m1.data_ptr(), m2.data_ptr(), metrics.data_ptr(),
-        *[ws[k].data_ptr() for k in ("ws_x", "ws_a", "ws_dz", "ws_dmean", "ws_dvalue",
-                                      "tile_part", "gpart", "grad", "block_sq")],
-        (ctypes.c_int * 13)(*offsets), P, n_mb, mb_size, feat, cfg.obs_dim, cfg.act_dim,
+        m1.data_ptr(), m2.data_ptr(), metrics.data_ptr(), images.data_ptr(),
+        *[ws[k].data_ptr() for k in ("ws_x", "ws_act", "ws_head", "spill", "colsum", "tile_part", "gpart",
+                                      "grad", "block_sq")],
+        (ctypes.c_int * 13)(*offsets), P, n_mb, mb_size, feat, cfg.obs_dim, cfg.act_dim, splits, spill_slots,
         cfg.learning_rate, cfg.clip_eps, cfg.entropy_coef, cfg.value_coef, cfg.max_grad_norm,
         has_range, lo, hi,
     )
@@ -521,10 +588,11 @@ def fused_epoch(
         rc = EPOCH_KERNEL.fn()(ctypes.addressof(args), stream)
     EPOCH_KERNEL.check(rc)
     EPOCH_KERNEL.launches += 1
-    return (
+    out = (
         _from_flat(params, shapes, offsets), _from_flat(m1, shapes, offsets),
         _from_flat(m2, shapes, offsets), metrics,
     )
+    return out, images
 
 
 def epoch_flops(n_rows: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN) -> int:

@@ -377,10 +377,10 @@ class PPO:
             raise ValueError(
                 f"{type(env).__name__} has no cached auto-reset; set cached_reset_refresh=0"
             )
-        if config.fused_sgd and obs_width(env) > cuda_sgd.EPOCH_MAX_OBS_DIM:
+        if config.fused_sgd and obs_width(env) > cuda_sgd.MAX_OBS_DIM:
             raise NotImplementedError(
-                f"fused_sgd at observation width {obs_width(env)}: K2 covers widths up to "
-                f"{cuda_sgd.EPOCH_MAX_OBS_DIM} (ROADMAP.md, item 26: K2 at observation widths above 32)"
+                f"fused_sgd at observation width {obs_width(env)}: the CUDA SGD kernels cover widths "
+                f"up to {cuda_sgd.MAX_OBS_DIM}"
             )
         self.env = env
         self.config = config

@@ -220,8 +220,20 @@ def test_ppo_trains_on_the_fixedwing_env(refresh):
 
 
 def test_fused_sgd_at_obs_35_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 26"):
-        PPO(FixedwingWaypointsEnv(device="cpu"), PPOConfig(fused_sgd=True))
+    """Once the fused SGD kernel (K2) stopped at obs 32 and this raised,
+    naming ROADMAP item 26; K2 now takes widths up to 64, so ``fused_sgd``
+    builds and trains at the fixedwing env's obs 35 (on the CPU through
+    K2's twin): finite metrics, moved parameters, Adam's count advanced by
+    the epoch's minibatches."""
+    tp = PPO(FixedwingWaypointsEnv(device="cpu"), PPOConfig(num_envs=8, rollout_steps=4, num_epochs=1,
+                                                            num_minibatches=2, fused_sgd=True, feature_sizes=(16, 16)))
+    runner = tp.init(0)
+    assert runner.obs.shape == (8, 35)
+    before = [p.detach().clone() for p in runner.network.parameters()]
+    runner, metrics = tp.train_iteration(runner)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert max((a - b).abs().max().item() for a, b in zip(before, runner.network.parameters())) > 0
+    assert int(runner.opt_state.count) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,8 @@ HYPER = dict(learning_rate=1e-3, clip_eps=0.2, entropy_coef=0.01, value_coef=0.5
 T = torch.from_numpy
 
 
-def _leaves(rng, pi_sizes=H, vf_sizes=H):
-    net = dict(obs_dim=OBS, act_dim=ACT, pi_sizes=pi_sizes, vf_sizes=vf_sizes)
+def _leaves(rng, pi_sizes=H, vf_sizes=H, obs=OBS):
+    net = dict(obs_dim=obs, act_dim=ACT, pi_sizes=pi_sizes, vf_sizes=vf_sizes)
     shapes = [s for _, s in pallas_sgd._leaf_specs(net)]
     leaves = [(rng.normal(size=s) * 0.3).astype(np.float32) for s in shapes]
     mu = [(rng.normal(size=s) * 1e-3).astype(np.float32) for s in shapes]
@@ -39,15 +39,16 @@ def _leaves(rng, pi_sizes=H, vf_sizes=H):
     return leaves, mu, nu
 
 
-def _minibatches(rng, leaves, log_std_range):
+def _minibatches(rng, leaves, log_std_range, obs=OBS):
     """Rows whose stored log-probs sit near the policy's own, so ratios
     fall inside and outside the clip band."""
-    mbs = rng.normal(size=(N_MB, MB, FEAT)).astype(np.float32)
-    flat = mbs.reshape(-1, FEAT)
+    feat = obs + ACT + 3
+    mbs = rng.normal(size=(N_MB, MB, feat)).astype(np.float32)
+    flat = mbs.reshape(-1, feat)
     n_pi = 2 * len(H) + 3
-    own = cuda_sgd.logp_forward_plain(T(flat), [T(x) for x in leaves[:n_pi]], OBS, log_std_range)
-    flat[:, OBS + ACT] = own.numpy() + rng.normal(size=flat.shape[0]).astype(np.float32) * 0.3
-    adv = mbs[:, :, OBS + ACT + 1]
+    own = cuda_sgd.logp_forward_plain(T(flat), [T(x) for x in leaves[:n_pi]], obs, log_std_range)
+    flat[:, obs + ACT] = own.numpy() + rng.normal(size=flat.shape[0]).astype(np.float32) * 0.3
+    adv = mbs[:, :, obs + ACT + 1]
     stats = np.stack([adv.mean(1), adv.std(1)], axis=1).astype(np.float32)  # ddof 0
     return mbs, stats
 
@@ -107,33 +108,37 @@ def test_logp_rejects_a_row_too_narrow():
 # ---------------------------------------------------------------------------
 
 
-def _run_both(rng, log_std_range, pi_sizes=H, vf_sizes=H, t0=7, leaves=None):
+def _run_both(rng, log_std_range, pi_sizes=H, vf_sizes=H, t0=7, leaves=None, obs=OBS):
     if leaves is None:
-        leaves, mu, nu = _leaves(rng, pi_sizes, vf_sizes)
+        leaves, mu, nu = _leaves(rng, pi_sizes, vf_sizes, obs)
     else:  # given leaves: log_std's moments start at 0, so a zero gradient keeps it still
-        _, mu, nu = _leaves(rng, pi_sizes, vf_sizes)
+        _, mu, nu = _leaves(rng, pi_sizes, vf_sizes, obs)
         mu[6][:] = 0.0
         nu[6][:] = 0.0
-    mbs, stats = _minibatches(rng, leaves, log_std_range) if pi_sizes == H else (None, None)
+    mbs, stats = _minibatches(rng, leaves, log_std_range, obs) if pi_sizes == H else (None, None)
     if mbs is None:
         mbs = rng.normal(size=(N_MB, MB, FEAT)).astype(np.float32)
         adv = mbs[:, :, OBS + ACT + 1]
         stats = np.stack([adv.mean(1), adv.std(1)], axis=1).astype(np.float32)
     t0a = np.array([t0], np.int32)
     run = pallas_sgd.build_fused_epoch(
-        obs_dim=OBS, act_dim=ACT, pi_sizes=pi_sizes, vf_sizes=vf_sizes, log_std_range=log_std_range,
-        num_minibatches=N_MB, minibatch_size=MB, feat=FEAT, chunk=MB // 2, interpret=True, **HYPER,
+        obs_dim=obs, act_dim=ACT, pi_sizes=pi_sizes, vf_sizes=vf_sizes, log_std_range=log_std_range,
+        num_minibatches=N_MB, minibatch_size=MB, feat=mbs.shape[-1], chunk=MB // 2, interpret=True, **HYPER,
     )
     J = lambda xs: [jnp.asarray(x) for x in xs]  # noqa: E731
     jl, jm, jn, jmet = run(jnp.asarray(mbs), jnp.asarray(stats), jnp.asarray(t0a), J(leaves), J(mu), J(nu))
-    cfg = cuda_sgd.EpochConfig(OBS, ACT, pi_sizes, vf_sizes, log_std_range=log_std_range, **HYPER)
+    cfg = cuda_sgd.EpochConfig(obs, ACT, pi_sizes, vf_sizes, log_std_range=log_std_range, **HYPER)
     P = lambda xs: [T(x.copy()) for x in xs]  # noqa: E731
     tl, tm, tn, tmet = cuda_sgd.fused_epoch(T(mbs), T(stats), T(t0a), P(leaves), P(mu), P(nu), cfg)
     return (leaves, mu, nu), (jl, jm, jn, np.asarray(jmet)), (tl, tm, tn, tmet.numpy())
 
 
-@pytest.mark.parametrize("arith", ["bf16", "f32"])
-def test_fused_epoch_twin_matches_pallas_kernel(arith, request):
+@pytest.mark.parametrize(
+    "arith,obs",
+    [pytest.param("bf16", OBS, id="bf16"), pytest.param("f32", OBS, id="f32"),
+     pytest.param("bf16", 33, id="bf16-obs33")],  # obs 33: the waypoints and rocket width
+)
+def test_fused_epoch_twin_matches_pallas_kernel(arith, obs, request):
     """Two minibatches with log_std_range and entropy_coef > 0 from seeded
     non-zero moments. ``mu_new - b1^2 mu`` carries the gradients
     themselves, so mu is held relative to the gradients' own size; params
@@ -145,7 +150,7 @@ def test_fused_epoch_twin_matches_pallas_kernel(arith, request):
     if arith == "f32":
         request.getfixturevalue("f32_matmuls")
     rng = np.random.default_rng(3)
-    (l0, mu0, _), (jl, jm, jn, jmet), (tl, tm, tn, tmet) = _run_both(rng, (-1.0, 0.2))
+    (l0, mu0, _), (jl, jm, jn, jmet), (tl, tm, tn, tmet) = _run_both(rng, (-1.0, 0.2), obs=obs)
     tol = dict(bf16=dict(met=1e-4, mu=1e-3, nu=2e-3, p=5e-6), f32=dict(met=1e-5, mu=1e-5, nu=1e-4, p=1e-7))[arith]
     np.testing.assert_allclose(tmet, jmet, rtol=tol["met"], atol=tol["met"])
     for i, (a, b, m0) in enumerate(zip(tm, jm, mu0)):
@@ -261,7 +266,7 @@ def test_ctypes_mirrors_match_the_c_structs(source, struct, cls):
 
 @pytest.mark.parametrize(
     "obs,act,pi,err",
-    [(21, 4, (256, 256), None), (33, 4, (256, 256), "obs width"), (21, 9, (256, 256), "action width"),
+    [(21, 4, (256, 256), None), (65, 4, (256, 256), "obs width"), (21, 9, (256, 256), "action width"),
      (21, 4, (256,), "two 256-wide"), (21, 4, (128, 128), "two 256-wide")],
 )
 def test_kernel_envelope(obs, act, pi, err):

@@ -314,9 +314,20 @@ def test_ppo_trains_on_the_dict_env(refresh):
 
 
 def test_fused_sgd_at_obs_33_raises_naming_its_item():
-    env = QuadXWaypointsEnv(flight_mode=7, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 26"):
-        PPO(env, PPOConfig(fused_sgd=True))
+    """Once the fused SGD kernel (K2) stopped at obs 32 and this raised,
+    naming ROADMAP item 26; K2 now takes K4's obs widths up to 64, so
+    ``fused_sgd`` builds and trains at obs 33 (on the CPU through K2's
+    twin): finite metrics, moved parameters, Adam's count advanced by the
+    epoch's minibatches. The 27-wide flattened env still works."""
+    env = QuadXWaypointsEnv(flight_mode=7, use_kernel=True, device="cpu")
+    tp = PPO(env, PPOConfig(num_envs=8, rollout_steps=4, num_epochs=1, num_minibatches=2, fused_sgd=True))
+    runner = tp.init(0)
+    assert runner.obs.shape == (8, 33) and tp.epoch_config(33).obs_dim == 33
+    before = [p.detach().clone() for p in runner.network.parameters()]
+    runner, metrics = tp.train_iteration(runner)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert max((a - b).abs().max().item() for a, b in zip(before, runner.network.parameters())) > 0
+    assert int(runner.opt_state.count) == 2
     flat = FlattenWaypointEnv(env, context_length=2)
     assert flat.obs_size == 27
     PPO(flat, PPOConfig(fused_sgd=True))  # 27 wide: inside K2's envelope

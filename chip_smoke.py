@@ -83,7 +83,10 @@ Phases, each of which fails the script on a failed check:
      episodes, against the archive's numbers (fails under 3.0 targets);
  27. ``fw_train``: fixedwing_rl_r5.py's lr3e-4 recipe on the plain env, a
      warm-up and a timed iteration;
- 28. ``fw_kernel_times``: rows 5 and 6 against their bounds, K4 at obs 35;
+ 28. ``fw_kernel_times``: rows 5 and 6 against their bounds, each launch
+     as torch.profiler records it (grid, block, registers a thread,
+     checked against the source's GROUP and THREADS), ptxas registers
+     per variant, K4 at obs 35;
  29. ``df_checks``: K7 (the dogfight agent step) against its twin, noise
      off, stock 30 Hz, 20 agent steps at 4096 and a ragged 999 arenas,
      with preset lanes that fire hits, mutual collision, ground contact,
@@ -100,8 +103,8 @@ Phases, each of which fails the script on a failed check:
      seat);
  32. ``df_train``: the league recipe at 8192 rows, a warm-up and a timed
      iteration on the default f32 path, then with ``fused_sgd``;
- 33. ``df_kernel_times``: K7 against its bound and its twin, its ptxas
-     report;
+ 33. ``df_kernel_times``: K7 against its bound and its twin, its launch
+     as in 28, its ptxas report;
  34. ``rk_checks``: K6's row 8 (one rocket aviary step) against its twin,
      noise off, on 8192 and a ragged 1000 random airborne states with the
      booster lit and the finlets and gimbal swung, then with a fuel-out
@@ -1842,6 +1845,7 @@ def time_waypoint_kernels(wp_state, net33, obs33) -> dict:
 
 
 FW_ENVS = 4096  # fixedwing_rl_r5.py's num_envs, bench_suite.py's fixedwing width
+FW_MIDWARP = 4093  # a width whose last warp holds one group of lanes (K5: 8 lanes an env)
 FW_STEPS = 20  # agent steps of the row-6 checks
 FW_DROPIN_STEPS = 30  # tests/test_pallas_fixedwing.py's trajectory
 FW_ROLLOUT_STEPS = 128
@@ -1889,8 +1893,9 @@ def fw_airborne(model: str, mode: int, n: int, seed: int):
 
 
 def check_fw_step() -> tuple[dict, dict]:
-    """Row 5 against its twin (noise off) on 4096 and a ragged 1000 random
-    airborne states, modes -1 and 0 x fixedwing and acrowing: the worst
+    """Row 5 against its twin (noise off) on 4096, a ragged 1000 and a
+    mid-warp 4093 random airborne states, modes -1 and 0 x fixedwing and
+    acrowing: the worst
     error per row group of one aviary step at the test tolerances, the
     any-contact row exact and rows 54-87 zero. Then the main path of rows
     7 -> 5: ``cuda_fixedwing.step`` against the card's
@@ -1898,7 +1903,7 @@ def check_fw_step() -> tuple[dict, dict]:
     end, as tests/test_pallas_fixedwing.py:118-132), its launches counted
     from all kernels at zero. Then the noise: identical lanes, one noisy
     step, the throttle's relative spread against the twin's and the motor's
-    noise ratio."""
+    noise ratio, and a second noisy call bit-identical to the first."""
     import torch
     from pyflyt_tpu_torch.models import fixedwing
     from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
@@ -1907,7 +1912,7 @@ def check_fw_step() -> tuple[dict, dict]:
     zero = torch.zeros(1, dtype=torch.int64, device="cuda")
     for model in ("fixedwing", "acrowing"):
         for mode in (-1, 0):
-            for n in (FW_ENVS, N_RAGGED):
+            for n in (FW_ENVS, N_RAGGED, FW_MIDWARP):
                 cfg, params, st = fw_airborne(model, mode, n, seed=80 + n + mode)
                 c = cf.fixedwing_consts(params, cfg)
                 packed = cf.pack_state(st)
@@ -1954,7 +1959,9 @@ def check_fw_step() -> tuple[dict, dict]:
     packed = cf.pack_state(st)[:, :1].expand(-1, FW_ENVS).contiguous()  # identical lanes
     seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
     quiet = cf.packed_step(packed, seed, c, 0, False)[cf._THR]
-    rk = cf.packed_step(packed, seed, c, 0, True)[cf._THR] / quiet - 1.0
+    noisy = cf.packed_step(packed, seed, c, 0, True)
+    check(torch.equal(noisy, cf.packed_step(packed, seed, c, 0, True)), "noisy fixedwing step: two calls differ")
+    rk = noisy[cf._THR] / quiet - 1.0
     rp = cf.packed_step_plain(packed, seed, c, 0, True)[cf._THR] / quiet - 1.0
     torch.cuda.synchronize()
     se = float(rk.std()) * 6 / FW_ENVS**0.5
@@ -1974,21 +1981,25 @@ def fw_env(**kw):
 
 def check_fw_waypoints() -> dict:
     """Row 6 against its twin (noise off) over FW_STEPS agent steps at 4096
-    stock envs, then with a 25 m reach, from the env's reset with traps:
-    an eighth of the fleet 0.4 m up falling (collision), an eighth at the
-    dome's edge flying out (out-of-dome), a sixteenth one step short of
-    the time limit (truncation), a sixteenth with its last target at its
-    own position (reach and all-reached). Per lane, the largest difference
-    over all rows: at most WP_DIVERGED_SHARE of the lanes beyond 5e-4 +
-    4e-4 * step, every row of the others (flags included) within it. A
-    frozen lane keeps every row but the setpoint, the re-armed reward and
-    the step count."""
+    stock envs, then with a 25 m reach, then staggered at the mid-warp
+    4093, from the env's reset with traps: an eighth of the fleet 0.4 m
+    up falling (collision), an eighth at the dome's edge flying out
+    (out-of-dome), a sixteenth one step short of the time limit
+    (truncation), a sixteenth with its last target at its own position
+    (reach and all-reached); staggered, the envs from the fourth eighth on
+    0-4 agent steps short of the time limit by their column mod 5, so the
+    envs of one warp freeze at different agent steps. Per lane, the
+    largest difference over all rows: at most WP_DIVERGED_SHARE of the
+    lanes beyond 5e-4 + 4e-4 * step, every row of the others (flags
+    included) within it. A frozen lane keeps every row but the setpoint,
+    the re-armed reward and the step count. Then two noisy calls of the
+    stock fleet bit-identical."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
 
     out = {}
-    n = FW_ENVS
-    for name, kw in (("stock", {}), ("reach25", dict(goal_reach_distance=25.0))):
+    for name, n, kw in (("stock", FW_ENVS, {}), ("reach25", FW_ENVS, dict(goal_reach_distance=25.0)),
+                        ("staggered", FW_MIDWARP, {})):
         env = fw_env(noisy_motors=False, **kw)
         state, _ = env.reset(n, torch.Generator(device="cuda").manual_seed(100))
         packed = state.packed.clone()
@@ -2000,8 +2011,12 @@ def check_fw_waypoints() -> dict:
         t = slice(2 * e + s, 2 * e + 2 * s)
         packed[cf._TGT : cf._TGT + 3, t] = packed[cf._VIEW + 9 : cf._VIEW + 12, t]
         packed[cf._REM, t] = 1.0
+        if name == "staggered":
+            cols = torch.arange(3 * e, n, device="cuda")
+            packed[cf._STEP, cols] = float(env.base.max_steps) - (cols % 5).float()
         seed = torch.zeros(1, dtype=torch.int64, device="cuda")
         kern, plain = packed.clone(), packed.clone()
+        first_frozen = torch.full((n,), -1, dtype=torch.long, device="cuda")
         ev = dict.fromkeys(("reach", "all_reached", "termination", "truncation", "out_of_bounds", "collision",
                             "frozen"), 0)
         err, diverged = 0.0, 0
@@ -2030,6 +2045,7 @@ def check_fw_waypoints() -> dict:
             done0 = (before[cf._TERM] > 0.5) | (before[cf._TRUNC] > 0.5)
             check(torch.equal(kern[keep][:, done0], before[keep][:, done0]), f"{where}: a frozen lane moved")
             check(torch.equal(kern[cf._STEP], before[cf._STEP] + 1.0), f"{where}: step count")
+            first_frozen[done0 & (first_frozen < 0)] = i
             ev["frozen"] += int(done0.sum())
             ev["reach"] += int((kern[cf._REM] < before[cf._REM] - 0.5).sum())
         for key, row in (("all_reached", cf._CPLT), ("termination", cf._TERM), ("truncation", cf._TRUNC),
@@ -2037,6 +2053,17 @@ def check_fw_waypoints() -> dict:
             ev[key] = int((kern[row] > 0.5).sum())
         check(all(v > 0 for v in ev.values()), f"fixedwing waypoints {name}: events {ev}")
         out[name] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev}
+        if name == "staggered":  # warps (4 envs at 8 lanes an env) whose envs froze at different steps
+            per_warp = first_frozen[: n - n % 4].view(-1, 4)
+            mixed = int(((per_warp.amax(1) != per_warp.amin(1)) & (per_warp.amin(1) >= 0)).sum())
+            check(mixed > 0, "fixedwing waypoints staggered: no warp froze at two agent steps")
+            out[name]["warps_frozen_at_two_or_more_steps"] = mixed
+    env = fw_env()
+    state, _ = env.reset(FW_ENVS, torch.Generator(device="cuda").manual_seed(101))
+    seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
+    first = cf.packed_waypoints_step(state.packed, seed, env.consts, 0, True)
+    check(torch.equal(first, cf.packed_waypoints_step(state.packed, seed, env.consts, 0, True)),
+          "noisy fixedwing waypoints step: two calls differ")
     return out
 
 
@@ -2213,8 +2240,9 @@ def fw_train(seed: int, card: str) -> dict:
 def time_fw_kernels(fw_state, net35, obs35) -> dict:
     """At the slice's shapes (4096 envs, noise on, mode 0): row 5 (one
     aviary step of the fixedwing) and row 6 (the stock agent step), each
-    against the bound, the twin and the ptxas report (per variant: registers; summed: stack and spills); K4 at
-    obs 35 (the archived policy) with its cuBLAS yardstick."""
+    against the bound, the twin, its launch (``measured_launch``) and the
+    ptxas report (per variant: registers; summed: stack and spills); K4
+    at obs 35 (the archived policy) with its cuBLAS yardstick."""
     import re
 
     import torch
@@ -2245,6 +2273,10 @@ def time_fw_kernels(fw_state, net35, obs35) -> dict:
     variants = re.findall(r"entry function '_Z\w*?(step_kernel|waypoints_kernel)I(\w+?)EEv\w*'.*?Used (\d+) registers",
                           log.read_text() if log.exists() else "", re.S)
     out["ptxas_variants"] = [{"kernel": k, "template": t, "registers": int(r)} for k, t, r in variants]
+    out["fixedwing_step"]["launch"] = measured_launch(lambda: cf.packed_step(packed, seed, c5, 0, True),
+                                                      "step_kernel", "fixedwing_step.cu", FW_ENVS)
+    out["fixedwing_waypoints_step"]["launch"] = measured_launch(
+        lambda: cf.packed_waypoints_step(packed, seed, c, 0, True), "waypoints_kernel", "fixedwing_step.cu", FW_ENVS)
     out["policy_value_forward_obs35"] = time_policy_forward(net35, obs35)
     print(json.dumps({"fw_kernel_times": out}), flush=True)
     return out
@@ -2256,6 +2288,7 @@ def time_fw_kernels(fw_state, net35, obs35) -> dict:
 
 DF_ARENAS = 4096  # the league's 8192 agent rows (dogfight_league_r5.py:47)
 DF_RAGGED = 999  # 1998 drones: a partial last warp
+DF_MIDWARP = 1001  # 2002 drones: the last warp holds one pair of groups (K7: 8 lanes a drone)
 DF_STEPS = 20  # agent steps of the K7 checks
 DF_ROLLOUT_STEPS = 128  # the league recipe's rollout length
 DF_MATCHES = 256  # the league's duels (dogfight_league_r5.py:90)
@@ -2314,18 +2347,19 @@ def df_traps(packed, arenas: int, max_steps: int):
 
 def check_df_step() -> dict:
     """K7 against its twin (noise off, stock 30 Hz) over DF_STEPS agent
-    steps at 4096 and a ragged 999 arenas, from the env's reset with the
+    steps at 4096, a ragged 999 and a mid-warp 1001 arenas, from the env's reset with the
     traps of ``df_traps``, each chained on its own. Per lane, the largest
     difference over the rows (the reward row relative to 1 + |reward|):
     at most DF_DIVERGED_SHARE of a trap's lanes beyond 5e-4 + 4e-4 * step,
     every trap firing. Then the noise: identical lanes, the throttle's
-    relative spread and mean against the twin's."""
+    relative spread and mean against the twin's, and a second noisy call
+    bit-identical to the first."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_dogfight as cd
     from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
 
     out = {}
-    for arenas in (DF_ARENAS, DF_RAGGED):
+    for arenas in (DF_ARENAS, DF_RAGGED, DF_MIDWARP):
         env = df_env(noisy_motors=False).penv
         st, _ = env.reset(arenas, torch.Generator(device="cuda").manual_seed(290))
         packed = st.packed.clone()
@@ -2379,7 +2413,10 @@ def check_df_step() -> dict:
     packed[cf._SP + 3] = 0.75
     seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
     quiet = cd.packed_dogfight_step(packed, seed, env.consts, False)[cf._THR]
-    rk = cd.packed_dogfight_step(packed, seed, env.consts, True)[cf._THR] / quiet - 1.0
+    noisy = cd.packed_dogfight_step(packed, seed, env.consts, True)
+    check(torch.equal(noisy, cd.packed_dogfight_step(packed, seed, env.consts, True)),
+          "noisy dogfight step: two calls differ")
+    rk = noisy[cf._THR] / quiet - 1.0
     rp = cd.packed_dogfight_step_plain(packed, seed, env.consts, True)[cf._THR] / quiet - 1.0
     torch.cuda.synchronize()
     se = float(rk.std()) * 6 / (2 * DF_ARENAS) ** 0.5
@@ -2559,10 +2596,70 @@ def df_train(seed: int, card: str) -> dict:
     return out
 
 
+def measured_launch(fn, kernel: str, source: str, n: int, calls: int = 3) -> dict:
+    """The launches of the CUDA kernel whose name holds ``kernel`` over
+    ``calls`` calls of ``fn``, as torch.profiler's trace records them
+    (grid, block, registers a thread: CUPTI's kernel record); fails unless
+    each call launched it once, each as ``source``'s GROUP lanes a column
+    over ``n`` columns in blocks of its THREADS (the constants read from
+    the source)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    text = (cuda_build.CSRC / source).read_text()
+    group, threads = (int(re.search(rf"constexpr int {k} = (\d+);", text).group(1)) for k in ("GROUP", "THREADS"))
+    fn()
+    torch.cuda.synchronize()
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = cuda_build.BUILD_DIR / f"launch_trace.{os.getpid()}.json"
+    # the profiler keeps only device records that it places inside its own
+    # window on the host's clock; late in a long process a window of a few
+    # milliseconds has been seen to keep none, so the calls get a margin of
+    # host time on each side, widened until every launch is recorded
+    tried = []
+    for margin_s in (0.05, 0.5, 2.0):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin_s)
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(margin_s)
+        try:
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        finally:
+            trace.unlink(missing_ok=True)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        found = [e.get("args", {}) for e in kernels if kernel in e.get("name", "")]
+        tried.append({"margin_s": margin_s, "recorded": len(found),
+                      "kernels": sorted({e.get("name", "")[:60] for e in kernels})})
+        if len(found) == calls:
+            break
+    check(len(found) == calls, f"{kernel}: launches recorded over {calls} calls: {tried}")
+    check(all("grid" in a and "block" in a for a in found), f"{kernel}: the profiler records no grid or block")
+    blocks = -(-n * group // threads)
+    for a in found:
+        check(list(a["block"]) == [threads, 1, 1] and list(a["grid"]) == [blocks, 1, 1],
+              f"{kernel}: launched grid {a['grid']} block {a['block']}, the source says {blocks} blocks of {threads}")
+    grid, block = found[0]["grid"], found[0]["block"]
+    lanes = grid[0] * grid[1] * grid[2] * block[0] * block[1] * block[2]
+    return {"grid": grid, "block": block, "threads": lanes, "lanes_per_column": lanes / n,
+            "registers_per_thread": found[0].get("registers per thread")}
+
+
 def time_df_kernel(packed) -> dict:
     """K7 at the league's shape (8192 drones, noise on): device time
-    against the bound and its twin's time, and the ptxas report."""
+    against the bound and its twin's time, the launch
+    (``measured_launch``), and the ptxas report (summed, and registers
+    per variant)."""
+    import re
+
     import torch
+    from pyflyt_tpu_torch.ops import cuda_build
     from pyflyt_tpu_torch.ops import cuda_dogfight as cd
 
     consts = df_env().penv.consts
@@ -2576,7 +2673,13 @@ def time_df_kernel(packed) -> dict:
     b_ms, by = bound_of((rd + wr) * 4 * drones + 8, drones * cd.ops_per_drone(consts), H100_F32_FLOPS)
     out = {"ms": ms, "host_ms": host_ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by, "drones": drones,
            "rows_read": rd, "rows_written": wr, "ops_per_drone": cd.ops_per_drone(consts),
-           "physics_iterations": consts.ratio * consts.inner_steps, "ptxas": ptxas_usage("dogfight_step.cu")}
+           "physics_iterations": consts.ratio * consts.inner_steps, "ptxas": ptxas_usage("dogfight_step.cu"),
+           "launch": measured_launch(lambda: cd.packed_dogfight_step(packed, seed, consts, True),
+                                     "dogfight_kernel", "dogfight_step.cu", drones)}
+    log = cuda_build.library_path("dogfight_step.cu").with_suffix(".log")
+    variants = re.findall(r"entry function '_Z\w*?dogfight_kernelI(\w+?)EEv\w*'.*?Used (\d+) registers",
+                          log.read_text() if log.exists() else "", re.S)
+    out["ptxas_variants"] = [{"template": t, "registers": int(r)} for t, r in variants]
     print(json.dumps({"df_kernel_times": out}), flush=True)
     return out
 
@@ -3442,7 +3545,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": "pyflyt_tpu_torch/csrc/fixedwing_step.cu", "replaces": line,
             "launches": launches_, "max_abs_err": err,
             **{k: ft[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-            "host_ms": ft[name]["host_ms"], "ptxas": ft["ptxas"], **extra,
+            "host_ms": ft[name]["host_ms"], "ptxas": ft["ptxas"], "launch": ft[name]["launch"], **extra,
         })
     by_name["policy_value_forward"].update(max_abs_err=err_b, obs35={
         f: ft["policy_value_forward_obs35"].get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -3482,7 +3585,7 @@ def main(argv=None) -> int:
         "name": "dogfight_step", "route": "cuda", "source": "pyflyt_tpu_torch/csrc/dogfight_step.cu",
         "replaces": "pyflyt_tpu/ops/pallas_dogfight.py:259", "launches": df_roll["launches"]["dogfight_step"],
         "max_abs_err": err_df, **{k: dt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-        "host_ms": dt["host_ms"], "ptxas": dt["ptxas"],
+        "host_ms": dt["host_ms"], "ptxas": dt["ptxas"], "launch": dt["launch"],
         "main_path": f"df_rollout, {DF_ROLLOUT_STEPS} steps x {2 * DF_ARENAS} agent rows",
         "max_diverged_lanes": {k: c["max_diverged_lanes"] for k, c in results["df_checks"].items() if k != "noise"},
     })

@@ -1,4 +1,4 @@
-// Kernel K7: the 2-agent Fixedwing dogfight agent step, one thread per drone.
+// Kernel K7: the 2-agent Fixedwing dogfight agent step, a group of lanes per drone.
 //
 // Replaces pyflyt_tpu/ops/pallas_dogfight.py::_build_kernel (:90-256) behind
 // packed_dogfight_step (:259). One launch runs the whole agent step of N
@@ -28,25 +28,34 @@
 // What bounds it on an H100: at the league's 8192 drones each reads 48
 // rows and writes 72, 3.9 MB, 1.17 us at 3.35 TB/s; its ~9.5 kFLOP (8
 // physics iterations of 5 surfaces plus the engagement) is 1.16 us at 67
-// TFLOP/s. The two are even; each thread's dependent chain (an atan2f and
-// a sincosf per surface per iteration) costs more than either, as in K5.
+// TFLOP/s. The two are even; the dependent chain of a physics iteration
+// (an atan2f and a sincosf per surface, the rigid body's rotation and
+// integration) costs more than either, as in K5.
 //
-// Design: one thread per drone with K5's registers (fl::Lane) and the
-// memos; the partner is the adjacent lane of the same warp, and every
-// value of the partner (its previous hit, gun position, new hit, body
-// position) comes over __shfl_xor_sync(FULL, x, 1), where the TPU rolled
-// sublanes by 4. One thread per arena would hold two Lanes in registers,
-// the layout the Pallas docstring measured as register-bound (:6-14). The
-// shuffles need every lane of the warp present: blocks of 64 threads keep
-// a pair inside one warp, a thread past the edge clamps its column,
-// computes and skips the store, and no thread leaves the loop early. The
-// constants come as one __grid_constant__ struct; NOISY and SPARSE are
-// template parameters; Philox motor noise with the subsequence set to the
-// global drone index. The Mosaic workarounds are dropped: native acosf
-// (for pi/2 - asin), atan2f, asinf and sincosf.
+// Design: each drone a group of GROUP lanes running fixedwing_lane.cuh's
+// grouped iteration, as K5 does (a surface a lane, the wrench summed by a
+// butterfly on the group's mask, the motor and the rigid body in every
+// lane), so 8192 drones make 65,536 threads in 1024 blocks of 64,
+// about four warps on each SM sub-partition where one thread per drone
+// left one warp alone with the chain of five surfaces. Every lane of a
+// group holds the drone's state and memos and runs the engagement itself;
+// the partner drone's group is the adjacent one of the same warp, and
+// every value of the partner (its previous hit, gun position, new hit,
+// body position) comes over __shfl_xor_sync(FULL, x, GROUP), where the TPU
+// rolled sublanes by 4. The shuffles need every lane of the warp present:
+// blocks of 64 threads hold whole warps, so no pair of groups straddles
+// two, a group past the edge clamps its column, computes and skips the
+// store, and no thread leaves the loop early. Each row is written once, by
+// the lane that owns it. The constants come as one __grid_constant__
+// struct; NOISY and SPARSE are template parameters; Philox motor noise,
+// every lane of a group on the drone's stream (the subsequence its global
+// index, as before). The Mosaic workarounds are dropped: native acosf (for pi/2 -
+// asin), atan2f, asinf and sincosf. Measured against one thread per drone
+// on an H100: PERF.md section 6.
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
+#include <climits>
 #include <cstddef>
 
 #include "fixedwing_lane.cuh"
@@ -107,26 +116,32 @@ namespace fl = fixedwing_lane;
 constexpr int HP = 53, ANG = 54, PANG = 55, HIT = 56, DIST = 57, PDIST = 58, TERM = 59, TRUNC = 60,
               RWD = 61, COLLF = 62, OOBF = 63, OTHD = 64, STEPC = 65;
 constexpr int ROWS = 72;
-constexpr int THREADS = 64;  // per block: a multiple of the warp, so no pair straddles two warps
+constexpr int THREADS = 64;  // per block: whole warps, so no pair of groups straddles two
+constexpr int GROUP = 8;     // lanes per drone (probe: group)
+// 8192 drones x GROUP lanes are 1024 blocks, 7.8 an SM: all resident at once
+// when a thread takes at most 65,536 / (8 x THREADS) = 128 registers
+constexpr int MIN_BLOCKS = 8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float GUN_OFFSET = 0.35f;
 
-// The partner drone's value: the adjacent lane (column 2a + 1 - m).
-__device__ __forceinline__ float partner(float x) { return __shfl_xor_sync(FULL_MASK, x, 1); }
+// The partner drone's value: the adjacent group (column 2a + 1 - m).
+__device__ __forceinline__ float partner(float x) { return __shfl_xor_sync(FULL_MASK, x, GROUP); }
 
 template <bool NOISY, bool SPARSE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)  // probe: min_blocks
     dogfight_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
                     const long long* __restrict__ seed, const __grid_constant__ DogfightConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // n is even, so a thread past the edge and its partner are both past it:
+  const int tid = blockIdx.x * THREADS + threadIdx.x;
+  const int i = tid / GROUP, lane = tid % GROUP;
+  // n is even, so a group past the edge and its partner are both past it:
   // they compute on the last column and store nothing
   const bool live = i < n;
+  const unsigned mask = fl::group_mask<GROUP>();
   const size_t ld = static_cast<size_t>(n);
   const float* S = in + (live ? i : n - 1);
-  fl::Lane s;
+  fl::GroupLane<GROUP> s;
   float sp[6], cmd[6], R[9];
-  fl::load_lane<false>(S, ld, s, sp);
+  fl::load_lane<GROUP, false>(S, ld, lane, s, sp);
   float hp = S[HP * ld], ang = S[ANG * ld], pang = S[PANG * ld], hit = S[HIT * ld];
   float dist = S[DIST * ld], pdist = S[PDIST * ld];
   const float othd = S[OTHD * ld], stepc = S[STEPC * ld];
@@ -134,8 +149,10 @@ __global__ void __launch_bounds__(THREADS)
   const float trunc_hit = (stepc > c.max_steps) ? 1.f : 0.f;  // the count before this step's increment
 
   curandStatePhilox4_32_10_t rng;
-  if (NOISY) curand_init(static_cast<unsigned long long>(seed[0]), static_cast<unsigned long long>(i), 0ULL, &rng);
+  if (NOISY)  // every lane of the group on the drone's one stream
+    curand_init(static_cast<unsigned long long>(seed[0]), static_cast<unsigned long long>(i), 0ULL, &rng);
   fl::control_cmd<0>(c, sp, cmd);  // the setpoint is constant over the agent step
+  const fl::Role<GROUP> o = fl::make_role<GROUP>(c, lane, cmd);
 
   for (int a = 0; a < c.inner_steps; ++a) {
     // 1. the reward from the previous aviary step's memos
@@ -151,7 +168,8 @@ __global__ void __launch_bounds__(THREADS)
     // 2. the physics
     float contact = 0.f;
     for (int it = 0; it < c.ratio; ++it) {
-      fl::physics_iter<NOISY>(s, cmd, c, &rng, R);
+      const bool read = it == c.ratio - 1;  // probe: read
+      fl::physics_iter<GROUP, NOISY>(s, o, cmd[5], c, mask, &rng, read, R);
       contact = fmaxf(contact, s.contact);
     }
 
@@ -197,22 +215,22 @@ __global__ void __launch_bounds__(THREADS)
 
   if (!live) return;  // after the last shuffle
   float* O = out + i;
-  fl::store_lane(O, ld, s, sp);
-  O[HP * ld] = hp;
-  O[ANG * ld] = ang;
-  O[PANG * ld] = pang;
-  O[HIT * ld] = hit;
-  O[DIST * ld] = dist;
-  O[PDIST * ld] = pdist;
-  O[TERM * ld] = term;
-  O[TRUNC * ld] = trunc;
-  O[RWD * ld] = rwd;
-  O[COLLF * ld] = collf;
-  O[OOBF * ld] = oobf;
-  O[OTHD * ld] = othd;
-  O[STEPC * ld] = stepc + 1.f;
+  fl::store_lane<GROUP>(O, ld, lane, s, sp);
+  fl::put<GROUP>(O, ld, lane, HP, hp);
+  fl::put<GROUP>(O, ld, lane, ANG, ang);
+  fl::put<GROUP>(O, ld, lane, PANG, pang);
+  fl::put<GROUP>(O, ld, lane, HIT, hit);
+  fl::put<GROUP>(O, ld, lane, DIST, dist);
+  fl::put<GROUP>(O, ld, lane, PDIST, pdist);
+  fl::put<GROUP>(O, ld, lane, TERM, term);
+  fl::put<GROUP>(O, ld, lane, TRUNC, trunc);
+  fl::put<GROUP>(O, ld, lane, RWD, rwd);
+  fl::put<GROUP>(O, ld, lane, COLLF, collf);
+  fl::put<GROUP>(O, ld, lane, OOBF, oobf);
+  fl::put<GROUP>(O, ld, lane, OTHD, othd);
+  fl::put<GROUP>(O, ld, lane, STEPC, stepc + 1.f);
 #pragma unroll
-  for (int r = STEPC + 1; r < ROWS; ++r) O[r * ld] = 0.f;  // padding rows
+  for (int r = STEPC + 1; r < ROWS; ++r) fl::put<GROUP>(O, ld, lane, r, 0.f);  // padding rows
 }
 
 template <bool NOISY>
@@ -232,9 +250,9 @@ void launch_noisy(bool sparse, dim3 grid, cudaStream_t stream, const float* in, 
 // cudaErrorInvalidValue outside the envelope.
 extern "C" int dogfight_step(const float* in, float* out, int n, const long long* seed,
                              const DogfightConsts* consts, int noisy, int sparse, void* stream) {
-  if (n <= 0 || n % 2 != 0 || consts->ratio < 1 || consts->inner_steps < 1)
+  if (n <= 0 || n % 2 != 0 || n > (INT_MAX - THREADS) / GROUP || consts->ratio < 1 || consts->inner_steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + THREADS - 1) / THREADS);
+  const dim3 grid((n * GROUP + THREADS - 1) / THREADS);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (noisy)
     launch_noisy<true>(sparse != 0, grid, s, in, out, n, seed, *consts);

@@ -1,9 +1,10 @@
-// Per-thread Fixedwing aviary-step pieces: the packed row layout, the
-// drone's registers (Lane), one lifting surface's Khan-model forces
+// Fixedwing aviary-step pieces for a drone spread over a group of G lanes:
+// the packed row layout, one lifting surface's Khan-model forces
 // (surface_normal_forward, with the lever arm an argument of the wrench so
 // that a vehicle whose lever arms change in flight can call it), the
-// control map at iteration 0 (control_cmd) and one physics iteration
-// (physics_iter).
+// control map at iteration 0 (control_cmd), what each lane of a group owns
+// (Role) and holds (GroupLane), the group's loads and stores, and one
+// physics iteration (physics_iter).
 //
 // Replaces pyflyt_tpu/ops/pallas_fixedwing.py::surface_normal_forward
 // (:201-276), _control_cmd (:291-299) and _drone_physics_iter (:302-438):
@@ -15,10 +16,28 @@
 // the Pallas kernel are not carried over: native atan2f/asinf/sincosf and
 // rsqrtf, and curand's Philox normals for the per-core PRNG.
 //
+// The group. With one thread per drone, K5 and K7 ran one warp per SM
+// sub-partition at their stock widths (4096 envs, 8192 drones), and each
+// thread paid the full latency of five surfaces in a row (an atan2f, a
+// sincosf, an rsqrtf and, on a flapped surface, three IEEE divisions
+// each). Here lane j of a drone's group owns surfaces j, j + G, ... (one
+// each when G >= 5): their constants, actuator lags, body-frame read rows
+// and wrenches. The 5-surface wrench is summed by a log2(G)-level
+// __shfl_xor_sync butterfly on the group's own mask; float addition
+// commutes, so every lane ends with the same bits, adds the motor's wrench
+// itself (every lane draws the drone's Philox noise, the stream of one
+// thread per drone) and integrates the rigid body itself, with no
+// broadcast; each lane then reads only its own surfaces' new velocities
+// (a spare lane, past the fifth surface, computes none). The view
+// (euler angles, body-frame velocities, base position) is computed only on
+// the iteration whose read is read: the last of an aviary step. G is a
+// power of two with 2G <= 32 (K7's pairs of groups share a warp) and a
+// block is a whole number of warps, so no group straddles two warps.
+//
 // Constants come as a POD struct whose fields have the names of
 // FixedwingConsts in fixedwing_step.cu; the functions are templated on it.
-// A surface without a flap (deflection limit 0) skips the flap algebra on
-// a warp-uniform branch, where Pallas removed it at trace time.
+// The rocket (rocket_step.cu) takes surface, surface_normal_forward and
+// add_surface_wrench one thread per vehicle.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,11 +56,6 @@ constexpr int NUM_SURFACES = 5, MAX_CONTACT = 8;
 constexpr float GRAVITY = 9.81f;
 constexpr float HALF_PI = 1.57079632679489661923f;
 constexpr float TWO_OVER_PI = 0.63661977236758134308f;
-
-struct Lane {
-  float pos[3], quat[4], lvel[3], avel[3], view[12], slv[15], act[5];
-  float thr, contact;
-};
 
 // One surface's coefficients, gathered from the constants struct.
 struct Surface {
@@ -75,56 +89,6 @@ __device__ __forceinline__ Surface surface(const C& c, int k) {
   return S;
 }
 
-// Rows 0-45 of env column S (row stride ld) into registers, and the 6
-// setpoint rows into sp. Without `full`, the view and the contact flag,
-// which the first physics iteration overwrites, are not read.
-template <bool FULL>
-__device__ __forceinline__ void load_lane(const float* S, size_t ld, Lane& s, float sp[6]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    s.pos[k] = S[(POS + k) * ld];
-    s.lvel[k] = S[(LVEL + k) * ld];
-    s.avel[k] = S[(AVEL + k) * ld];
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s.quat[k] = S[(QUAT + k) * ld];
-#pragma unroll
-  for (int k = 0; k < 15; ++k) s.slv[k] = S[(SLV + k) * ld];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) s.act[k] = S[(ACT + k) * ld];
-  s.thr = S[THR * ld];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) sp[k] = S[(SP + k) * ld];
-  if constexpr (FULL) {
-#pragma unroll
-    for (int k = 0; k < 12; ++k) s.view[k] = S[(VIEW + k) * ld];
-    s.contact = S[CON * ld];
-  } else {
-    s.contact = 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_lane(float* O, size_t ld, const Lane& s, const float sp[6]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    O[(POS + k) * ld] = s.pos[k];
-    O[(LVEL + k) * ld] = s.lvel[k];
-    O[(AVEL + k) * ld] = s.avel[k];
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) O[(QUAT + k) * ld] = s.quat[k];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) O[(VIEW + k) * ld] = s.view[k];
-#pragma unroll
-  for (int k = 0; k < 15; ++k) O[(SLV + k) * ld] = s.slv[k];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) O[(ACT + k) * ld] = s.act[k];
-  O[THR * ld] = s.thr;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) O[(SP + k) * ld] = sp[k];
-  O[CON * ld] = s.contact;
-}
-
 // sp[idx] over the 6 setpoint registers without a runtime-indexed array
 // (which would put them in local memory).
 __device__ __forceinline__ float pick6(const float sp[6], int idx) {
@@ -146,7 +110,8 @@ __device__ __forceinline__ void control_cmd(const C& c, const float sp[6], float
 // its lagged body-frame velocity lv and its deflection act: the no-stall
 // linear regime between the stall angles, else the post-stall flat plate
 // (lifting_surfaces.py:128-183); sin/cos of the angle of attack from the
-// velocity components.
+// velocity components. A surface without a flap (deflection limit 0)
+// skips the flap algebra, where Pallas removed it at trace time.
 __device__ __forceinline__ void surface_normal_forward(const Surface& S, float act, const float lv[3],
                                                        float& fn, float& fp, float& qcm) {
   const float lifting = lv[0] * S.lu[0] + lv[1] * S.lu[1] + lv[2] * S.lu[2];
@@ -216,28 +181,169 @@ __device__ __forceinline__ void add_surface_wrench(const Surface& S, const float
   t[2] += qcm * tu[2] + (r[0] * fs[1] - r[1] * fs[0]);
 }
 
-// One 240 Hz physics iteration in place on the lane (models/fixedwing.py
-// physics_iter): lags (+ noise), the wrench from the lagged read, the new
-// read from the pre-integration state, integration, contact. R returns the
-// pre-integration body->world rotation, which the waypoints task rotates
-// the target deltas with.
-template <bool NOISY, class C>
-__device__ __forceinline__ void physics_iter(Lane& s, const float cmd[6], const C& c,
-                                             curandStatePhilox4_32_10_t* rng, float R[9]) {
-  const float dt = c.dt;
-#pragma unroll
-  for (int k = 0; k < NUM_SURFACES; ++k) s.act[k] = s.act[k] + c.lag[k] * (cmd[k] - s.act[k]);
-  s.thr = s.thr + c.mot_lag * (cmd[5] - s.thr);
-  if constexpr (NOISY) s.thr = s.thr + curand_normal(rng) * s.thr * c.mot_noise;
+// ---------------------------------------------------------------------------
+// the group
+// ---------------------------------------------------------------------------
 
+// The lanes of this thread's group in its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  static_assert(G >= 2 && 2 * G <= 32 && (G & (G - 1)) == 0, "G: a power of two, 2G <= 32");
+  return ((1u << G) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(G - 1));
+}
+
+// x summed over the group's lanes: a log2(G)-level butterfly. Lane a adds
+// lane a ^ o's partial to its own where that lane adds a's to its own;
+// float addition commutes, so every lane ends with the same bits.
+template <int G>
+__device__ __forceinline__ float group_sum(float x, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) x += __shfl_xor_sync(mask, x, o);
+  return x;
+}
+
+// What lane `lane` of a group owns: surfaces lane + G j (SLOTS of them;
+// owns[j] is false past the fifth, on a spare lane, whose slot is filled
+// from the fifth surface and never used) with their constants and
+// commands. SLOTS is 1 at G = 8; G = 4 is the measured alternative.
+template <int G>
+struct Role {
+  static constexpr int SLOTS = (NUM_SURFACES + G - 1) / G;
+  bool owns[SLOTS];
+  Surface S[SLOTS];
+  float tu[SLOTS][3], r[SLOTS][3], lag[SLOTS], cmd[SLOTS];
+};
+
+template <int G, class C>
+__device__ __forceinline__ Role<G> make_role(const C& c, int lane, const float cmd[6]) {
+  Role<G> o;
+#pragma unroll
+  for (int j = 0; j < Role<G>::SLOTS; ++j) {
+    const int k = lane + G * j;
+    o.owns[j] = k < NUM_SURFACES;
+    const int kk = o.owns[j] ? k : NUM_SURFACES - 1;
+    o.S[j] = surface(c, kk);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      o.tu[j][i] = c.tu[3 * kk + i];
+      o.r[j][i] = c.r_s[3 * kk + i];
+    }
+    o.lag[j] = c.lag[kk];
+    o.cmd[j] = pick6(cmd, kk);
+  }
+  return o;
+}
+
+// One lane's registers: the rigid body, its read and the throttle, the
+// same in every lane of the group; the lag states and read rows of this
+// lane's surfaces.
+template <int G>
+struct GroupLane {
+  float pos[3], quat[4], lvel[3], avel[3], view[12];
+  float slv[Role<G>::SLOTS][3], act[Role<G>::SLOTS];
+  float thr, contact;
+};
+
+// The rows of env column S (row stride ld) that lane `lane` needs, into
+// its registers, and the 6 setpoint rows into sp. Without FULL, the view
+// and the contact flag, which the first physics iteration overwrites, are
+// not read.
+template <int G, bool FULL>
+__device__ __forceinline__ void load_lane(const float* S, size_t ld, int lane, GroupLane<G>& s, float sp[6]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    s.pos[k] = S[(POS + k) * ld];
+    s.lvel[k] = S[(LVEL + k) * ld];
+    s.avel[k] = S[(AVEL + k) * ld];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s.quat[k] = S[(QUAT + k) * ld];
+#pragma unroll
+  for (int j = 0; j < Role<G>::SLOTS; ++j) {
+    const int k = lane + G * j;
+    const bool own = k < NUM_SURFACES;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) s.slv[j][i] = own ? S[(SLV + 3 * k + i) * ld] : 0.f;
+    s.act[j] = own ? S[(ACT + k) * ld] : 0.f;
+  }
+  s.thr = S[THR * ld];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) sp[k] = S[(SP + k) * ld];
+  if constexpr (FULL) {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) s.view[k] = S[(VIEW + k) * ld];
+    s.contact = S[CON * ld];
+  } else {
+    s.contact = 0.f;
+  }
+}
+
+// Row `row` of column O, a row every lane of the group holds, written by
+// the one lane that owns it: lane row % G.
+template <int G>
+__device__ __forceinline__ void put(float* O, size_t ld, int lane, int row, float v) {
+  if (lane == row % G) O[row * ld] = v;
+}
+
+// Rows 0-52, each written once: the surface rows and the throttle by
+// their owners, the rest by put's rule.
+template <int G>
+__device__ __forceinline__ void store_lane(float* O, size_t ld, int lane, const GroupLane<G>& s, const float sp[6]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    put<G>(O, ld, lane, POS + k, s.pos[k]);
+    put<G>(O, ld, lane, LVEL + k, s.lvel[k]);
+    put<G>(O, ld, lane, AVEL + k, s.avel[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) put<G>(O, ld, lane, QUAT + k, s.quat[k]);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) put<G>(O, ld, lane, VIEW + k, s.view[k]);
+#pragma unroll
+  for (int j = 0; j < Role<G>::SLOTS; ++j) {
+    const int k = lane + G * j;
+    if (k < NUM_SURFACES) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) O[(SLV + 3 * k + i) * ld] = s.slv[j][i];
+      O[(ACT + k) * ld] = s.act[j];
+    }
+  }
+  put<G>(O, ld, lane, THR, s.thr);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) put<G>(O, ld, lane, SP + k, sp[k]);
+  put<G>(O, ld, lane, CON, s.contact);
+}
+
+// One 240 Hz physics iteration in place on the group (models/fixedwing.py
+// physics_iter): lags (+ noise), the wrench from the lagged read, the new
+// read from the pre-integration state, integration, contact. With `read`,
+// also the view (only the last iteration of an aviary step is read). R
+// returns the pre-integration body->world rotation, which the waypoints
+// task rotates the target deltas with. Every lane of the group calls it
+// with the same `read`; its shuffles use the group's mask only. cmd_thr is
+// the throttle command.
+template <int G, bool NOISY, class C>
+__device__ __forceinline__ void physics_iter(GroupLane<G>& s, const Role<G>& o, float cmd_thr, const C& c,
+                                             unsigned mask, curandStatePhilox4_32_10_t* rng, bool read,
+                                             float R[9]) {
+  const float dt = c.dt;
   float f[3] = {0.f, 0.f, 0.f}, t[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int k = 0; k < NUM_SURFACES; ++k) {
-    const Surface S = surface(c, k);
-    float fn, fp, qcm;
-    surface_normal_forward(S, s.act[k], &s.slv[3 * k], fn, fp, qcm);
-    add_surface_wrench(S, &c.tu[3 * k], &c.r_s[3 * k], fn, fp, qcm, f, t);
+  for (int j = 0; j < Role<G>::SLOTS; ++j) {
+    if (o.owns[j]) {
+      s.act[j] = s.act[j] + o.lag[j] * (o.cmd[j] - s.act[j]);
+      float fn, fp, qcm;
+      surface_normal_forward(o.S[j], s.act[j], s.slv[j], fn, fp, qcm);
+      add_surface_wrench(o.S[j], o.tu[j], o.r[j], fn, fp, qcm, f, t);
+    }
   }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    f[i] = group_sum<G>(f[i], mask);
+    t[i] = group_sum<G>(t[i], mask);
+  }
+  s.thr = s.thr + c.mot_lag * (cmd_thr - s.thr);
+  if constexpr (NOISY) s.thr = s.thr + curand_normal(rng) * s.thr * c.mot_noise;
   const float rpm = s.thr * c.mot_max_rpm;
   const float rc = rpm * rpm * ((rpm > 0.f) ? 1.f : ((rpm < 0.f) ? -1.f : 0.f));
 #pragma unroll
@@ -247,33 +353,38 @@ __device__ __forceinline__ void physics_iter(Lane& s, const float cmd[6], const 
   }
 
   quadx_math::quat_rotmat(s.quat, R);
-  // the new read from the pre-integration state (one iteration of lag)
-  float rcom[3], bv[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) rcom[i] = R[3 * i] * c.com[0] + R[3 * i + 1] * c.com[1] + R[3 * i + 2] * c.com[2];
-  bv[0] = s.lvel[0] - (s.avel[1] * rcom[2] - s.avel[2] * rcom[1]);
-  bv[1] = s.lvel[1] - (s.avel[2] * rcom[0] - s.avel[0] * rcom[2]);
-  bv[2] = s.lvel[2] - (s.avel[0] * rcom[1] - s.avel[1] * rcom[0]);
   float avb[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    avb[i] = R[i] * s.avel[0] + R[3 + i] * s.avel[1] + R[6 + i] * s.avel[2];
-    s.view[i] = avb[i];
-    s.view[6 + i] = R[i] * bv[0] + R[3 + i] * bv[1] + R[6 + i] * bv[2];
-    s.view[9 + i] = s.pos[i] - rcom[i];
+  for (int i = 0; i < 3; ++i) avb[i] = R[i] * s.avel[0] + R[3 + i] * s.avel[1] + R[6 + i] * s.avel[2];
+  if (read) {  // the view from the pre-integration state
+    float rcom[3], bv[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rcom[i] = R[3 * i] * c.com[0] + R[3 * i + 1] * c.com[1] + R[3 * i + 2] * c.com[2];
+    bv[0] = s.lvel[0] - (s.avel[1] * rcom[2] - s.avel[2] * rcom[1]);
+    bv[1] = s.lvel[1] - (s.avel[2] * rcom[0] - s.avel[0] * rcom[2]);
+    bv[2] = s.lvel[2] - (s.avel[0] * rcom[1] - s.avel[1] * rcom[0]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s.view[i] = avb[i];
+      s.view[6 + i] = R[i] * bv[0] + R[3 + i] * bv[1] + R[6 + i] * bv[2];
+      s.view[9 + i] = s.pos[i] - rcom[i];
+    }
+    quadx_math::quat_to_euler(s.quat, &s.view[3]);
   }
-  quadx_math::quat_to_euler(s.quat, &s.view[3]);
+  // this lane's surfaces' new read (one iteration of lag)
 #pragma unroll
-  for (int k = 0; k < NUM_SURFACES; ++k) {
-    const float* r = &c.r_s[3 * k];
-    float rw[3], vs[3];
+  for (int j = 0; j < Role<G>::SLOTS; ++j) {
+    if (o.owns[j]) {
+      const float* r = o.r[j];
+      float rw[3], vs[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) rw[i] = R[3 * i] * r[0] + R[3 * i + 1] * r[1] + R[3 * i + 2] * r[2];
-    vs[0] = s.lvel[0] + (s.avel[1] * rw[2] - s.avel[2] * rw[1]);
-    vs[1] = s.lvel[1] + (s.avel[2] * rw[0] - s.avel[0] * rw[2]);
-    vs[2] = s.lvel[2] + (s.avel[0] * rw[1] - s.avel[1] * rw[0]);
+      for (int i = 0; i < 3; ++i) rw[i] = R[3 * i] * r[0] + R[3 * i + 1] * r[1] + R[3 * i + 2] * r[2];
+      vs[0] = s.lvel[0] + (s.avel[1] * rw[2] - s.avel[2] * rw[1]);
+      vs[1] = s.lvel[1] + (s.avel[2] * rw[0] - s.avel[0] * rw[2]);
+      vs[2] = s.lvel[2] + (s.avel[0] * rw[1] - s.avel[1] * rw[0]);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) s.slv[3 * k + i] = R[i] * vs[0] + R[3 + i] * vs[1] + R[6 + i] * vs[2];
+      for (int i = 0; i < 3; ++i) s.slv[j][i] = R[i] * vs[0] + R[3 + i] * vs[1] + R[6 + i] * vs[2];
+    }
   }
 
   // semi-implicit Euler; the body-frame Euler equations with the full

@@ -1,4 +1,4 @@
-// Kernel K5: the Fixedwing steps for a batch of envs, one thread per env.
+// Kernel K5: the Fixedwing steps for a batch of envs, a group of lanes per env.
 //
 // Replaces pyflyt_tpu/ops/pallas_fixedwing.py::_build_kernel (:441-640)
 // behind its entries packed_step (:647) and packed_waypoints_step (:663);
@@ -31,27 +31,35 @@
 // What bounds it on an H100: at the stock 4096 envs the waypoints step
 // reads 86 rows and writes 88, 2.85 MB, 0.85 us at 3.35 TB/s; its ~10
 // kFLOP per env (8 physics iterations of 5 surfaces) is 0.60 us at 67
-// TFLOP/s. So bytes bound it, and each thread's dependent chain (an atan2f
-// and a sincosf per surface per iteration) costs more.
+// TFLOP/s. So bytes bound it, and the dependent chain of a physics
+// iteration (an atan2f and a sincosf per surface, the rigid body's
+// rotation and integration) costs more.
 //
-// Design: SoA rows, one thread per env with the whole step in registers,
-// one read and one write per row, the constants one POD struct passed by
-// value as a __grid_constant__ (read through the constant cache, no local
-// copy), the mode, the noise and the sparse reward as template parameters
-// (4 + 8 instantiations), Philox motor noise, a masked ragged tail. The
-// done-freeze leaves the inner loop: termination and truncation never
-// clear, so a lane done before an aviary step stays done for the rest of
-// the agent step and its registers are simply not touched again (no copy
-// of the lane, no select, and no NaN computed on a frozen lane can reach
-// it). Block size: 64 threads, so 4096 envs make 64 blocks with two warps
-// each on 64 of the 132 SMs (32-thread blocks would put one warp on each
-// of 128 SMs). Each warp has an SM sub-partition to itself either way, so
-// the chain sets the time; measured on an H100 at 4096 envs, 64 threads
-// ran the agent step in 34.6 us against 35.5 us with 32, and the aviary
-// step in 12.6 us against 13.4 us (PERF.md).
+// Design: SoA rows; each env a group of GROUP lanes (fixedwing_lane.cuh:
+// a surface a lane, the wrench summed by a butterfly, the motor and the
+// rigid body in every lane), so 4096 envs make 32,768
+// threads, 512 blocks of 64, about two warps to switch between on each SM
+// sub-partition where one thread per env left one warp alone with the
+// chain of five surfaces. Each lane reads the rows it needs once and each
+// row is written once, by the lane that owns it. The constants are one
+// POD struct passed by value as a __grid_constant__ (read through the
+// constant cache, no local copy), each lane's surface constants gathered
+// into registers once; the mode, the noise and the sparse reward are
+// template parameters (4 + 8 instantiations); Philox motor noise, every
+// lane of a group on the env's stream (the subsequence its index, as
+// before); a ragged tail
+// that leaves a whole group at a time. The done-freeze leaves the inner
+// loop: termination and truncation never clear and every lane of a group
+// holds the same flags, so a group done before an aviary step leaves
+// together, stays done for the rest of the agent step and its registers
+// are simply not touched again (no copy of the lane, no select, and no NaN
+// computed on a frozen lane can reach it); the shuffles use the group's
+// own mask, so a group that left does not stall the others of its warp.
+// Measured against one thread per env on an H100: PERF.md section 6.
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
+#include <climits>
 #include <cstddef>
 
 #include "fixedwing_lane.cuh"
@@ -107,43 +115,52 @@ namespace fl = fixedwing_lane;
 constexpr int RWD = 53, TERM = 54, TRUNC = 55, COLL = 56, OOB = 57, STEP = 58, CPLT = 59;
 constexpr int TGT = 60, REM = 72, NDIST = 73, ODIST = 74, TDLT = 75;
 constexpr int ROWS = 88;
-constexpr int THREADS = 64;  // per block; the header comment says why
+constexpr int THREADS = 64;  // per block: whole warps, so no group straddles two
+constexpr int GROUP = 8;     // lanes per env (probe: group)
 
 template <int MODE, bool NOISY>
 __global__ void __launch_bounds__(THREADS)
     step_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
                 const long long* __restrict__ seed, const __grid_constant__ FixedwingConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged edge
+  const int tid = blockIdx.x * THREADS + threadIdx.x;
+  const int i = tid / GROUP, lane = tid % GROUP;
+  if (i >= n) return;  // ragged edge: whole groups leave
+  const unsigned mask = fl::group_mask<GROUP>();
   const size_t ld = static_cast<size_t>(n);
-  fl::Lane s;
+  fl::GroupLane<GROUP> s;
   float sp[6], cmd[6], R[9];
-  fl::load_lane<false>(in + i, ld, s, sp);
+  fl::load_lane<GROUP, false>(in + i, ld, lane, s, sp);
   curandStatePhilox4_32_10_t rng;
-  if (NOISY) curand_init(static_cast<unsigned long long>(seed[0]), static_cast<unsigned long long>(i), 0ULL, &rng);
+  if (NOISY)  // every lane of the group on the env's one stream
+    curand_init(static_cast<unsigned long long>(seed[0]), static_cast<unsigned long long>(i), 0ULL, &rng);
   fl::control_cmd<MODE>(c, sp, cmd);
+  const fl::Role<GROUP> o = fl::make_role<GROUP>(c, lane, cmd);
   float any_contact = 0.f;
   for (int it = 0; it < c.ratio; ++it) {
-    fl::physics_iter<NOISY>(s, cmd, c, &rng, R);
+    const bool read = it == c.ratio - 1;  // probe: read
+    fl::physics_iter<GROUP, NOISY>(s, o, cmd[5], c, mask, &rng, read, R);
     any_contact = fmaxf(any_contact, s.contact);
   }
   float* O = out + i;
-  fl::store_lane(O, ld, s, sp);
-  O[RWD * ld] = any_contact;  // the spare row carries the any-contact flag
-  for (int r = RWD + 1; r < ROWS; ++r) O[r * ld] = 0.f;
+  fl::store_lane<GROUP>(O, ld, lane, s, sp);
+  fl::put<GROUP>(O, ld, lane, RWD, any_contact);  // the spare row carries the any-contact flag
+#pragma unroll
+  for (int r = RWD + 1; r < ROWS; ++r) fl::put<GROUP>(O, ld, lane, r, 0.f);
 }
 
 template <int MODE, bool NOISY, bool SPARSE>
 __global__ void __launch_bounds__(THREADS)
     waypoints_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
                      const long long* __restrict__ seed, const __grid_constant__ FixedwingConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged edge
+  const int tid = blockIdx.x * THREADS + threadIdx.x;
+  const int i = tid / GROUP, lane = tid % GROUP;
+  if (i >= n) return;  // ragged edge: whole groups leave
+  const unsigned mask = fl::group_mask<GROUP>();
   const size_t ld = static_cast<size_t>(n);
   const float* S = in + i;
-  fl::Lane s;
+  fl::GroupLane<GROUP> s;
   float sp[6], cmd[6], R[9];
-  fl::load_lane<true>(S, ld, s, sp);
+  fl::load_lane<GROUP, true>(S, ld, lane, s, sp);
   float term = S[TERM * ld], trunc = S[TRUNC * ld], coll = S[COLL * ld], oob = S[OOB * ld];
   float cplt = S[CPLT * ld];
   const float stepc = S[STEP * ld];
@@ -158,17 +175,20 @@ __global__ void __launch_bounds__(THREADS)
   const float trunc_hit = (stepc > c.max_steps) ? 1.f : 0.f;  // the count before this step's increment
 
   curandStatePhilox4_32_10_t rng;
-  if (NOISY) curand_init(static_cast<unsigned long long>(seed[0]), static_cast<unsigned long long>(i), 0ULL, &rng);
+  if (NOISY)  // every lane of the group on the env's one stream
+    curand_init(static_cast<unsigned long long>(seed[0]), static_cast<unsigned long long>(i), 0ULL, &rng);
   fl::control_cmd<MODE>(c, sp, cmd);  // the setpoint is constant over the agent step
+  const fl::Role<GROUP> o = fl::make_role<GROUP>(c, lane, cmd);
 
   for (int a = 0; a < c.inner_steps; ++a) {
-    if (term + trunc > 0.f) break;  // the done-freeze: flags never clear
+    if (term + trunc > 0.f) break;  // the done-freeze: flags never clear, the same in every lane
     float any_contact = 0.f;
     for (int it = 0; it < c.ratio; ++it) {
-      fl::physics_iter<NOISY>(s, cmd, c, &rng, R);
+      const bool read = it == c.ratio - 1;  // probe: read
+      fl::physics_iter<GROUP, NOISY>(s, o, cmd[5], c, mask, &rng, read, R);
       any_contact = fmaxf(any_contact, s.contact);
     }
-    // the task update on the lagged base position
+    // the task update on the lagged base position, in every lane
     const float lp[3] = {s.view[9], s.view[10], s.view[11]};
     const float oob_i = (lp[0] * lp[0] + lp[1] * lp[1] + lp[2] * lp[2] > c.dome2) ? 1.f : 0.f;
     const float fatal = fmaxf(any_contact, oob_i);
@@ -186,23 +206,23 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   float* O = out + i;
-  fl::store_lane(O, ld, s, sp);
-  O[RWD * ld] = rwd;
-  O[TERM * ld] = term;
-  O[TRUNC * ld] = trunc;
-  O[COLL * ld] = coll;
-  O[OOB * ld] = oob;
-  O[STEP * ld] = stepc + 1.f;  // unconditional, after the inner loop
-  O[CPLT * ld] = cplt;
+  fl::store_lane<GROUP>(O, ld, lane, s, sp);
+  fl::put<GROUP>(O, ld, lane, RWD, rwd);
+  fl::put<GROUP>(O, ld, lane, TERM, term);
+  fl::put<GROUP>(O, ld, lane, TRUNC, trunc);
+  fl::put<GROUP>(O, ld, lane, COLL, coll);
+  fl::put<GROUP>(O, ld, lane, OOB, oob);
+  fl::put<GROUP>(O, ld, lane, STEP, stepc + 1.f);  // unconditional, after the inner loop
+  fl::put<GROUP>(O, ld, lane, CPLT, cplt);
 #pragma unroll
   for (int k = 0; k < 12; ++k) {
-    O[(TGT + k) * ld] = tgt[k];
-    O[(TDLT + k) * ld] = tdlt[k];
+    fl::put<GROUP>(O, ld, lane, TGT + k, tgt[k]);
+    fl::put<GROUP>(O, ld, lane, TDLT + k, tdlt[k]);
   }
-  O[REM * ld] = rem;
-  O[NDIST * ld] = ndist;
-  O[ODIST * ld] = odist;
-  O[(TDLT + 12) * ld] = 0.f;  // padding row
+  fl::put<GROUP>(O, ld, lane, REM, rem);
+  fl::put<GROUP>(O, ld, lane, NDIST, ndist);
+  fl::put<GROUP>(O, ld, lane, ODIST, odist);
+  fl::put<GROUP>(O, ld, lane, TDLT + 12, 0.f);  // padding row
 }
 
 struct Launch {
@@ -239,10 +259,10 @@ void launch_mode(bool waypoints, bool noisy, bool sparse, const Launch& L) {
 
 int launch(bool waypoints, const float* in, float* out, int n, const long long* seed,
            const FixedwingConsts* consts, int mode, int noisy, int sparse, void* stream) {
-  if (n <= 0 || (mode != -1 && mode != 0) || consts->ratio < 1 ||
+  if (n <= 0 || n > (INT_MAX - THREADS) / GROUP || (mode != -1 && mode != 0) || consts->ratio < 1 ||
       (waypoints && (consts->num_targets < 1 || consts->num_targets > 4 || consts->inner_steps < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Launch L{dim3((n + THREADS - 1) / THREADS), dim3(THREADS), static_cast<cudaStream_t>(stream),
+  const Launch L{dim3((n * GROUP + THREADS - 1) / THREADS), dim3(THREADS), static_cast<cudaStream_t>(stream),
                  in, out, n, seed, consts};
   if (mode == 0)
     launch_mode<0>(waypoints, noisy != 0, sparse != 0, L);

@@ -21,10 +21,10 @@ fixedwing drone bank in rows 0-52, then the per-drone engagement and
 episode rows 53-65, arena-shared values stored in both drones), one
 column per drone. Columns are arena-interleaved: column ``2a + m`` is
 drone ``m`` of arena ``a``, so a drone's partner is the adjacent column
-(the kernel exchanges with the adjacent lane of its warp) and the columns
-are the self-play env's flat row order. The TPU's ``(72, 8, 2N/8)``
-sublane fold with drone order ``[d0s..., d1s...]`` is dropped
-(``convert.packed_dogfight_from_jax`` reorders it).
+(the kernel exchanges with the adjacent group of lanes of its warp) and
+the columns are the self-play env's flat row order. The TPU's
+``(72, 8, 2N/8)`` sublane fold with drone order ``[d0s..., d1s...]`` is
+dropped (``convert.packed_dogfight_from_jax`` reorders it).
 
 Bound on an H100 at the league's 4096 arenas (8192 drones): 48 rows read
 and 72 written (3.9 MB, 1.17 µs at 3.35 TB/s) against ~9.5 kFLOP per drone

@@ -160,11 +160,11 @@ def _kernel_envelope(w: PolicyWeights) -> str | None:
     widths = [t.shape[1] for t in (*w.pi_w, *w.vf_w)]
     if len(w.pi_w) != 2 or len(w.vf_w) != 2 or any(h != HIDDEN for h in widths):
         return (f"the CUDA forward covers two {HIDDEN}-wide layers per trunk, got "
-                f"pi {[t.shape[1] for t in w.pi_w]} vf {[t.shape[1] for t in w.vf_w]}")
+                f"pi {[t.shape[1] for t in w.pi_w]} vf {[t.shape[1] for t in w.vf_w]} (ROADMAP.md, item 27)")
     if not 0 < w.obs_dim <= MAX_OBS_DIM or w.vf_w[0].shape[0] != w.obs_dim:
-        return f"obs width {w.obs_dim} outside 1..{MAX_OBS_DIM}"
+        return f"obs width {w.obs_dim} outside 1..{MAX_OBS_DIM} (ROADMAP.md, item 27)"
     if not 0 < w.act_dim <= HEAD_N:
-        return f"action width {w.act_dim} outside 1..{HEAD_N}"
+        return f"action width {w.act_dim} outside 1..{HEAD_N} (ROADMAP.md, item 27)"
     return None
 
 

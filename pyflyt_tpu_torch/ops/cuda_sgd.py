@@ -196,12 +196,15 @@ def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> None
     for name, sizes in trunks:
         if sizes != (HIDDEN, HIDDEN):
             raise NotImplementedError(
-                f"the CUDA SGD kernels cover two {HIDDEN}-wide layers per trunk, got {name} {sizes}"
+                f"the CUDA SGD kernels cover two {HIDDEN}-wide layers per trunk, got {name} {sizes} "
+                "(ROADMAP.md, item 27)"
             )
     if not 0 < obs_dim <= MAX_OBS_DIM:
-        raise NotImplementedError(f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the CUDA SGD kernels' envelope)")
+        raise NotImplementedError(
+            f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the CUDA SGD kernels' envelope; ROADMAP.md, item 27)"
+        )
     if not 0 < act_dim <= MAX_ACT_DIM:
-        raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM}")
+        raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM} (ROADMAP.md, item 27)")
 
 
 def _range_args(log_std_range) -> tuple[int, float, float]:

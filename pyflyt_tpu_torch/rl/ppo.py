@@ -377,10 +377,17 @@ class PPO:
             raise ValueError(
                 f"{type(env).__name__} has no cached auto-reset; set cached_reset_refresh=0"
             )
-        if config.fused_sgd and obs_width(env) > cuda_sgd.MAX_OBS_DIM:
+        if (config.fused_sgd or config.fused_rollout_forward) and torch.device(env.device).type == "cuda":
+            # the card's K4, K3 and K2 share one envelope (raising naming
+            # ROADMAP item 27)
+            cuda_sgd._check_envelope(obs_width(env), int(torch.as_tensor(env.action_bounds()[0]).shape[-1]),
+                                     tuple(config.feature_sizes) + tuple(config.pi_sizes),
+                                     tuple(config.feature_sizes) + tuple(config.vf_sizes))
+        elif config.fused_sgd and obs_width(env) > cuda_sgd.MAX_OBS_DIM:
+            # the CPU twins take any trunk, but fused_sgd keeps K2's obs width
             raise NotImplementedError(
                 f"fused_sgd at observation width {obs_width(env)}: the CUDA SGD kernels cover widths "
-                f"up to {cuda_sgd.MAX_OBS_DIM}"
+                f"up to {cuda_sgd.MAX_OBS_DIM} (ROADMAP.md, item 27)"
             )
         self.env = env
         self.config = config

@@ -299,3 +299,30 @@ def test_ppo_fused_sgd_raises_past_the_envelope():
 
     with pytest.raises(NotImplementedError, match="up to 64"):
         PPO(SimpleNamespace(obs_size=65, device="cpu"), PPOConfig(fused_sgd=True))
+
+
+def _cuda_env(act: int, obs: int = 21):
+    """An env as far as ``PPO.__init__``'s envelope check reads it, on the
+    card by name only: the check raises before anything is put there."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(obs_size=obs, device=torch.device("cuda"),
+                           action_bounds=lambda: (-np.ones(act, np.float32), np.ones(act, np.float32)))
+
+
+@pytest.mark.parametrize("act,kw,what", [
+    (4, dict(fused_sgd=True, pi_sizes=(64, 64, 32, 32), vf_sizes=(64, 64, 32, 32)), "got pi"),
+    (4, dict(fused_rollout_forward=True, feature_sizes=(256, 256, 256)), "got pi"),
+    (9, dict(fused_sgd=True), "action width 9"),
+    (4, dict(fused_sgd=True, obs=65), "obs width 65"),
+])
+def test_ppo_raises_outside_the_kernel_envelope_on_the_card(act, kw, what):
+    """On a CUDA env, ``PPO`` refuses a network K4, K3 or K2 does not take
+    (the 20 M search's SMALL arm, a three-layer trunk, 9 actions, obs 65),
+    naming ROADMAP item 27, before it puts anything on the card."""
+    from pyflyt_tpu_torch.rl import PPO, PPOConfig
+
+    kw = dict(kw)
+    obs = kw.pop("obs", 21)
+    with pytest.raises(NotImplementedError, match=f"{what}.*item 27"):
+        PPO(_cuda_env(act, obs), PPOConfig(**kw))

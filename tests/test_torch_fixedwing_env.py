@@ -219,7 +219,7 @@ def test_ppo_trains_on_the_fixedwing_env(refresh):
     assert runner.obs.shape == (8, 35)
 
 
-def test_fused_sgd_at_obs_35_raises_naming_its_item():
+def test_fused_sgd_trains_one_iteration_at_obs_35():
     """Once the fused SGD kernel (K2) stopped at obs 32 and this raised,
     naming ROADMAP item 26; K2 now takes widths up to 64, so ``fused_sgd``
     builds and trains at the fixedwing env's obs 35 (on the CPU through

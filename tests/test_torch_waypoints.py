@@ -313,7 +313,7 @@ def test_ppo_trains_on_the_dict_env(refresh):
     assert all(np.isfinite(float(v)) for v in ev.values())
 
 
-def test_fused_sgd_at_obs_33_raises_naming_its_item():
+def test_fused_sgd_trains_one_iteration_at_obs_33():
     """Once the fused SGD kernel (K2) stopped at obs 32 and this raised,
     naming ROADMAP item 26; K2 now takes K4's obs widths up to 64, so
     ``fused_sgd`` builds and trains at obs 33 (on the CPU through K2's

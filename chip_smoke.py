@@ -9,18 +9,24 @@ toolkit (``nvcc``) and PyTorch built for CUDA:
 Phases, each of which fails the script on a failed check:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the main path from pyflyt_tpu_torch/csrc, one
-     nvcc process per source, all started together;
+     nvcc process per source, all started together; then, in a child
+     process on those libraries, traces one launch of rows 1, 5, 6, 8, 9
+     and 10 with torch.profiler and checks its grid, block and registers a
+     thread (CUPTI's kernel record) against the source's THREADS and GROUP
+     (the lanes an env; row 1 is one thread an env);
   3. holds the hover-step kernel against its plain twin on the card: noise
-     off, N=8192 and a ragged N=1000, 20 agent steps with half the fleet at
-     zero thrust; then noise on, the per-lane throttle spread;
+     off, N=8192, a ragged N=1000 and a mid-warp N=4093 (its envs
+     truncating at staggered agent steps), 20 agent steps with half the
+     fleet at zero thrust; then noise on, the per-lane throttle spread, and
+     two noisy calls bit-identical;
   4. holds the policy/value forward kernel against its plain twin at
      n=8192 and n=1000 with TF32 off;
   5. drives the main path: a 2x256 ActorCritic acting in 8192
      PackedQuadXHoverEnv envs with cached auto-reset (refresh 64) for 256
      agent steps, checking that each kernel was launched once per step;
   6. times each kernel against its bound, its plain twin and (where one
-     exists) one PyTorch library call, times single rollout steps (steady
-     and cache-refresh steps apart);
+     exists) one PyTorch library call, times single rollout steps
+     (steady and cache-refresh steps apart);
   7. holds the log-prob kernel (K3) against its plain twin over the PPO
      batch's 262,144 packed rows and a ragged 1000, with TF32 off;
   8. holds the epoch kernel (K2) against its plain twin for one epoch of
@@ -83,10 +89,8 @@ Phases, each of which fails the script on a failed check:
      episodes, against the archive's numbers (fails under 3.0 targets);
  27. ``fw_train``: fixedwing_rl_r5.py's lr3e-4 recipe on the plain env, a
      warm-up and a timed iteration;
- 28. ``fw_kernel_times``: rows 5 and 6 against their bounds, each launch
-     as torch.profiler records it (grid, block, registers a thread,
-     checked against the source's GROUP and THREADS), ptxas registers
-     per variant, K4 at obs 35;
+ 28. ``fw_kernel_times``: rows 5 and 6 against their bounds, ptxas
+     registers per variant, K4 at obs 35 (their launch records: phase 2);
  29. ``df_checks``: K7 (the dogfight agent step) against its twin, noise
      off, stock 30 Hz, 20 agent steps at 4096 and a ragged 999 arenas,
      with preset lanes that fire hits, mutual collision, ground contact,
@@ -103,19 +107,21 @@ Phases, each of which fails the script on a failed check:
      seat);
  32. ``df_train``: the league recipe at 8192 rows, a warm-up and a timed
      iteration on the default f32 path, then with ``fused_sgd``;
- 33. ``df_kernel_times``: K7 against its bound and its twin, its launch
-     as in 28, its ptxas report;
+ 33. ``df_kernel_times``: K7 against its bound and its twin, its ptxas
+     report;
  34. ``rk_checks``: K6's row 8 (one rocket aviary step) against its twin,
      noise off, on 8192 and a ragged 1000 random airborne states with the
      booster lit and the finlets and gimbal swung, then with a fuel-out
-     burn; row 8's main path, 30 chained steps settling 8192 rockets on
-     the ground and 8192 on pads, each step held against its twin per
-     lane; row 9 (the Rocket-Landing agent step) against its twin over 30
-     steps in the L0 env at 8192 and 1000 envs with preset lanes that fire
-     a soft touchdown that completes, a hard touchdown, a ground hit,
-     below ground, out of bounds by displacement and by the ceiling,
-     truncation and the freeze, the lanes beyond tolerance counted per
-     trap; then the noise of both by the throttle's spread;
+     burn, and at a mid-warp 1001; row 8's main path, 30 chained steps
+     settling 8192 rockets on the ground and 8192 on pads, each step held
+     against its twin per lane; row 9 (the Rocket-Landing agent step)
+     against its twin over 30 steps in the L0 env at 8192, 1000 and a
+     mid-warp 1001 envs (there the free envs truncating at staggered agent
+     steps) with preset lanes that fire a soft touchdown that completes, a
+     hard touchdown, a ground hit, below ground, out of bounds by
+     displacement and by the ceiling, truncation and the freeze, the lanes
+     beyond tolerance counted per trap; then the noise of both by the
+     throttle's spread, and two noisy calls bit-identical;
  35. ``k4_rocket_policy``: K4 at obs 33 with the archived L0 weights
      against its twin;
  36. ``rk_rollout``: L0 acting (sampled, through K4) in 8192 stock
@@ -126,7 +132,7 @@ Phases, each of which fails the script on a failed check:
      (fails under a 0.90 pad rate);
  38. ``rk_kernel_times``: rows 8 and 9 against their bounds and their
      twins, their ptxas report, and the ``kernels`` line for all eleven
-     kernels.
+     kernels (rows 1, 5, 6, 8, 9 and 10 with phase 2's launch records).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -159,6 +165,7 @@ BATCH = N_ENVS * 32  # PPOConfig.rollout_steps: the PPO batch
 PARITY_STEPS = 20
 ROLLOUT_STEPS = 256
 OBS_ATOL = 2e-4  # as tests/test_packed_hover.py: FMA contraction + native atan2/asin
+HOVER_MIDWARP = 4093  # a width whose last warp is part full (one thread an env)
 # bf16 forward: kernel and twin round the same bf16 inputs and sum in
 # f32 in another order; a sum that lands on a bf16 rounding boundary can
 # move one trunk activation by one bf16 ulp (<= 2^-8), which reaches the
@@ -266,8 +273,11 @@ def hover_actions(n: int, step: int, device):
     return a.to(device)
 
 
-def check_hover_step(n: int) -> float:
-    """Kernel vs twin over PARITY_STEPS agent steps; returns the max error."""
+def check_hover_step(n: int, staggered: bool = False) -> float:
+    """Kernel vs twin over PARITY_STEPS agent steps; returns the max error.
+    ``staggered``: the envs of the upper half 0-4 agent steps short of the
+    time limit by their column mod 5, so envs of one warp freeze at
+    different agent steps (checked)."""
     import torch
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
@@ -276,9 +286,13 @@ def check_hover_step(n: int) -> float:
     env = PackedQuadXHoverEnv(base=QuadXHoverEnv(noisy_motors=False, device="cuda"))
     state, _ = env.reset(n)
     seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+    if staggered:
+        cols = torch.arange(n // 2, n, device="cuda")
+        state.packed[cq._STEP, cols] = float(env.base.max_steps) - (cols % 5).float()
     kern, plain = state.packed.clone(), state.packed.clone()
     err = 0.0
     done_any = False
+    first_frozen = torch.full((n,), -1, dtype=torch.long, device="cuda")
     for i in range(PARITY_STEPS):
         a = hover_actions(n, i, "cuda").T
         kern[cq._SP : cq._SP + 4] = a
@@ -295,9 +309,32 @@ def check_hover_step(n: int) -> float:
             check(torch.equal(kern[row], plain[row]), f"hover N={n} step {i}: {name} differs")
         check(bool(torch.isfinite(kern).all()), f"hover N={n} step {i}: non-finite state")
         done_any |= bool((kern[cq._TERM] > 0.5).any())
+        first_frozen[((kern[cq._TERM] > 0.5) | (kern[cq._TRUNC] > 0.5)) & (first_frozen < 0)] = i
         err = max(err, e_obs, e_rwd)
     check(done_any, f"hover N={n}: no lane terminated, the freeze path was not exercised")
+    if staggered:  # warps whose envs froze at different steps
+        per_warp = 32 // _source_group("quadx_hover_step.cu")
+        ff = first_frozen[: n - n % per_warp].view(-1, per_warp)
+        check(bool(((ff.amax(1) != ff.amin(1)) & (ff.amin(1) >= 0)).any()),
+              f"hover N={n}: no warp froze at two agent steps")
     return err
+
+
+def _source_const(source: str, name: str) -> int:
+    """``constexpr int <name> = <value>;`` of a kernel source."""
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", (cuda_build.CSRC / source).read_text()).group(1))
+
+
+def _source_group(source: str) -> int:
+    """The lanes an env of a kernel source: its GROUP, or 1 (one thread an
+    env) where it defines none."""
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    return _source_const(source, "GROUP") if "constexpr int GROUP = " in (cuda_build.CSRC / source).read_text() else 1
 
 
 def check_hover_noise() -> dict:
@@ -314,6 +351,8 @@ def check_hover_noise() -> dict:
     packed[cq._SP : cq._SP + 4] = torch.tensor([0.0, 0.0, 0.0, 0.35], device="cuda")[:, None]
     seed = torch.tensor([12345], dtype=torch.int64, device="cuda")
     kern = cq.packed_hover_step(packed, seed, env.consts, mode=0, noisy=True)
+    check(torch.equal(kern, cq.packed_hover_step(packed, seed, env.consts, mode=0, noisy=True)),
+          "noisy hover step: two calls differ")
     plain = cq.packed_hover_step_plain(packed, seed, env.consts, mode=0, noisy=True)
     tk, tp = kern[cq._THR : cq._THR + 4], plain[cq._THR : cq._THR + 4]
     mk, mp = tk.mean(1), tp.mean(1)
@@ -2240,9 +2279,9 @@ def fw_train(seed: int, card: str) -> dict:
 def time_fw_kernels(fw_state, net35, obs35) -> dict:
     """At the slice's shapes (4096 envs, noise on, mode 0): row 5 (one
     aviary step of the fixedwing) and row 6 (the stock agent step), each
-    against the bound, the twin, its launch (``measured_launch``) and the
-    ptxas report (per variant: registers; summed: stack and spills); K4
-    at obs 35 (the archived policy) with its cuBLAS yardstick."""
+    against the bound, the twin and the ptxas report (per variant:
+    registers; summed: stack and spills); K4 at obs 35 (the archived
+    policy) with its cuBLAS yardstick."""
     import re
 
     import torch
@@ -2273,10 +2312,6 @@ def time_fw_kernels(fw_state, net35, obs35) -> dict:
     variants = re.findall(r"entry function '_Z\w*?(step_kernel|waypoints_kernel)I(\w+?)EEv\w*'.*?Used (\d+) registers",
                           log.read_text() if log.exists() else "", re.S)
     out["ptxas_variants"] = [{"kernel": k, "template": t, "registers": int(r)} for k, t, r in variants]
-    out["fixedwing_step"]["launch"] = measured_launch(lambda: cf.packed_step(packed, seed, c5, 0, True),
-                                                      "step_kernel", "fixedwing_step.cu", FW_ENVS)
-    out["fixedwing_waypoints_step"]["launch"] = measured_launch(
-        lambda: cf.packed_waypoints_step(packed, seed, c, 0, True), "waypoints_kernel", "fixedwing_step.cu", FW_ENVS)
     out["policy_value_forward_obs35"] = time_policy_forward(net35, obs35)
     print(json.dumps({"fw_kernel_times": out}), flush=True)
     return out
@@ -2601,25 +2636,22 @@ def measured_launch(fn, kernel: str, source: str, n: int, calls: int = 3) -> dic
     ``calls`` calls of ``fn``, as torch.profiler's trace records them
     (grid, block, registers a thread: CUPTI's kernel record); fails unless
     each call launched it once, each as ``source``'s GROUP lanes a column
-    over ``n`` columns in blocks of its THREADS (the constants read from
-    the source)."""
-    import re
-
+    (1 where it defines none) over ``n`` columns in blocks of its THREADS
+    (the constants read from the source)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pyflyt_tpu_torch.ops import cuda_build
 
-    text = (cuda_build.CSRC / source).read_text()
-    group, threads = (int(re.search(rf"constexpr int {k} = (\d+);", text).group(1)) for k in ("GROUP", "THREADS"))
+    group, threads = _source_group(source), _source_const(source, "THREADS")
     fn()
     torch.cuda.synchronize()
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     trace = cuda_build.BUILD_DIR / f"launch_trace.{os.getpid()}.json"
-    # the profiler keeps only device records that it places inside its own
-    # window on the host's clock; late in a long process a window of a few
-    # milliseconds has been seen to keep none, so the calls get a margin of
-    # host time on each side, widened until every launch is recorded
+    # a profiling run has been seen to keep fewer kernel records than
+    # launches (none late in a long process, hence the child process of
+    # launch_records); the calls are profiled again, with more host time
+    # around them, until each launch is recorded
     tried = []
     for margin_s in (0.05, 0.5, 2.0):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2651,11 +2683,65 @@ def measured_launch(fn, kernel: str, source: str, n: int, calls: int = 3) -> dic
             "registers_per_thread": found[0].get("registers per thread")}
 
 
+def measure_launches() -> dict:
+    """``measured_launch`` of each vehicle kernel whose launch its source
+    sizes by THREADS and GROUP (rows 1, 5, 6, 8, 9 and 10), at its main
+    path's width, on a state fresh from its env's reset: a launch's grid,
+    block and registers do not hang on the state's values."""
+    import torch
+    from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
+    from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
+    from pyflyt_tpu_torch.models import fixedwing, rocket
+    from pyflyt_tpu_torch.ops import cuda_dogfight as cd
+    from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    seed = torch.tensor([17], dtype=torch.int64, device="cuda")
+    henv = PackedQuadXHoverEnv(base=QuadXHoverEnv(device="cuda"))
+    hover = henv.reset(N_ENVS, g)[0].packed.contiguous()
+    fenv = fw_env()
+    fw = fenv.reset(FW_ENVS, g)[0].packed.contiguous()
+    fcfg = fixedwing.FixedwingConfig()
+    c5 = cf.fixedwing_consts(fixedwing.build_params(fcfg, "cuda"), fcfg)
+    denv = df_env().penv
+    df = denv.reset(DF_ARENAS, g)[0].packed.contiguous()
+    renv = rk_env()
+    rk = renv.reset(RK_ENVS, g)[0].packed.contiguous()
+    rcfg = rocket.RocketConfig()
+    c8 = cr.rocket_consts(rocket.build_params(rcfg, "cuda"), rcfg)
+    calls = {
+        "quadx_hover_step": (lambda: cq.packed_hover_step(hover, seed, henv.consts, 0, True), "hover_step_kernel",
+                             "quadx_hover_step.cu", N_ENVS),
+        "fixedwing_step": (lambda: cf.packed_step(fw, seed, c5, 0, True), "step_kernel", "fixedwing_step.cu",
+                           FW_ENVS),
+        "fixedwing_waypoints_step": (lambda: cf.packed_waypoints_step(fw, seed, fenv.consts, 0, True),
+                                     "waypoints_kernel", "fixedwing_step.cu", FW_ENVS),
+        "dogfight_step": (lambda: cd.packed_dogfight_step(df, seed, denv.consts, True), "dogfight_kernel",
+                          "dogfight_step.cu", df.shape[1]),
+        "rocket_step": (lambda: cr.packed_step(rk, seed, c8, True), "rocket_kernel", "rocket_step.cu", RK_ENVS),
+        "rocket_landing_step": (lambda: cr.packed_landing_step(rk, seed, renv.consts, True), "rocket_kernel",
+                                "rocket_step.cu", RK_ENVS),
+    }
+    return {name: measured_launch(fn, kernel, source, n) for name, (fn, kernel, source, n) in calls.items()}
+
+
+def launch_records() -> dict:
+    """``measure_launches`` in a process of its own (this script with
+    ``--launch-records``), on the libraries this run built: the profiler
+    keeps fewer kernel records than launches once a process has launched
+    many kernels, and late in a long run none at all."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--launch-records"], capture_output=True,
+                       text=True, timeout=600, cwd=HERE)
+    check(p.returncode == 0, f"launch records: rc {p.returncode}\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
 def time_df_kernel(packed) -> dict:
     """K7 at the league's shape (8192 drones, noise on): device time
-    against the bound and its twin's time, the launch
-    (``measured_launch``), and the ptxas report (summed, and registers
-    per variant)."""
+    against the bound and its twin's time, and the ptxas report (summed,
+    and registers per variant)."""
     import re
 
     import torch
@@ -2673,9 +2759,7 @@ def time_df_kernel(packed) -> dict:
     b_ms, by = bound_of((rd + wr) * 4 * drones + 8, drones * cd.ops_per_drone(consts), H100_F32_FLOPS)
     out = {"ms": ms, "host_ms": host_ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by, "drones": drones,
            "rows_read": rd, "rows_written": wr, "ops_per_drone": cd.ops_per_drone(consts),
-           "physics_iterations": consts.ratio * consts.inner_steps, "ptxas": ptxas_usage("dogfight_step.cu"),
-           "launch": measured_launch(lambda: cd.packed_dogfight_step(packed, seed, consts, True),
-                                     "dogfight_kernel", "dogfight_step.cu", drones)}
+           "physics_iterations": consts.ratio * consts.inner_steps, "ptxas": ptxas_usage("dogfight_step.cu")}
     log = cuda_build.library_path("dogfight_step.cu").with_suffix(".log")
     variants = re.findall(r"entry function '_Z\w*?dogfight_kernelI(\w+?)EEv\w*'.*?Used (\d+) registers",
                           log.read_text() if log.exists() else "", re.S)
@@ -2698,6 +2782,7 @@ RK_POLICY = "rocket_landing_L0"
 RK_ARCHIVE_LOG = "docs/artifacts/rocket_rl_r5h_tpu.jsonl"
 RK_L0_ENV = dict(starting_fuel_ratio=0.02, ceiling=15.0, max_displacement=15.0, accelerate_drop=False)
 RK_DIVERGED_SHARE = 4 / 64  # of a trap's lanes, as WP_DIVERGED_SHARE
+RK_MIDWARP = 1001  # a width whose last warp holds one group of lanes (K6: 4 lanes an env, 8 envs a warp)
 # row groups of the rocket layout for one aviary step against the twin, at
 # tests/test_pallas_rocket.py:84-115's bounds (the finlet and drag-link
 # velocities as the view)
@@ -2831,10 +2916,11 @@ def rk_traps(st, env) -> dict:
 
 
 def check_rk_step() -> tuple[dict, dict]:
-    """Row 8 against its twin (noise off): one aviary step on 8192 and a
-    ragged 1000 random airborne states with the booster lit, the finlets and
-    gimbal swung, then with a fuel-out burn (0-20 ppm of fuel, most tanks
-    dry within the step), the worst error per row group at the test
+    """Row 8 against its twin (noise off): one aviary step on 8192, a
+    ragged 1000 and a mid-warp 1001 random airborne states with the
+    booster lit, the finlets and gimbal swung, then with a fuel-out burn
+    (0-20 ppm of fuel, most tanks dry within the step), the worst error
+    per row group at the test
     bounds, the contact rows exact, the env rows zero and the pad rows
     kept. Then row 8's main path: RK_STEPS chained steps settling 8192
     rockets on the ground and 8192 on pads (the pad rows set), each step
@@ -2844,7 +2930,7 @@ def check_rk_step() -> tuple[dict, dict]:
     zero depth flips the contact set), the flags of the rest exact; its
     launches counted from all kernels at zero. Then the noise: identical
     lit lanes, one noisy step, the throttle's relative spread against the
-    twin's."""
+    twin's, and a second noisy call bit-identical to the first."""
     import torch
     from pyflyt_tpu_torch.models import rocket
     from pyflyt_tpu_torch.ops import cuda_rocket as cr
@@ -2852,7 +2938,7 @@ def check_rk_step() -> tuple[dict, dict]:
     out = {}
     zero = torch.zeros(1, dtype=torch.int64, device="cuda")
     for case, fuel in (("burn", (0.3, 0.3)), ("fuel_out", (0.0, 2e-5))):
-        for n in (RK_ENVS, N_RAGGED):
+        for n in (RK_ENVS, N_RAGGED, RK_MIDWARP):
             cfg, params, st = rk_airborne(n, seed=340 + n + len(case), fuel=fuel)
             c = cr.rocket_consts(params, cfg)
             packed = cr.pack_state(st)
@@ -2905,7 +2991,9 @@ def check_rk_step() -> tuple[dict, dict]:
     packed = cr.pack_state(st)[:, :1].expand(-1, RK_ENVS).contiguous()  # identical lanes
     seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
     quiet = cr.packed_step(packed, seed, c, False)[cr._BTHR]
-    rk = cr.packed_step(packed, seed, c, True)[cr._BTHR] / quiet - 1.0
+    noisy = cr.packed_step(packed, seed, c, True)
+    check(torch.equal(noisy, cr.packed_step(packed, seed, c, True)), "noisy rocket step: two calls differ")
+    rk = noisy[cr._BTHR] / quiet - 1.0
     rp = cr.packed_step_plain(packed, seed, c, True)[cr._BTHR] / quiet - 1.0
     torch.cuda.synchronize()
     se = float(rk.std()) * 6 / RK_ENVS**0.5
@@ -2919,19 +3007,22 @@ def check_rk_step() -> tuple[dict, dict]:
 
 def check_rk_landing() -> dict:
     """Row 9 against its twin (noise off) over RK_STEPS agent steps in the
-    L0 env (rocket_rl_r5h.py:90-93) at 8192 and a ragged 1000 envs, from
-    the env's reset with ``rk_traps``' presets, the free lanes burning
-    with random finlets and gimbal. Per lane, the largest difference over
-    the rows (the reward row relative to 1 + |reward|): at most
+    L0 env (rocket_rl_r5h.py:90-93) at 8192, a ragged 1000 and a mid-warp
+    1001 envs, from the env's reset with ``rk_traps``' presets, the free
+    lanes burning with random finlets and gimbal; at the mid-warp width
+    the free lanes 0-4 agent steps short of the time limit by their column
+    mod 5, so envs of one warp freeze at different agent steps (checked).
+    Per lane, the largest difference over the rows (the reward row
+    relative to 1 + |reward|): at most
     RK_DIVERGED_SHARE of a trap's lanes beyond 5e-4 + 4e-4 * step, every
     trap firing; a frozen lane keeps every row but the setpoint, the
     re-armed reward and the step count. Then the noise, by the throttle's
-    spread on identical lit lanes."""
+    spread on identical lit lanes, and two noisy calls bit-identical."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_rocket as cr
 
     out = {}
-    for n in (RK_ENVS, N_RAGGED):
+    for n in (RK_ENVS, N_RAGGED, RK_MIDWARP):
         env = rk_env(noisy_boosters=False, **RK_L0_ENV)
         st, _ = env.base.reset(n, torch.Generator(device="cuda").manual_seed(360 + n))
         lanes = rk_traps(st, env)
@@ -2943,6 +3034,10 @@ def check_rk_landing() -> dict:
         for cols in lanes.values():
             free[cols] = False
         groups = {**lanes, "free": free.nonzero().flatten()}
+        if n == RK_MIDWARP:
+            kern[cr._STEP, groups["free"]] = float(env.base.max_steps) - (groups["free"] % 5).float()
+            plain[cr._STEP] = kern[cr._STEP]
+        first_frozen = torch.full((n,), -1, dtype=torch.long, device="cuda")
         keep = torch.ones(cr.ROWS, dtype=torch.bool, device="cuda")
         keep[cr._SP : cr._SP + 7] = False
         keep[cr._RWD] = False
@@ -2979,6 +3074,7 @@ def check_rk_landing() -> dict:
             if first_rwd is None:
                 first_rwd = kern[cr._RWD].clone()
             ev["frozen"] += int(done0[lanes["frozen"]].sum())
+            first_frozen[done0 & (first_frozen < 0)] = i
         f = lambda row, name: int((kern[row, lanes[name]] > 0.5).sum())  # noqa: E731
         ev.update(soft_complete=min(f(cr._CPLT, "soft_complete"),
                                     int((first_rwd[lanes["soft_complete"]] > 500.0).sum())),
@@ -2988,6 +3084,12 @@ def check_rk_landing() -> dict:
         check(all(v > 0 for v in ev.values()), f"rocket landing N={n}: traps {ev}")
         out[f"N{n}"] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev,
                         "lanes_done": int(((kern[cr._TERM] > 0.5) | (kern[cr._TRUNC] > 0.5)).sum())}
+        if n == RK_MIDWARP:  # warps (32 lanes, GROUP of them an env) whose envs froze at different steps
+            per_warp = 32 // _source_const("rocket_step.cu", "GROUP")
+            ff = first_frozen[: n - n % per_warp].view(-1, per_warp)
+            mixed = int(((ff.amax(1) != ff.amin(1)) & (ff.amin(1) >= 0)).sum())
+            check(mixed > 0, f"rocket landing N={n}: no warp froze at two agent steps")
+            out[f"N{n}"]["warps_frozen_at_two_or_more_steps"] = mixed
 
     env = rk_env(**RK_L0_ENV)
     st, _ = env.reset(2, torch.Generator(device="cuda").manual_seed(362))
@@ -2996,7 +3098,10 @@ def check_rk_landing() -> dict:
     packed[cr._SP + 4] = 0.6
     seed = torch.tensor([2468], dtype=torch.int64, device="cuda")
     quiet = cr.packed_landing_step(packed, seed, env.consts, False)[cr._BTHR]
-    rk = cr.packed_landing_step(packed, seed, env.consts, True)[cr._BTHR] / quiet - 1.0
+    noisy = cr.packed_landing_step(packed, seed, env.consts, True)
+    check(torch.equal(noisy, cr.packed_landing_step(packed, seed, env.consts, True)),
+          "noisy rocket landing step: two calls differ")
+    rk = noisy[cr._BTHR] / quiet - 1.0
     rp = cr.packed_landing_step_plain(packed, seed, env.consts, True)[cr._BTHR] / quiet - 1.0
     torch.cuda.synchronize()
     se = float(rk.std()) * 6 / RK_ENVS**0.5
@@ -3209,6 +3314,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write every result to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler tables of 32 rollout steps, a training iteration and a K2 call")
+    ap.add_argument("--launch-records", action="store_true",
+                    help="only print the grouped vehicle kernels' launch records (grid, block, registers, as "
+                         "torch.profiler traces them) as one JSON line; the full run does this in a child process")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "pyflyt_tpu_torch", "csrc")):
@@ -3219,6 +3327,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.launch_records:
+        print(json.dumps(measure_launches()), flush=True)
+        return 0
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv, packed_autoreset_init
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
     from pyflyt_tpu_torch.ops import cuda_build
@@ -3246,11 +3357,17 @@ def main(argv=None) -> int:
         usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln] if log.exists() else []
         print(f"built {src}: {lib.name}; ptxas: {' | '.join(usage) or 'cached build'}", flush=True)
     print(f"build_s {results['build_s']:.1f}", flush=True)
+    # the launches of the vehicle kernels sized by GROUP and THREADS, as the
+    # profiler traces them, from a child process on these libraries
+    records = launch_records()
+    results["launch_records"] = records
+    print(json.dumps({"launch_records": records}), flush=True)
 
     # 3. hover step vs its twin
-    err_a = max(check_hover_step(N_ENVS), check_hover_step(N_RAGGED))
+    err_a = max(check_hover_step(N_ENVS), check_hover_step(N_RAGGED), check_hover_step(HOVER_MIDWARP, staggered=True))
     results["hover_noise"] = check_hover_noise()
-    print(f"hover step: max |kernel - twin| {err_a:.3g} (N={N_ENVS}, {N_RAGGED}); noise spread ok", flush=True)
+    print(f"hover step: max |kernel - twin| {err_a:.3g} (N={N_ENVS}, {N_RAGGED}, {HOVER_MIDWARP} staggered); "
+          "noise spread ok, noisy repeat bit-identical", flush=True)
 
     # 4. policy forward vs its twin, then over the shape grid
     net = ActorCritic(21, 4, device="cuda", generator=torch.Generator().manual_seed(args.seed))
@@ -3316,7 +3433,8 @@ def main(argv=None) -> int:
             "launches": launches["quadx_hover_step"], "max_abs_err": err_a,
             "ms": ms_a, "plain_ms": plain_a, "bound_ms": 1e3 * max(t_bytes_a, t_ops_a),
             "bound_by": "bytes" if t_bytes_a >= t_ops_a else "operations",
-            "library_ms": None,
+            "library_ms": None, "host_ms": host_a, "ptxas": ptxas_usage("quadx_hover_step.cu"),
+            "launch": records["quadx_hover_step"],
         },
         {
             "name": "policy_value_forward", "route": "cuda",
@@ -3545,7 +3663,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": "pyflyt_tpu_torch/csrc/fixedwing_step.cu", "replaces": line,
             "launches": launches_, "max_abs_err": err,
             **{k: ft[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-            "host_ms": ft[name]["host_ms"], "ptxas": ft["ptxas"], "launch": ft[name]["launch"], **extra,
+            "host_ms": ft[name]["host_ms"], "ptxas": ft["ptxas"], "launch": records[name], **extra,
         })
     by_name["policy_value_forward"].update(max_abs_err=err_b, obs35={
         f: ft["policy_value_forward_obs35"].get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -3585,7 +3703,7 @@ def main(argv=None) -> int:
         "name": "dogfight_step", "route": "cuda", "source": "pyflyt_tpu_torch/csrc/dogfight_step.cu",
         "replaces": "pyflyt_tpu/ops/pallas_dogfight.py:259", "launches": df_roll["launches"]["dogfight_step"],
         "max_abs_err": err_df, **{k: dt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-        "host_ms": dt["host_ms"], "ptxas": dt["ptxas"], "launch": dt["launch"],
+        "host_ms": dt["host_ms"], "ptxas": dt["ptxas"], "launch": records["dogfight_step"],
         "main_path": f"df_rollout, {DF_ROLLOUT_STEPS} steps x {2 * DF_ARENAS} agent rows",
         "max_diverged_lanes": {k: c["max_diverged_lanes"] for k, c in results["df_checks"].items() if k != "noise"},
     })
@@ -3634,7 +3752,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": "pyflyt_tpu_torch/csrc/rocket_step.cu", "replaces": line,
             "launches": launches_, "max_abs_err": err,
             **{k: rt[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-            "host_ms": rt[name]["host_ms"], "ptxas": rt["ptxas"], **extra,
+            "host_ms": rt[name]["host_ms"], "ptxas": rt["ptxas"], "launch": records[name], **extra,
         })
     by_name["policy_value_forward"]["max_abs_err"] = err_b
     for k in kernels:

@@ -36,8 +36,9 @@
 //
 // Constants come as a POD struct whose fields have the names of
 // FixedwingConsts in fixedwing_step.cu; the functions are templated on it.
-// The rocket (rocket_step.cu) takes surface, surface_normal_forward and
-// add_surface_wrench one thread per vehicle.
+// The rocket (rocket_step.cu) takes surface, surface_normal_forward,
+// add_surface_wrench, group_mask, group_sum and put, with its own map of
+// items to lanes (its lever arms move with the fuel).
 #pragma once
 
 #include <cuda_runtime.h>

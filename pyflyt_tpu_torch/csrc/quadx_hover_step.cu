@@ -1,4 +1,4 @@
-// One full QuadX-Hover agent step for a batch of envs, one thread per env.
+// One full QuadX-Hover agent step for a batch of envs, one thread an env.
 //
 // Replaces pyflyt_tpu/ops/pallas_quadx.py::packed_hover_step (the
 // env-fused variant of _build_kernel), modes 0 and 8, ENU: `inner_steps`
@@ -11,31 +11,38 @@
 // What bounds it on an H100: each env reads 55 of its 56 f32 rows once
 // (not the reward row, re-armed below) and writes all 56 (444 B), about
 // 2 kFLOP of f32 work per env, so at 8192 envs the bytes (3.64 MB,
-// ~1.09 us at 3.35 TB/s) bound it and a launch (a few us)
-// costs more than either. Design for that: state is SoA (ROWS, N), so a
-// warp's load of one row is one coalesced 128 B transaction; the whole
-// agent step runs in registers with one read and one write per row; the
-// vehicle and task constants arrive as one POD struct by value (no
-// constant-memory upload, no per-vehicle rebuild); the mode, the noise and
-// the sparse reward are template parameters, so each instantiation carries
-// only its own branch. Blocks are 64 threads, so 8192 envs spread over 128
-// of the 132 SMs rather than 32: each thread's long dependent chain, not
-// instruction throughput, sets the time, so spreading the warps helps. Any
-// N is allowed: the last block masks its tail. The per-iteration pieces
+// ~1.09 us at 3.35 TB/s) bound it, and each thread's dependent chain (3
+// aviary steps x 2 physics iterations: the throttle lag, the wrench, the
+// rotation, the integration and the exponential-map quaternion step in a
+// row) costs more than either.
+//
+// Design: state is SoA (ROWS, N), so a warp's load of one row is one
+// coalesced transaction; the whole agent step runs in registers with one
+// read and one write per row; the vehicle and task constants arrive as one
+// POD struct passed by value as a __grid_constant__; the mode, the noise
+// and the sparse reward are template parameters. Blocks are 64 threads,
+// so 8192 envs spread over 128 of the 132 SMs. The per-iteration pieces
 // (row layout, Lane, control, physics) are quadx_lane.cuh's, shared with
-// the generic kernel quadx_step.cu; this file instantiates them for modes
-// 0 and 8, ENU, no wind.
+// quadx_step.cu and quadx_waypoints_step.cu; this file instantiates them
+// for modes 0 and 8, ENU, no wind, and shortens the chain in three ways:
+// the view is computed only on an aviary step's last physics iteration,
+// whose view is the one read (by the next aviary step's controller and
+// the task update); the done-freeze leaves the aviary loop (termination
+// and truncation never clear, so a lane done before an aviary step keeps
+// its registers untouched, with no copy of the lane and no select); the
+// divisions by the mass, the inertia and the control period are
+// multiplications by reciprocals taken once a launch. Groups of 2 and 4 lanes an env measured slower (PERF.md
+// section 6). Any N is allowed: the last block masks its tail.
 //
 // Semantics kept from the Pallas kernel: the reward is re-armed to -0.1
 // every agent step and overwritten with -100 on a fatal event; truncation
 // uses the step count before the increment; the step count stays f32; a
-// lane that was done before an aviary step keeps its snapshot (done-freeze,
-// written as a select so a frozen lane's old values pass through bit for
-// bit); contact is detection-grade (lift out of the ground, stop downward
-// velocity).
+// lane that was done before an aviary step keeps its snapshot; contact is
+// detection-grade (lift out of the ground, stop downward velocity).
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
+#include <climits>
 #include <cstddef>
 
 #include "quadx_lane.cuh"
@@ -91,9 +98,9 @@ struct HoverLane {
 
 template <int MODE, bool NOISY, bool SPARSE>
 __global__ void __launch_bounds__(THREADS)
-    hover_step_kernel(const float* __restrict__ in, float* __restrict__ out,
-                      int n, const long long* __restrict__ seed, HoverConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    hover_step_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
+                      const long long* __restrict__ seed, const __grid_constant__ HoverConsts c) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;  // ragged edge
   const size_t ld = static_cast<size_t>(n);
   const float* S = in + i;
@@ -109,35 +116,37 @@ __global__ void __launch_bounds__(THREADS)
   const float trunc_hit = (stepc > c.max_steps) ? 1.f : 0.f;  // pre-increment
 
   const float no_wind[3] = {0.f, 0.f, 0.f};
+  const quadx_lane::Recip rcp = quadx_lane::reciprocals(c);
   curandStatePhilox4_32_10_t rng;
   if (NOISY) curand_init(static_cast<unsigned long long>(seed[0]),
                          static_cast<unsigned long long>(i), 0ULL, &rng);
 
   for (int a = 0; a < c.inner_steps; ++a) {
-    const bool frozen = fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f;
-    HoverLane nw = s;
+    // done-freeze: the flags never clear, so a lane done before an aviary
+    // step is done for the rest of the agent step
+    if (fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f) break;
     float any_contact = 0.f;
     for (int it = 0; it < c.ratio; ++it) {
-      if (it == 0) quadx_lane::control<MODE, false>(nw.d, sp, c);
-      quadx_lane::physics<NOISY, false, false>(nw.d, c, &rng, no_wind);
-      any_contact = fmaxf(any_contact, nw.d.contact);
+      if (it == 0) quadx_lane::control<MODE, false>(s.d, sp, c, nullptr, &rcp);  // probe: recip
+      const bool read = it == c.ratio - 1;  // probe: read
+      quadx_lane::physics<NOISY, false, false>(s.d, c, &rng, no_wind, read, &rcp);  // probe: recip
+      any_contact = fmaxf(any_contact, s.d.contact);
     }
     // hover task update on the lagged position
-    const float vx = nw.d.view[9], vy = nw.d.view[10], vz = nw.d.view[11];
+    const float vx = s.d.view[9], vy = s.d.view[10], vz = s.d.view[11];
     const float oob_i = (vx * vx + vy * vy + vz * vz > c.dome2) ? 1.f : 0.f;
     const float fatal = fmaxf(any_contact, oob_i);
-    nw.trunc = fminf(nw.trunc + trunc_hit, 1.f);
-    float rwd = (fatal > 0.f) ? -100.f : nw.rwd;
+    s.trunc = fminf(s.trunc + trunc_hit, 1.f);
+    float rwd = (fatal > 0.f) ? -100.f : s.rwd;
     if (!SPARSE) {
       const float dz = vz - 1.f;
       rwd = rwd - sqrtf(vx * vx + vy * vy + dz * dz) -
-            sqrtf(nw.d.view[3] * nw.d.view[3] + nw.d.view[4] * nw.d.view[4]) + 1.f;
+            sqrtf(s.d.view[3] * s.d.view[3] + s.d.view[4] * s.d.view[4]) + 1.f;
     }
-    nw.rwd = rwd;
-    nw.term = fminf(nw.term + fatal, 1.f);
-    nw.coll = fminf(nw.coll + any_contact, 1.f);
-    nw.oob = fminf(nw.oob + oob_i, 1.f);
-    if (!frozen) s = nw;  // done-freeze as a select
+    s.rwd = rwd;
+    s.term = fminf(s.term + fatal, 1.f);
+    s.coll = fminf(s.coll + any_contact, 1.f);
+    s.oob = fminf(s.oob + oob_i, 1.f);
   }
 
   float* O = out + i;
@@ -178,7 +187,8 @@ void launch_noisy(bool noisy, bool sparse, dim3 grid, dim3 block,
 extern "C" int quadx_hover_step(const float* in, float* out, int n,
                                 const long long* seed, const HoverConsts* consts,
                                 int mode, int noisy, int sparse, void* stream) {
-  if (n <= 0 || (mode != 0 && mode != 8)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || n > INT_MAX - THREADS || (mode != 0 && mode != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(THREADS);
   const dim3 grid((n + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

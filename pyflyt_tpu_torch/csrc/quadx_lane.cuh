@@ -122,6 +122,19 @@ __device__ __forceinline__ void store_cascade(float* O, size_t ld, const Cascade
   for (int j = 0; j < CASCADE_ROWS; ++j) O[(CASCADE + j) * ld] = k.r[j];
 }
 
+// Reciprocals of the constants that control and physics divide by, for a
+// kernel that takes them once a launch and multiplies (quadx_hover_step.cu,
+// 24% slower dividing on an H100: PERF.md section 6). A kernel that passes
+// none divides, as the Pallas kernel does.
+struct Recip {
+  float mass, inertia[3], period;
+};
+
+template <class C>
+__device__ __forceinline__ Recip reciprocals(const C& c) {
+  return {1.f / c.mass, {1.f / c.inertia[0], 1.f / c.inertia[1], 1.f / c.inertia[2]}, 1.f / c.period};
+}
+
 // One PID bank of K lanes (ops/pid.py::step), its integrals at r[0..K)
 // and previous errors at r[K..2K) of the cascade registers.
 template <int K>
@@ -139,10 +152,11 @@ __device__ __forceinline__ void pid_bank(float* r, const float* kp, const float*
 
 // The controller at iteration 0 (models/quadx.py::update_control) and the
 // saturation rescale (models/quadx.py::saturation_rescale). Mode 7 steps
-// the cascade registers `cas` (unused in the other modes).
+// the cascade registers `cas` (unused in the other modes); with `rcp` the
+// rate PID multiplies by the reciprocal of the period.
 template <int MODE, bool NED, class C>
 __device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c,
-                                        Cascade* cas = nullptr) {
+                                        Cascade* cas = nullptr, const Recip* rcp = nullptr) {
   float raw[4];
   if constexpr (MODE == 8) {  // direct PWM
     for (int m = 0; m < 4; ++m) raw[m] = sp[m];
@@ -177,7 +191,8 @@ __device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c,
     for (int k = 0; k < 3; ++k) {
       const float err = a_sp[k] - s.view[k];
       s.pint[k] = clampf(s.pint[k] + c.ki[k] * err * c.period, -c.lim[k], c.lim[k]);
-      const float deriv = c.kd[k] * (err - s.pprv[k]) / c.period;
+      const float deriv = rcp ? c.kd[k] * (err - s.pprv[k]) * rcp->period
+                              : c.kd[k] * (err - s.pprv[k]) / c.period;
       s.pprv[k] = err;
       cmd[k] = clampf(c.kp[k] * err + s.pint[k] + deriv, -c.lim[k], c.lim[k]);
     }
@@ -235,11 +250,18 @@ __device__ __forceinline__ void wind_velocity(const Lane& s, const float wbase[3
 // One physics iteration (models/quadx.py::physics_iter): throttle lag and
 // noise, wrench from the lagged read, the new read from the
 // pre-integration state (ENU or NED view; drag on R^T (v - wind)),
-// semi-implicit Euler, detection-grade ground contact.
+// semi-implicit Euler, detection-grade ground contact. With `read` false
+// the view (Euler angles, body rates, body velocity, lagged position) is
+// left as it was: no iteration reads it, so a caller that reads it only
+// after an aviary step's last iteration computes it only there. The
+// lagged body rates and air velocity, which the next iteration's drag
+// reads, are taken every iteration. With `rcp` the integration multiplies
+// by the reciprocals of the mass and the inertia.
 template <bool NOISY, bool NED, bool WIND, class C>
 __device__ __forceinline__ void physics(Lane& s, const C& c,
                                         curandStatePhilox4_32_10_t* rng,
-                                        const float wind[3]) {
+                                        const float wind[3], bool read = true,
+                                        const Recip* rcp = nullptr) {
   float nrm[4] = {0.f, 0.f, 0.f, 0.f};
   if (NOISY) {
     const float4 g = curand_normal4(rng);
@@ -287,15 +309,15 @@ __device__ __forceinline__ void physics(Lane& s, const C& c,
   } else {
     for (int k = 0; k < 3; ++k) drg_new[k] = lvb[k];
   }
-  quadx_math::quat_to_euler(s.quat, eul);
+  if (read) quadx_math::quat_to_euler(s.quat, eul);
 
   // semi-implicit Euler (core/integrator.py::step, diagonal inertia)
   const float fw[3] = {r[0] * fx + r[1] * fy + r[2] * fz,
                        r[3] * fx + r[4] * fy + r[5] * fz,
                        r[6] * fx + r[7] * fy + r[8] * fz};
-  s.lvel[0] = s.lvel[0] + c.dt * (fw[0] / c.mass);
-  s.lvel[1] = s.lvel[1] + c.dt * (fw[1] / c.mass);
-  s.lvel[2] = s.lvel[2] + c.dt * (fw[2] / c.mass - GRAVITY);
+  s.lvel[0] = s.lvel[0] + c.dt * (rcp ? fw[0] * rcp->mass : fw[0] / c.mass);
+  s.lvel[1] = s.lvel[1] + c.dt * (rcp ? fw[1] * rcp->mass : fw[1] / c.mass);
+  s.lvel[2] = s.lvel[2] + c.dt * ((rcp ? fw[2] * rcp->mass : fw[2] / c.mass) - GRAVITY);
   const float* I = c.inertia;
   const float ob[3] = {avb_new[0], avb_new[1], avb_new[2]};
   const float gyro[3] = {ob[1] * I[2] * ob[2] - ob[2] * I[1] * ob[1],
@@ -303,7 +325,8 @@ __device__ __forceinline__ void physics(Lane& s, const C& c,
                          ob[0] * I[1] * ob[1] - ob[1] * I[0] * ob[0]};
   const float tq[3] = {tx, ty, tz};
   float obn[3];
-  for (int k = 0; k < 3; ++k) obn[k] = ob[k] + c.dt * ((tq[k] - gyro[k]) / I[k]);
+  for (int k = 0; k < 3; ++k)
+    obn[k] = ob[k] + c.dt * (rcp ? (tq[k] - gyro[k]) * rcp->inertia[k] : (tq[k] - gyro[k]) / I[k]);
   for (int k = 0; k < 3; ++k)
     s.avel[k] = r[3 * k] * obn[0] + r[3 * k + 1] * obn[1] + r[3 * k + 2] * obn[2];
   for (int k = 0; k < 3; ++k) s.pos[k] = s.pos[k] + c.dt * s.lvel[k];
@@ -325,17 +348,19 @@ __device__ __forceinline__ void physics(Lane& s, const C& c,
 
   // the read: NED remaps the view (models/quadx.py::update_state); the
   // body state and the drag/pqr reads stay ENU/FLU
-  if (NED) {
-    s.view[0] = avb_new[0]; s.view[1] = -avb_new[1]; s.view[2] = -avb_new[2];
-    s.view[3] = eul[0]; s.view[4] = -eul[1]; s.view[5] = HALF_PI - eul[2];
-    s.view[6] = lvb[0]; s.view[7] = -lvb[1]; s.view[8] = -lvb[2];
-    s.view[9] = pos_pre[1]; s.view[10] = pos_pre[0]; s.view[11] = -pos_pre[2];
-  } else {
-    for (int k = 0; k < 3; ++k) {
-      s.view[k] = avb_new[k];
-      s.view[3 + k] = eul[k];
-      s.view[6 + k] = lvb[k];
-      s.view[9 + k] = pos_pre[k];
+  if (read) {
+    if (NED) {
+      s.view[0] = avb_new[0]; s.view[1] = -avb_new[1]; s.view[2] = -avb_new[2];
+      s.view[3] = eul[0]; s.view[4] = -eul[1]; s.view[5] = HALF_PI - eul[2];
+      s.view[6] = lvb[0]; s.view[7] = -lvb[1]; s.view[8] = -lvb[2];
+      s.view[9] = pos_pre[1]; s.view[10] = pos_pre[0]; s.view[11] = -pos_pre[2];
+    } else {
+      for (int k = 0; k < 3; ++k) {
+        s.view[k] = avb_new[k];
+        s.view[3 + k] = eul[k];
+        s.view[6 + k] = lvb[k];
+        s.view[9 + k] = pos_pre[k];
+      }
     }
   }
   for (int k = 0; k < 3; ++k) {

@@ -15,14 +15,12 @@ and the butterfly's sum order on the twin's per-surface wrenches.
 
 from __future__ import annotations
 
-import re
-
 import numpy as np
 import pytest
 import torch
 
+from _lane_layout import butterfly, const, csrc_text, thread_map
 from pyflyt_tpu_torch.models import fixedwing
-from pyflyt_tpu_torch.ops import cuda_build
 from pyflyt_tpu_torch.ops import cuda_dogfight as cd
 from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
 
@@ -32,16 +30,8 @@ WIDTHS = {K5: (1, 1000, 4093, 4096), K7: (2, 1998, 2002, 8192)}
 HEADER = "fixedwing_lane.cuh"
 
 
-def _source(name: str) -> str:
-    return (cuda_build.CSRC / name).read_text()
-
-
-def _const(source: str, name: str) -> int:
-    return int(re.search(rf"constexpr int {name} = (\d+);", _source(source)).group(1))
-
-
 def _sizes(source: str) -> tuple[int, int]:
-    return _const(source, "GROUP"), _const(source, "THREADS")
+    return const(source, "GROUP"), const(source, "THREADS")
 
 
 @pytest.mark.parametrize("source", [K5, K7])
@@ -53,7 +43,7 @@ def test_group_and_block_sizes(source):
 
 def test_the_mirrored_lines_are_the_sources():
     """The lines the mirrors below copy, as the sources write them."""
-    header = _source(HEADER)
+    header = csrc_text(HEADER)
     assert "return ((1u << G) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(G - 1));" in header
     assert "for (int o = 1; o < G; o <<= 1) x += __shfl_xor_sync(mask, x, o);" in header
     assert "const int k = lane + G * j;" in header
@@ -63,22 +53,11 @@ def test_the_mirrored_lines_are_the_sources():
     sums = header.index("f[i] = group_sum<G>(f[i], mask);")
     assert header.index("add_surface_wrench(o.S[j]") < sums < header.index("f[i] += rc * c.mot_f[i];")
     for source in (K5, K7):
-        text = _source(source)
+        text = csrc_text(source)
         assert "const int tid = blockIdx.x * THREADS + threadIdx.x;" in text
         assert "const int i = tid / GROUP, lane = tid % GROUP;" in text
         assert "(n * GROUP + THREADS - 1) / THREADS" in text
-    assert "__shfl_xor_sync(FULL_MASK, x, GROUP)" in _source(K7)
-
-
-def thread_map(n: int, group: int, threads: int) -> dict:
-    """The kernels' map of every launched thread: block, warp, lane of the
-    warp, column (drone), lane of the group, group mask."""
-    blocks = -(-n * group // threads)
-    tid = np.arange(blocks * threads)
-    local = tid % threads
-    wl = local % 32
-    return {"block": tid // threads, "warp": tid // 32, "wl": wl, "col": tid // group, "lane": tid % group,
-            "mask": ((1 << group) - 1) << (wl & ~(group - 1)), "blocks": blocks}
+    assert "__shfl_xor_sync(FULL_MASK, x, GROUP)" in csrc_text(K7)
 
 
 def row_owner(row: int, group: int) -> int:
@@ -169,17 +148,6 @@ def _wrench_partials(group: int, n: int, seed: int) -> tuple[np.ndarray, np.ndar
     for k, w in enumerate(parts):
         lanes[k % group] = lanes[k % group] + w
     return lanes, motor, serial
-
-
-def butterfly(lanes: np.ndarray) -> np.ndarray:
-    """fixedwing_lane.cuh::group_sum on every lane: x += shfl_xor(x, o)
-    for o = 1, 2, ..., G / 2."""
-    group = lanes.shape[0]
-    x, o = lanes.copy(), 1
-    while o < group:
-        x = x + x[np.arange(group) ^ o]
-        o <<= 1
-    return x
 
 
 @pytest.mark.parametrize("source", [K5, K7])

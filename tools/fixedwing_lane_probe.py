@@ -1,45 +1,62 @@
-"""Times K5 (``csrc/fixedwing_step.cu``: row 5 ``fixedwing_step``, row 6
-``fixedwing_waypoints_step``) and K7 (``csrc/dogfight_step.cu``) on one
-card at their stock shapes, as built and in variants of the same sources,
-in one process and in turns:
+"""Times the vehicle kernels that spread a vehicle over a group of lanes on
+one card at their stock shapes, as built and in variants of the same
+sources, in one process and in turns: K5 (``csrc/fixedwing_step.cu``: row 5
+``fixedwing_step``, row 6 ``fixedwing_waypoints_step``), K7
+(``csrc/dogfight_step.cu``), K6 (``csrc/rocket_step.cu``: row 8
+``rocket_step``, row 9 ``rocket_landing_step``) and K1-hover (row 1,
+``csrc/quadx_hover_step.cu``). The variants:
 
-- ``built``: the sources as they are (GROUP lanes a drone, the view read
-  only on an aviary step's last physics iteration);
-- ``g4``: GROUP = 4 in both sources (the lines marked ``probe: group``);
-- ``g16``: GROUP = 16 in K5 (K5 only: K7's pairs of groups fill a warp);
+- ``built``: the sources as they are;
+- ``g2``, ``g4``, ``g8``, ``g16``: GROUP lanes a vehicle (the lines
+  marked ``probe: group``): K6 at 2 and 8 (at 8 with a launch bound of 8
+  blocks an SM, 128 registers, so that 8192 envs' 1024 blocks are all
+  resident at once); K5 and K7 at 4; K5 at 16 (K7's pairs of groups fill
+  a warp at 8);
 - ``no_min_blocks``: K7 without its launch bound's minimum of blocks an
-  SM (the line marked ``probe: min_blocks``): ptxas takes the registers
-  it likes, where the bound caps them at the 128 that keep all 1024
-  blocks of the league's width resident at once;
+  SM (the line marked ``probe: min_blocks``): ptxas takes the registers it
+  likes, where the bound caps them at 128, which keeps all 1024 blocks of
+  its stock width resident at once;
 - ``no_hoist``: the view read on every physics iteration (the lines marked
-  ``probe: read``);
+  ``probe: read``; in K1-hover the shared iteration's ``read`` argument);
+- ``no_recip``: K1-hover dividing by the mass, the inertia and the control
+  period, as rows 2 and 4 do, where it multiplies by reciprocals taken
+  once a launch (the lines marked ``probe: recip``);
 - ``no_engage``: K7's gun cone stubbed (no ``sincosf``, ``sqrtf``,
   ``acosf``), to split K7's time from K5's;
-- with ``--other NAME=ROOT`` (repeatable): ``NAME``, the two sources of
-  another checkout (for example the one-thread-per-drone design, ``git
-  archive`` of its commit unpacked under ``build/``), and
+- with ``--other NAME=ROOT`` (repeatable): ``NAME``, the four sources of
+  another checkout (for example the parent commit, ``git archive`` of its
+  ``pyflyt_tpu_torch/csrc`` unpacked under ``build/``), and
   ``NAME_no_engage``.
 
-Shapes: row 5 and row 6 at 4096 envs of the stock Fixedwing-Waypoints env
-(mode 0), K7 at 8192 drones of the league's env, each with motor noise on
-and off, from states flown 16 agent steps from a reset with random
-setpoints; K7 also (``k7_league``) on the state that ``chip_smoke.py``'s
-serving rollout of the league's ``s100`` leaves, where ``chip_smoke.py``
-times it. Beside each time:
-the variant's registers (ptxas) and, noise off, its largest difference
-from ``built`` over one call (``no_engage`` variants differ by design).
+A variant is timed on the calls of the sources it changes (``NAME`` on
+all). Shapes: row 5 and row 6 at 4096 envs of the stock
+Fixedwing-Waypoints env (mode 0) and K7 at 8192 drones of the league's env,
+from states flown 16 agent steps from a reset with random setpoints, K7
+also (``k7_league``) on the state that ``chip_smoke.py``'s serving rollout
+of the league's ``s100`` leaves; rows 8 and 9 at 8192 envs on the state of
+step 32 of ``chip_smoke.py``'s rocket serving rollout (the archived L0
+acting), where ``chip_smoke.py`` times them; row 1 at 8192 envs on the
+state a 64-step hover rollout with auto-reset leaves (a seeded random
+policy), and, as built and in the ``--other`` checkouts, with ``ratio``
+1-4 physics iterations an aviary step (``row1_ratio<r>``), which prices
+one iteration. Each with noise on and off. Beside each time: the
+variant's registers, stack frames and spill stores (ptxas) and its
+largest difference from ``built`` over one call, noise off and on
+(``no_engage`` differs by design; a changed GROUP sums in another order).
 
     python3 tools/fixedwing_lane_probe.py [--other NAME=ROOT ...] [--out FILE]
 
 Needs a CUDA card and ``nvcc``; the variants are built under
-``build/fixedwing_lane_probe/``. Prints the card line and one JSON line
-per variant and round (two rounds, the second in reverse order).
+``build/fixedwing_lane_probe/``, each source only where the variant
+changes it. Prints the card line and one JSON line per variant and round
+(two rounds, the second in reverse order).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -50,8 +67,10 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-SOURCES = ("fixedwing_step.cu", "dogfight_step.cu")
-FW_ENVS, DF_ARENAS, WARM_STEPS, ROUNDS = 4096, 4096, 16, 2
+K5, K7, K6, K1 = "fixedwing_step.cu", "dogfight_step.cu", "rocket_step.cu", "quadx_hover_step.cu"
+SOURCES = (K5, K7, K6, K1)
+FW_ENVS, DF_ARENAS, HOVER_ENVS, WARM_STEPS, HOVER_STEPS, ROUNDS = 4096, 4096, 8192, 16, 64, 2
+RATIOS = (1, 2, 3, 4)
 # K7's gun cone as both designs write it, and its stub
 ENGAGE = [
     ("sincosf(s.view[4], &sin_p, &cos_p);", "sin_p = 0.f, cos_p = 1.f;"),
@@ -61,20 +80,27 @@ ENGAGE = [
     ("const float ang_new = acosf(fminf(fmaxf(__fdiv_rn(dot, fmaxf(dist_new, 1e-8f)), -1.f), 1.f));",
      "const float ang_new = dot;"),
 ]
-# (variant, {source: [(marker or None, text, replacement), ...]}): on each
-# line marked "probe: <marker>" (any line when None), `text` becomes
-# `replacement`; every substitution must apply at least once
+
+
+def group(g: int) -> tuple:
+    return ("group", re.compile(r"GROUP = \d+;"), f"GROUP = {g};")
+
+
+# (variant, {source: [(marker or None, text or regex, replacement), ...]}):
+# on each line marked "probe: <marker>" (any line when None), `text`
+# becomes `replacement`; every substitution must apply at least once
 VARIANTS = {
-    "g4": {s: [("group", "GROUP = 8;", "GROUP = 4;")] for s in SOURCES},
-    "g16": {"fixedwing_step.cu": [("group", "GROUP = 8;", "GROUP = 16;")], "dogfight_step.cu": []},
-    "no_min_blocks": {"fixedwing_step.cu": [],
-                      "dogfight_step.cu": [("min_blocks", "__launch_bounds__(THREADS, MIN_BLOCKS)",
-                                            "__launch_bounds__(THREADS)")]},
+    "g2": {K6: [group(2)]},
+    "g4": {s: [group(4)] for s in (K5, K7)},
+    "g8": {K6: [group(8), (None, re.compile(r"__launch_bounds__\(THREADS\)$"), "__launch_bounds__(THREADS, 8)")]},
+    "g16": {K5: [group(16)]},
+    "no_min_blocks": {K7: [("min_blocks", "__launch_bounds__(THREADS, MIN_BLOCKS)", "__launch_bounds__(THREADS)")]},
     "no_hoist": {s: [("read", "it == c.ratio - 1;", "true;")] for s in SOURCES},
-    "no_engage": {"fixedwing_step.cu": [], "dogfight_step.cu": [(None, a, b) for a, b in ENGAGE]},
+    "no_recip": {K1: [("recip", "&rcp)", "nullptr)")]},
+    "no_engage": {K7: [(None, a, b) for a, b in ENGAGE]},
 }
-# the calls a variant is not timed on (by a part of its name)
-SKIP = {"no_engage": ("row5", "row6"), "g16": ("k7", "k7_league"), "no_min_blocks": ("row5", "row6")}
+CALL_SOURCE = {"row5": K5, "row6": K5, "k7": K7, "k7_league": K7, "row8": K6, "row9": K6, "row1": K1,
+               **{f"row1_ratio{r}": K1 for r in RATIOS}}
 
 
 def write_variant(name: str, csrc: str, subs: dict) -> str:
@@ -92,8 +118,13 @@ def write_variant(name: str, csrc: str, subs: dict) -> str:
         for marker, old, new in subs.get(source, []):
             hit = 0
             for i, line in enumerate(lines):
-                if (marker is None or line.rstrip().endswith(f"probe: {marker})") or
-                        line.rstrip().endswith(f"// probe: {marker}")) and old in line:
+                if not (marker is None or line.rstrip().endswith(f"probe: {marker})") or
+                        line.rstrip().endswith(f"// probe: {marker}")):
+                    continue
+                if isinstance(old, re.Pattern) and old.search(line):
+                    lines[i] = old.sub(new, line)
+                    hit += 1
+                elif isinstance(old, str) and old in line:
                     lines[i] = line.replace(old, new)
                     hit += 1
             if not hit:
@@ -103,8 +134,8 @@ def write_variant(name: str, csrc: str, subs: dict) -> str:
     return out
 
 
-def build_variant(cuda_build, name: str, src_dir: str) -> dict:
-    """Both sources of ``src_dir`` compiled there: {source: (CDLL, ptxas log)}."""
+def build_variant(cuda_build, name: str, src_dir: str, sources) -> dict:
+    """``sources`` of ``src_dir`` compiled there: {source: (CDLL, ptxas log)}."""
     def one(source):
         lib = os.path.join(src_dir, source.replace(".cu", ".so"))
         p = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", src_dir, "-o", lib,
@@ -113,22 +144,25 @@ def build_variant(cuda_build, name: str, src_dir: str) -> dict:
             raise SystemExit(f"fixedwing_lane_probe: {name}/{source} failed to build:\n{p.stdout}{p.stderr}")
         return source, (ctypes.CDLL(lib), p.stdout + p.stderr)
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return dict(pool.map(one, SOURCES))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources))
 
 
 def registers(log: str) -> dict:
-    """ptxas registers by kernel template (e.g. ``waypoints_kernel<0,1,0>``)."""
-    found = re.findall(r"entry function '_Z\w*?(step_kernel|waypoints_kernel|dogfight_kernel)I(\w+?)EEv\w*'"
-                       r".*?Used (\d+) registers", log, re.S)
+    """ptxas registers by kernel template (e.g. ``waypoints_kernel<0,1,0>``),
+    the largest stack frame and the spill stores summed."""
+    found = re.findall(r"entry function '_Z\w*?(hover_step_kernel|rocket_kernel|step_kernel|waypoints_kernel|"
+                       r"dogfight_kernel)I(\w+?)EEv\w*'.*?Used (\d+) registers", log, re.S)
+    frames = [int(v) for v in re.findall(r"(\d+) bytes stack frame", log)]
     spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", log))
-    return {"by_template": {f"{k}<{t}>": int(r) for k, t, r in found}, "spill_store_bytes": spills}
+    return {"by_template": {f"{k}<{t}>": int(r) for k, t, r in found}, "max_stack_frame": max(frames, default=0),
+            "spill_store_bytes": spills}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=ROOT",
-                    help="a checkout whose two sources to time beside these, under NAME")
+                    help="a checkout whose four sources to time beside these, under NAME")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     import torch
@@ -137,38 +171,49 @@ def main(argv=None) -> int:
         print("fixedwing_lane_probe: CUDA is not available", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from pyflyt_tpu_torch.models import fixedwing
+    from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv, packed_autoreset_init
+    from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
+    from pyflyt_tpu_torch.models import fixedwing, rocket
     from pyflyt_tpu_torch.ops import cuda_build
     from pyflyt_tpu_torch.ops import cuda_dogfight as cd
     from pyflyt_tpu_torch.ops import cuda_fixedwing as cf
+    from pyflyt_tpu_torch.ops import cuda_quadx as cq
+    from pyflyt_tpu_torch.ops import cuda_rocket as cr
+    from pyflyt_tpu_torch.rl import checkpoint, ppo
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
 
     results = {"card": cs.card_line()}
     print(results["card"], flush=True)
     csrc = str(cuda_build.CSRC)
     dirs = {name: write_variant(name, csrc, subs) for name, subs in VARIANTS.items()}
     dirs["built"] = write_variant("built", csrc, {})
+    changed = {name: tuple(s for s in SOURCES if subs.get(s)) for name, subs in VARIANTS.items()}
+    changed["built"] = SOURCES
     others = []
     for spec in args.other:
         name, root = spec.split("=", 1)
         src = os.path.join(os.path.abspath(root), "pyflyt_tpu_torch", "csrc")
         dirs[name] = write_variant(name, src, {})
         dirs[f"{name}_no_engage"] = write_variant(f"{name}_no_engage", src, VARIANTS["no_engage"])
+        changed[name], changed[f"{name}_no_engage"] = SOURCES, (K7,)
         others += [name, f"{name}_no_engage"]
     with ThreadPoolExecutor(len(dirs)) as pool:
-        libs = dict(zip(dirs, pool.map(lambda kv: build_variant(cuda_build, *kv), dirs.items())))
+        libs = dict(zip(dirs, pool.map(lambda name: build_variant(cuda_build, name, dirs[name], changed[name]),
+                                       dirs)))
     results["registers"] = {name: {s: registers(log) for s, (_, log) in v.items()} for name, v in libs.items()}
     print(json.dumps({"registers": results["registers"]}), flush=True)
 
-    kernels = {"row5": cf.STEP_KERNEL, "row6": cf.WAYPOINTS_KERNEL, "k7": cd.KERNEL}
-    symbols = {"row5": ("fixedwing_step.cu", "fixedwing_step"),
-               "row6": ("fixedwing_step.cu", "fixedwing_waypoints_step"),
-               "k7": ("dogfight_step.cu", "dogfight_step")}
+    kernels = {"row5": cf.STEP_KERNEL, "row6": cf.WAYPOINTS_KERNEL, "k7": cd.KERNEL, "row8": cr.STEP_KERNEL,
+               "row9": cr.LANDING_KERNEL, "row1": cq.KERNEL}
 
     def bind(name):
+        """The variant's entry points, the built ones for the sources it
+        leaves as they are."""
         fns = {}
-        for key, (source, symbol) in symbols.items():
-            fn = getattr(libs[name][source][0], symbol)
-            fn.argtypes, fn.restype = kernels[key].argtypes, ctypes.c_int
+        for key, kernel in kernels.items():
+            lib = libs[name] if kernel.source in libs[name] else libs["built"]
+            fn = getattr(lib[kernel.source][0], kernel.symbol)
+            fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
             fns[key] = fn
         return fns
 
@@ -194,21 +239,36 @@ def main(argv=None) -> int:
         df[cf._SP + 3] = 0.75
         df = cd.packed_dogfight_step(df, seed, denv.consts, True)
     torch.cuda.synchronize()
-    from pyflyt_tpu_torch.rl import checkpoint
-
     _, league = cs.df_rollout(checkpoint.load_policy_npz(cs.DF_POLICY, device="cuda"), 0, results["card"])
     league = league.contiguous()
+    _, rk = cs.rk_rollout(checkpoint.load_policy_npz(cs.RK_POLICY, device="cuda"), 0, results["card"])
+    rk = rk.contiguous()
+    henv = PackedQuadXHoverEnv(base=QuadXHoverEnv(device="cuda"))
+    hnet = ActorCritic(henv.obs_size, 4, device="cuda", generator=torch.Generator().manual_seed(0))
+    ars, hobs = packed_autoreset_init(henv, HOVER_ENVS, g)
+    ars, _, _ = ppo.rollout(hnet, henv, ars, hobs, HOVER_STEPS, g, refresh=64)
+    hover = ars.env_state.packed.contiguous()
     cfg = fixedwing.FixedwingConfig()
     c5 = cf.fixedwing_consts(fixedwing.build_params(cfg, "cuda"), cfg)
+    rcfg = rocket.RocketConfig()
+    c8 = cr.rocket_consts(rocket.build_params(rcfg, "cuda"), rcfg)
+    c9 = cs.rk_env().consts
+    c1 = henv.consts
     calls = {
         "row5": lambda noisy: cf.packed_step(fw, seed, c5, 0, noisy),
         "row6": lambda noisy: cf.packed_waypoints_step(fw, seed, fenv.consts, 0, noisy),
         "k7": lambda noisy: cd.packed_dogfight_step(df, seed, denv.consts, noisy),
         "k7_league": lambda noisy: cd.packed_dogfight_step(league, seed, denv.consts, noisy),
+        "row8": lambda noisy: cr.packed_step(rk, seed, c8, noisy),
+        "row9": lambda noisy: cr.packed_landing_step(rk, seed, c9, noisy),
+        "row1": lambda noisy: cq.packed_hover_step(hover, seed, c1, 0, noisy),
     }
-    reference = {key: call(False).clone() for key, call in calls.items()}
+    for r in RATIOS:
+        cr_ = dataclasses.replace(c1, ratio=r)
+        calls[f"row1_ratio{r}"] = lambda noisy, cr_=cr_: cq.packed_hover_step(hover, seed, cr_, 0, noisy)
+    reference = {(key, noisy): call(noisy).clone() for key, call in calls.items() for noisy in (False, True)}
 
-    order = ["built", "g4", "g16", "no_min_blocks", "no_hoist", "no_engage"] + others
+    order = ["built", *VARIANTS] + others
     results["rounds"] = []
     try:
         for rnd in range(ROUNDS):
@@ -216,12 +276,15 @@ def main(argv=None) -> int:
                 for key in kernels:
                     kernels[key]._fn = bound[name][key]
                 r = {"variant": name, "round": rnd}
-                skip = [k for part, keys in SKIP.items() if part in name for k in keys]
                 for key, call in calls.items():
-                    if key in skip:
+                    if CALL_SOURCE[key] not in changed[name]:
+                        continue
+                    if key.startswith("row1_ratio") and name != "built" and name not in others:
                         continue
                     if rnd == 0:
-                        r[f"{key}_max_abs_diff_vs_built"] = (call(False) - reference[key]).abs().max().item()
+                        for noisy, tag in ((False, ""), (True, "noisy_")):
+                            r[f"{key}_{tag}max_abs_diff_vs_built"] = (
+                                call(noisy) - reference[key, noisy]).abs().max().item()
                     for noisy in (True, False):
                         r[f"{key}_{'noise' if noisy else 'quiet'}_us"] = 1e3 * cs.time_ms(
                             lambda: call(noisy), iters=200)[0]

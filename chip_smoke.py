@@ -10,10 +10,11 @@ Phases, each of which fails the script on a failed check:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the main path from pyflyt_tpu_torch/csrc, one
      nvcc process per source, all started together; then, in a child
-     process on those libraries, traces one launch of rows 1, 5, 6, 8, 9
-     and 10 with torch.profiler and checks its grid, block and registers a
-     thread (CUPTI's kernel record) against the source's THREADS and GROUP
-     (the lanes an env; row 1 is one thread an env);
+     process on those libraries, traces one launch of rows 1, 2, 4, 5, 6,
+     8, 9 and 10 with torch.profiler and checks its grid, block and
+     registers a thread (CUPTI's kernel record) against the source's
+     THREADS and GROUP (the lanes an env; rows 1, 2 and 4 are one thread an
+     env);
   3. holds the hover-step kernel against its plain twin on the card: noise
      off, N=8192, a ragged N=1000 and a mid-warp N=4093 (its envs
      truncating at staggered agent steps), 20 agent steps with half the
@@ -52,7 +53,8 @@ Phases, each of which fails the script on a failed check:
      their plain twins and a library yardstick, and counts the CUDA
      kernels of one K2 call (torch.profiler);
  11-16. the generic QuadX kernel (K1 generic) against its twin over modes
-     0/8/9 x ENU/NED x wind, its draws by their statistics, the
+     0/8/9 x ENU/NED x wind at N=8192, a ragged 1000 and a mid-warp 4093,
+     its draws by their statistics and two noisy calls bit-identical, the
      ``cuda_quadx.step`` drop-in and the ``use_kernel`` env, the 8192-env
      mod-hovering rollout and training (``ppo_solve_r5``'s recipe), the
      hovering CLI (``train``, ``eval``, ``eval-pid-expert`` in mode 7);
@@ -60,9 +62,10 @@ Phases, each of which fails the script on a failed check:
      1000 for three winds, and the mode-7 ``cuda_quadx.step`` drop-in
      against ``models.quadx.step``;
  18. the waypoints kernel (row 4) against its twin in modes 7, 0 and 8 at
-     N=8192 and 1000 over 20 agent steps, reach, advance, all-reached,
-     termination, truncation and the freeze all firing, and its noise by
-     the throttle spread;
+     N=8192, 1000 and a mid-warp 4093 (there truncating at staggered agent
+     steps) over 20 agent steps, reach, advance, all-reached, termination,
+     truncation and the freeze all firing, its noise by the throttle spread
+     and two noisy calls bit-identical;
  19. K4 at the waypoints env's observation width 33 against its twin;
  20. the waypoints serving path: K4 acting in 8192 stock mode-7
      PackedQuadXWaypointsEnv envs for 128 steps, one launch of each per
@@ -132,7 +135,8 @@ Phases, each of which fails the script on a failed check:
      (fails under a 0.90 pad rate);
  38. ``rk_kernel_times``: rows 8 and 9 against their bounds and their
      twins, their ptxas report, and the ``kernels`` line for all eleven
-     kernels (rows 1, 5, 6, 8, 9 and 10 with phase 2's launch records).
+     kernels (rows 1, 2, 4, 5, 6, 8, 9 and 10 with phase 2's launch
+     records).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -143,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1018,18 +1023,19 @@ def generic_setpoints(mode: int, conv: str, n: int, step: int):
 
 
 def check_generic_step() -> dict:
-    """K1 generic vs its twin, noise and gusts off, at N=8192 over
-    GENERIC_STEPS aviary steps, in every mode x convention x wind of its
-    envelope (an eighth of the fleet grounded); the worst error per row
-    group of each case, contact and wind rows exact."""
+    """K1 generic vs its twin, noise and gusts off, at N=8192, a ragged 1000
+    and a mid-warp 4093 over GENERIC_STEPS aviary steps, in every mode x
+    convention x wind of its envelope (an eighth of the fleet grounded);
+    the worst error per row group of each case, contact and wind rows
+    exact."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
     cases = {}
-    for conv in ("ENU_FLU", "NED_FRD"):
-        cfg, params, st = airborne_state(conv, N_ENVS, seed=31, grounded=True)
+    for conv, n in itertools.product(("ENU_FLU", "NED_FRD"), (N_ENVS, N_RAGGED, HOVER_MIDWARP)):
+        cfg, params, st = airborne_state(conv, n, seed=31, grounded=True)
         consts = cq.generic_consts(params, cfg)
-        base = (torch.rand(3, N_ENVS, generator=torch.Generator().manual_seed(32)) * 8 - 4).cuda()
+        base = (torch.rand(3, n, generator=torch.Generator().manual_seed(32)) * 8 - 4).cuda()
         for mode in (0, 8, 9):
             for kind, wind in (("none", None),
                                ("baked", {"kind": "gaussian", "base": (3.0, -2.0, 0.5), "max_gust": 0.0}),
@@ -1042,13 +1048,13 @@ def check_generic_step() -> dict:
                 errs = dict.fromkeys(ROW_GROUPS, 0.0)
                 hits = 0
                 for i in range(GENERIC_STEPS):
-                    sp = generic_setpoints(mode, conv, N_ENVS, i)
+                    sp = generic_setpoints(mode, conv, n, i)
                     kern[cq._SP : cq._SP + 4] = sp
                     plain[cq._SP : cq._SP + 4] = sp
                     kern = cq.packed_step(kern, seed, consts, mode, False, wind)
                     plain = cq.packed_step_plain(plain, seed, consts, mode, False, wind)
                     torch.cuda.synchronize()
-                    where = f"generic {conv} mode {mode} wind {kind} step {i}"
+                    where = f"generic {conv} N={n} mode {mode} wind {kind} step {i}"
                     check(bool(torch.isfinite(kern).all()), f"{where}: non-finite state")
                     for name, (a, b) in ROW_GROUPS.items():
                         errs[name] = max(errs[name], (kern[a:b] - plain[a:b]).abs().max().item())
@@ -1057,9 +1063,9 @@ def check_generic_step() -> dict:
                     check(torch.equal(kern[cq._WBASE:], plain[cq._WBASE:]), f"{where}: wind rows differ")
                     hits += int((kern[cq._ANY] > 0.5).sum())
                 worst = max(errs.values())
-                check(worst <= GENERIC_ATOL, f"generic {conv} mode {mode} wind {kind}: error {errs}")
-                check(hits > 0, f"generic {conv} mode {mode} wind {kind}: no contact")
-                cases[f"{conv}/mode{mode}/{kind}"] = {"max_abs_err": worst, "per_group": errs}
+                check(worst <= GENERIC_ATOL, f"generic {conv} N={n} mode {mode} wind {kind}: error {errs}")
+                check(hits > 0, f"generic {conv} N={n} mode {mode} wind {kind}: no contact")
+                cases[f"{conv}/N{n}/mode{mode}/{kind}"] = {"max_abs_err": worst, "per_group": errs}
     return cases
 
 
@@ -1070,7 +1076,8 @@ def check_generic_draws() -> dict:
     Gusts (max_gust 7, per-env base): mean 0 within 5 standard errors and
     std 1 within 4% (5 standard errors) over 8192 x 3 draws, |gust| <= 7, the twin's std within
     5%, axes uncorrelated; motor noise on at the same time, throttle spread
-    against the twin's; the simple field's thermal mean ln(6)·strength."""
+    against the twin's, and two noisy calls bit-identical; the simple
+    field's thermal mean ln(6)·strength."""
     import torch
     from pyflyt_tpu_torch.models import quadx
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
@@ -1087,6 +1094,7 @@ def check_generic_draws() -> dict:
     seed = torch.tensor([4242], dtype=torch.int64, device="cuda")
     c = cq.generic_consts(params, cfg, {"kind": "gaussian", "per_env_base": True, "max_gust": 7.0})
     kern = cq.packed_step(packed, seed, c, 9, True)
+    check(torch.equal(kern, cq.packed_step(packed, seed, c, 9, True)), "noisy generic step: two calls differ")
     plain = cq.packed_step_plain(packed, seed, c, 9, True)
     torch.cuda.synchronize()
     gk = -kern[cq._DRG : cq._DRG + 3] - base
@@ -1565,16 +1573,19 @@ def wp_actions(mode: int, packed, step: int, n: int):
 
 
 def check_waypoints_step() -> dict:
-    """The row-4 kernel vs its twin in modes 7, 0 and 8 at N=8192 and 1000
-    over WP_STEPS agent steps from the env's reset (noise off), an eighth of
-    the fleet started 2 cm above the ground falling and an eighth at the
-    dome's edge flying out: reach, advance, all-reached, termination,
-    truncation and the freeze all fire (each is checked to). Per lane, the
-    largest difference over all rows; at most WP_DIVERGED_SHARE of the
-    lanes beyond 5e-4 + 4e-4 * step, every row of the others (flags
-    included) within it. A frozen lane keeps every row but the setpoint,
-    the step count and the re-armed reward. Then the noise: identical lanes, one noisy agent step,
-    the throttle spread against the twin's."""
+    """The row-4 kernel vs its twin in modes 7, 0 and 8 at N=8192, 1000 and
+    a mid-warp 4093 over WP_STEPS agent steps from the env's reset (noise
+    off), an eighth of the fleet started 2 cm above the ground falling and
+    an eighth at the dome's edge flying out; at 4093 the upper half 0-4
+    agent steps short of the time limit by their column mod 5, so lanes of
+    one warp truncate, and leave the aviary loop, at different agent steps
+    (checked): reach, advance, all-reached, termination, truncation and the
+    freeze all fire (each is checked to). Per lane, the largest difference
+    over all rows; at most WP_DIVERGED_SHARE of the lanes beyond 5e-4 +
+    4e-4 * step, every row of the others (flags included) within it. A
+    frozen lane keeps every row but the setpoint, the step count and the
+    re-armed reward. Then the noise: identical lanes, one noisy agent step,
+    the throttle spread against the twin's, two noisy calls bit-identical."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
@@ -1582,13 +1593,18 @@ def check_waypoints_step() -> dict:
     for mode, kw in WP_CHECKS.items():
         env = wp_env(mode, noisy_motors=False, **kw)
         wb = cq.rows_for(mode)
-        for n in (N_ENVS, N_RAGGED):
+        for n in (N_ENVS, N_RAGGED, HOVER_MIDWARP):
+            staggered = n == HOVER_MIDWARP
             state, _ = env.reset(n, torch.Generator(device="cuda").manual_seed(60 + mode))
             packed = state.packed.clone()
             packed[cq._POS + 2, : n // 8] = 0.02
             packed[cq._LVEL + 2, : n // 8] = -1.0
             packed[cq._POS, n // 8 : n // 4] = 0.99 * math.sqrt(env.consts.dome2)
             packed[cq._LVEL, n // 8 : n // 4] = 3.0
+            if staggered:
+                cols = torch.arange(n // 2, n, device="cuda")
+                packed[cq._STEP, cols] = env.consts.max_steps - (cols % 5).float()
+            first_frozen = torch.full((n,), -1, dtype=torch.long, device="cuda")
             seed = torch.zeros(1, dtype=torch.int64, device="cuda")
             kern, plain = packed.clone(), packed.clone()
             ev = dict.fromkeys(("reach", "all_reached", "termination", "truncation", "out_of_bounds",
@@ -1617,19 +1633,28 @@ def check_waypoints_step() -> dict:
                 check(torch.equal(kern[keep][:, done0], before[keep][:, done0]), f"{where}: a frozen lane moved")
                 ev["frozen"] += int(done0.sum())
                 ev["reach"] += int((kern[wb + cq._WP_REM] < before[wb + cq._WP_REM] - 0.5).sum())
+                first_frozen[((kern[cq._TERM] > 0.5) | (kern[cq._TRUNC] > 0.5)) & (first_frozen < 0)] = i
             for name, row in (("all_reached", wb + cq._WP_CPLT), ("termination", cq._TERM),
                               ("truncation", cq._TRUNC), ("out_of_bounds", cq._OOB), ("collision", cq._COLL)):
                 ev[name] = int((kern[row] > 0.5).sum())
             need = {7: ("reach", "all_reached", "termination", "out_of_bounds", "collision", "frozen"),
                     0: ("termination", "truncation", "frozen"), 8: ("termination", "truncation", "out_of_bounds")}[mode]
             check(all(ev[k] > 0 for k in need), f"waypoints mode {mode} N={n}: events {ev}")
+            if staggered:  # warps whose lanes froze at different agent steps
+                ff = first_frozen[: n - n % 32].view(-1, 32)
+                mixed = int(((ff.amax(1) != ff.amin(1)) & (ff.amin(1) >= 0)).sum())
+                check(mixed > 0, f"waypoints mode {mode} N={n}: no warp froze at two agent steps")
+                ev["warps_frozen_at_two_steps"] = mixed
             out[f"mode{mode}/N{n}"] = {"max_abs_err": err, "max_diverged_lanes": diverged, "events": ev}
 
     env = wp_env(7, noisy_motors=False)
     state, _ = env.reset(N_ENVS, torch.Generator(device="cuda").manual_seed(70))
     packed = state.packed[:, :1].expand(-1, N_ENVS).contiguous()  # identical lanes
     seed = torch.tensor([9876], dtype=torch.int64, device="cuda")
-    tk = cq.packed_waypoints_step(packed, seed, env.consts, 7, True)[cq._THR : cq._THR + 4]
+    noisy = cq.packed_waypoints_step(packed, seed, env.consts, 7, True)
+    check(torch.equal(noisy, cq.packed_waypoints_step(packed, seed, env.consts, 7, True)),
+          "noisy waypoints step: two calls differ")
+    tk = noisy[cq._THR : cq._THR + 4]
     tp = cq.packed_waypoints_step_plain(packed, seed, env.consts, 7, True)[cq._THR : cq._THR + 4]
     sk, sp_ = tk.std(1), tp.std(1)
     se = torch.sqrt((sk**2 + sp_**2) / N_ENVS)
@@ -2685,9 +2710,11 @@ def measured_launch(fn, kernel: str, source: str, n: int, calls: int = 3) -> dic
 
 def measure_launches() -> dict:
     """``measured_launch`` of each vehicle kernel whose launch its source
-    sizes by THREADS and GROUP (rows 1, 5, 6, 8, 9 and 10), at its main
-    path's width, on a state fresh from its env's reset: a launch's grid,
-    block and registers do not hang on the state's values."""
+    sizes by THREADS and GROUP (rows 1, 2, 4, 5, 6, 8, 9 and 10), at its
+    main path's width and variant (row 2: the recipe's mode 9, NED, per-env
+    wind with gusts and noise; row 4: mode 7), on a state fresh from its
+    env's reset: a launch's grid, block and registers do not hang on the
+    state's values."""
     import torch
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
@@ -2701,6 +2728,10 @@ def measure_launches() -> dict:
     seed = torch.tensor([17], dtype=torch.int64, device="cuda")
     henv = PackedQuadXHoverEnv(base=QuadXHoverEnv(device="cuda"))
     hover = henv.reset(N_ENVS, g)[0].packed.contiguous()
+    genv = recipe_env()
+    gpacked = genv.reset(N_ENVS, g)[0].packed.contiguous()
+    wenv = wp_env(7)
+    wpacked = wenv.reset(N_ENVS, g)[0].packed.contiguous()
     fenv = fw_env()
     fw = fenv.reset(FW_ENVS, g)[0].packed.contiguous()
     fcfg = fixedwing.FixedwingConfig()
@@ -2714,6 +2745,10 @@ def measure_launches() -> dict:
     calls = {
         "quadx_hover_step": (lambda: cq.packed_hover_step(hover, seed, henv.consts, 0, True), "hover_step_kernel",
                              "quadx_hover_step.cu", N_ENVS),
+        "quadx_step": (lambda: cq.packed_step(gpacked, seed, genv.consts, 9, True), "quadx_step_kernel",
+                       "quadx_step.cu", N_ENVS),
+        "quadx_waypoints_step": (lambda: cq.packed_waypoints_step(wpacked, seed, wenv.consts, 7, True),
+                                 "waypoints_step_kernel", "quadx_waypoints_step.cu", N_ENVS),
         "fixedwing_step": (lambda: cf.packed_step(fw, seed, c5, 0, True), "step_kernel", "fixedwing_step.cu",
                            FW_ENVS),
         "fixedwing_waypoints_step": (lambda: cf.packed_waypoints_step(fw, seed, fenv.consts, 0, True),
@@ -3541,6 +3576,8 @@ def main(argv=None) -> int:
     gc = genv.consts
     gpacked = mod_state.packed.contiguous()
     gseed = torch.tensor([11], dtype=torch.int64, device="cuda")
+    check(torch.equal(cq.packed_step(gpacked, gseed, gc, 9, True), cq.packed_step(gpacked, gseed, gc, 9, True)),
+          "noisy generic step at the recipe's variant: two calls differ")
     ms_g, host_g = time_ms(lambda: cq.packed_step(gpacked, gseed, gc, 9, True), iters=200)
     plain_g, _ = time_ms(lambda: cq.packed_step_plain(gpacked, gseed, gc, 9, True), iters=3, repeats=3,
                          device_timed=False)
@@ -3553,6 +3590,7 @@ def main(argv=None) -> int:
         "max_abs_err": err_g, "ms": ms_g, "plain_ms": plain_g, "bound_ms": 1e3 * max(t_bytes_g, t_ops_g),
         "bound_by": "bytes" if t_bytes_g >= t_ops_g else "operations", "library_ms": None,
         "host_ms": host_g, "launches_per_train_iteration": train["launches_per_iteration"]["quadx_step"],
+        "launch": records["quadx_step"],
     })
     # 17. K1 generic in mode 7 vs its twin, and the mode-7 drop-in
     results["generic_mode7_checks"] = check_generic_mode7()
@@ -3585,7 +3623,7 @@ def main(argv=None) -> int:
         "replaces": "pyflyt_tpu/ops/pallas_quadx.py:864", "launches": wp_roll["launches"]["quadx_waypoints_step"],
         "max_abs_err": err_w, **{k: wt["quadx_waypoints_step"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "host_ms": wt["quadx_waypoints_step"]["host_ms"],
-        "ptxas": ptxas_usage("quadx_waypoints_step.cu"),
+        "ptxas": ptxas_usage("quadx_waypoints_step.cu"), "launch": records["quadx_waypoints_step"],
         "max_diverged_lanes": max(c["max_diverged_lanes"] for k, c in results["waypoints_checks"].items()
                                   if k != "noise"),
     })

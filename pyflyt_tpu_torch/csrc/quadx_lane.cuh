@@ -16,9 +16,16 @@
 // not carried over: native atan2f/asinf and curand's Philox normals.
 //
 // Constants come as a POD struct (HoverConsts, GenericConsts or
-// WaypointsConsts) whose vehicle fields have the same names in all; the
-// functions are templated on it. The cascade's gains (lp_*, lv_*, ap_*,
-// zp_*, zv_*) are read in mode 7 only, so HoverConsts need not have them.
+// WaypointsConsts) whose vehicle fields have the same names in all, passed
+// to the kernels as a __grid_constant__; the functions are templated on
+// it. The cascade's gains (lp_*, lv_*, ap_*, zp_*, zv_*) are read in mode 7
+// only, so HoverConsts need not have them.
+//
+// All three kernels run one thread an env and shorten its chain the same
+// way: the view only on an aviary step's last physics iteration
+// (physics's `read`) and multiplications by reciprocals taken once a
+// launch (`Recip`). Groups of 2 and 4 lanes an env measured slower on the
+// hover kernel (every lane repeats the rigid body; PERF.md section 6).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,10 +129,11 @@ __device__ __forceinline__ void store_cascade(float* O, size_t ld, const Cascade
   for (int j = 0; j < CASCADE_ROWS; ++j) O[(CASCADE + j) * ld] = k.r[j];
 }
 
-// Reciprocals of the constants that control and physics divide by, for a
-// kernel that takes them once a launch and multiplies (quadx_hover_step.cu,
-// 24% slower dividing on an H100: PERF.md section 6). A kernel that passes
-// none divides, as the Pallas kernel does.
+// Reciprocals of the constants that control and physics divide by, taken
+// once a launch so that each iteration multiplies (every QuadX kernel passes
+// them: dividing cost K1-hover 24% on an H100, PERF.md section 6). A null
+// `rcp` divides, as the Pallas kernel does (tools/fixedwing_lane_probe.py's
+// no_recip variant).
 struct Recip {
   float mass, inertia[3], period;
 };
@@ -136,15 +144,17 @@ __device__ __forceinline__ Recip reciprocals(const C& c) {
 }
 
 // One PID bank of K lanes (ops/pid.py::step), its integrals at r[0..K)
-// and previous errors at r[K..2K) of the cascade registers.
+// and previous errors at r[K..2K) of the cascade registers; with `rcp` the
+// derivative multiplies by the reciprocal of the period.
 template <int K>
 __device__ __forceinline__ void pid_bank(float* r, const float* kp, const float* ki,
                                          const float* kd, const float* lim, float period,
-                                         const float* meas, const float* setp, float* out) {
+                                         const Recip* rcp, const float* meas, const float* setp,
+                                         float* out) {
   for (int i = 0; i < K; ++i) {
     const float err = setp[i] - meas[i];
     r[i] = clampf(r[i] + ki[i] * err * period, -lim[i], lim[i]);
-    const float deriv = kd[i] * (err - r[K + i]) / period;
+    const float deriv = rcp ? kd[i] * (err - r[K + i]) * rcp->period : kd[i] * (err - r[K + i]) / period;
     r[K + i] = err;
     out[i] = clampf(kp[i] * err + r[i] + deriv, -lim[i], lim[i]);
   }
@@ -153,10 +163,11 @@ __device__ __forceinline__ void pid_bank(float* r, const float* kp, const float*
 // The controller at iteration 0 (models/quadx.py::update_control) and the
 // saturation rescale (models/quadx.py::saturation_rescale). Mode 7 steps
 // the cascade registers `cas` (unused in the other modes); with `rcp` the
-// rate PID multiplies by the reciprocal of the period.
+// rate PID and the cascade's banks multiply by the reciprocal of the
+// period.
 template <int MODE, bool NED, class C>
-__device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c,
-                                        Cascade* cas = nullptr, const Recip* rcp = nullptr) {
+__device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c, Cascade* cas,
+                                        const Recip* rcp) {
   float raw[4];
   if constexpr (MODE == 8) {  // direct PWM
     for (int m = 0; m < 4; ++m) raw[m] = sp[m];
@@ -174,15 +185,16 @@ __device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c,
       // lin_pos -> yaw frame -> lin_vel -> ENU axis swap -> ang_pos (yaw
       // setpoint third); z_pos -> z_vel (models/quadx.py::_position_cascade)
       float xy[2];
-      pid_bank<2>(cas->r + LP, c.lp_kp, c.lp_ki, c.lp_kd, c.lp_lim, c.period, &s.view[9], sp, xy);
-      const float cy = cosf(s.view[5]), sy = sinf(s.view[5]);
+      pid_bank<2>(cas->r + LP, c.lp_kp, c.lp_ki, c.lp_kd, c.lp_lim, c.period, rcp, &s.view[9], sp, xy);
+      float sy, cy;
+      sincosf(s.view[5], &sy, &cy);
       const float yf[2] = {cy * xy[0] + sy * xy[1], -sy * xy[0] + cy * xy[1]};
-      pid_bank<2>(cas->r + LV, c.lv_kp, c.lv_ki, c.lv_kd, c.lv_lim, c.period, &s.view[6], yf, xy);
+      pid_bank<2>(cas->r + LV, c.lv_kp, c.lv_ki, c.lv_kd, c.lv_lim, c.period, rcp, &s.view[6], yf, xy);
       const float ap_sp[3] = {-xy[1], xy[0], sp[2]};
-      pid_bank<3>(cas->r + AP, c.ap_kp, c.ap_ki, c.ap_kd, c.ap_lim, c.period, &s.view[3], ap_sp, a_sp);
+      pid_bank<3>(cas->r + AP, c.ap_kp, c.ap_ki, c.ap_kd, c.ap_lim, c.period, rcp, &s.view[3], ap_sp, a_sp);
       float z1, z2;
-      pid_bank<1>(cas->r + ZP, c.zp_kp, c.zp_ki, c.zp_kd, c.zp_lim, c.period, &s.view[11], &sp[3], &z1);
-      pid_bank<1>(cas->r + ZV, c.zv_kp, c.zv_ki, c.zv_kd, c.zv_lim, c.period, &s.view[8], &z1, &z2);
+      pid_bank<1>(cas->r + ZP, c.zp_kp, c.zp_ki, c.zp_kd, c.zp_lim, c.period, rcp, &s.view[11], &sp[3], &z1);
+      pid_bank<1>(cas->r + ZV, c.zv_kp, c.zv_ki, c.zv_kd, c.zv_lim, c.period, rcp, &s.view[8], &z1, &z2);
       cmd[3] = clampf(z2, 0.f, 1.f);
     } else {
       // NED: clip(z, -1, 0), negate, clip(0, 1) (models/quadx.py:320-323)
@@ -252,16 +264,16 @@ __device__ __forceinline__ void wind_velocity(const Lane& s, const float wbase[3
 // pre-integration state (ENU or NED view; drag on R^T (v - wind)),
 // semi-implicit Euler, detection-grade ground contact. With `read` false
 // the view (Euler angles, body rates, body velocity, lagged position) is
-// left as it was: no iteration reads it, so a caller that reads it only
-// after an aviary step's last iteration computes it only there. The
-// lagged body rates and air velocity, which the next iteration's drag
-// reads, are taken every iteration. With `rcp` the integration multiplies
-// by the reciprocals of the mass and the inertia.
+// left as it was: no iteration reads it, so every QuadX kernel computes it
+// only on an aviary step's last iteration, whose view the next controller,
+// the task update and the env read. The lagged body rates and air
+// velocity, which the next iteration's drag reads, are taken every
+// iteration. With `rcp` the integration multiplies by the reciprocals of
+// the mass and the inertia.
 template <bool NOISY, bool NED, bool WIND, class C>
 __device__ __forceinline__ void physics(Lane& s, const C& c,
                                         curandStatePhilox4_32_10_t* rng,
-                                        const float wind[3], bool read = true,
-                                        const Recip* rcp = nullptr) {
+                                        const float wind[3], bool read, const Recip* rcp) {
   float nrm[4] = {0.f, 0.f, 0.f, 0.f};
   if (NOISY) {
     const float4 g = curand_normal4(rng);

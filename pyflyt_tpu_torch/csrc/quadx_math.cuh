@@ -67,8 +67,11 @@ __device__ __forceinline__ void quat_integrate(float q[4], const float w[3],
 // reach (distance under goal while targets remain) and, on a reach, the
 // roll that brings the next target to the front. The loops run over the 4
 // slots with compile-time indices, so the registers stay registers; nt
-// only masks them. Returns the progress odist - ndist; reached and
-// all_reached are 0/1.
+// only masks them. The first target goes to slot nt - 1 by a select in
+// every slot: a store under `k == nt - 1` let the compiler address it as
+// slot nt - 1, a runtime index, which put the caller's whole register set
+// in local memory (a 416-byte frame in the waypoints kernel).
+// Returns the progress odist - ndist; reached and all_reached are 0/1.
 __device__ __forceinline__ float waypoint_track(const float R[9], const float lp[3],
                                                 float tgt[12], float& rem, float& ndist,
                                                 float& odist, float tdlt[12], int nt,
@@ -102,10 +105,9 @@ __device__ __forceinline__ float waypoint_track(const float R[9], const float lp
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (k == nt - 1) {
+      const bool last = k == nt - 1;
 #pragma unroll
-        for (int i = 0; i < 3; ++i) tgt[3 * k + i] = first[i];
-      }
+      for (int i = 0; i < 3; ++i) tgt[3 * k + i] = last ? first[i] : tgt[3 * k + i];
     }
   }
   rem = rem - reached;

@@ -20,10 +20,16 @@
 // thread's long dependent chain and the launch do. Design for that: SoA
 // (56, N) rows, so a warp's load of one row is one coalesced 128 B
 // transaction; the whole step in registers, one read and one write per
-// row; constants as one POD struct by value; the mode, the convention, the
-// motor noise and the wind kind are template parameters (48
-// instantiations for modes 0/8/9, 8 more for ENU mode 7), and the gusts
-// (max_gust > 0) a launch-uniform branch.
+// row; constants as one POD struct passed as a __grid_constant__; the
+// mode, the convention, the motor noise and the wind kind are template
+// parameters (48 instantiations for modes 0/8/9, 8 more for ENU mode 7),
+// and the gusts (max_gust > 0) a launch-uniform branch. The chain is
+// shortened as in quadx_hover_step.cu: the view only on the step's last
+// physics iteration (the one the env and the next launch's controller
+// read), and the divisions by the mass, the inertia and the control period
+// (also in mode 7's cascade) multiplications by reciprocals taken once a
+// launch. On an H100 the view every iteration costs 6% and dividing 30% at
+// the recipe's shape (PERF.md section 6).
 // Random draws are curand Philox normals keyed by (seed, env): 4 per
 // iteration for motor noise, 4 (3 used) per iteration for gusts or the
 // simple field's noise. Blocks of 64 threads, as in quadx_hover_step.cu.
@@ -101,8 +107,8 @@ using quadx_lane::Lane;
 
 template <int MODE, bool NED, bool NOISY, int WIND>
 __global__ void __launch_bounds__(THREADS)
-    quadx_step_kernel(const float* __restrict__ in, float* __restrict__ out,
-                      int n, const long long* __restrict__ seed, GenericConsts c) {
+    quadx_step_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
+                      const long long* __restrict__ seed, const __grid_constant__ GenericConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // ragged edge
   const size_t ld = static_cast<size_t>(n);
@@ -123,12 +129,14 @@ __global__ void __launch_bounds__(THREADS)
   if (draws) curand_init(static_cast<unsigned long long>(seed[0]),
                          static_cast<unsigned long long>(i), 0ULL, &rng);
 
+  const quadx_lane::Recip rcp = quadx_lane::reciprocals(c);
   float any_contact = 0.f;
   for (int it = 0; it < c.ratio; ++it) {
-    if (it == 0) quadx_lane::control<MODE, NED>(s, sp, c, &cas);
+    if (it == 0) quadx_lane::control<MODE, NED>(s, sp, c, &cas, &rcp);  // probe: recip
     float w[3];
     quadx_lane::wind_velocity<WIND>(s, wb, c, &rng, w);
-    quadx_lane::physics<NOISY, NED, WIND != quadx_lane::WIND_NONE>(s, c, &rng, w);
+    const bool read = it == c.ratio - 1;  // probe: read
+    quadx_lane::physics<NOISY, NED, WIND != quadx_lane::WIND_NONE>(s, c, &rng, w, read, &rcp);  // probe: recip
     any_contact = fmaxf(any_contact, s.contact);
   }
 

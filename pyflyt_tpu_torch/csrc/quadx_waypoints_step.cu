@@ -29,9 +29,18 @@
 // dependent chain costs more (as in quadx_hover_step.cu). Design: SoA
 // rows, one thread per env in 64-thread blocks, the whole agent step in
 // registers with one read and one write per row, constants as one POD
-// struct by value, the mode, the noise and the sparse reward as template
-// parameters (12 instantiations), the done-freeze as a select of the
-// whole register set, a masked ragged tail.
+// struct passed as a __grid_constant__, the mode, the noise and the sparse
+// reward as template parameters (12 instantiations), a masked ragged tail.
+// The chain is shortened as in quadx_hover_step.cu: the view and the
+// rotation the task update reads only on an aviary step's last physics
+// iteration; reciprocals of the mass, the inertia and the control period
+// (the cascade's included) taken once a launch; the done-freeze an exit
+// from the aviary loop (termination and truncation never clear) with the
+// lane updated in place, no copy of it and no select. On an H100 dividing
+// costs 48%, the freeze as a select 10% and the view every iteration 6%;
+// staging the block's rows through shared memory by bulk copies (the
+// probe's `staged`) was 24% slower, since the loads already overlap and
+// the chain dominates (PERF.md section 6).
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
@@ -119,16 +128,12 @@ struct WaypointsLane {
   float tgt[12], rem, ndist, odist, tdlt[12], cplt;
 };
 
+// One agent step of env i from column S into column O (row stride ld).
 template <int MODE, bool NOISY, bool SPARSE>
-__global__ void __launch_bounds__(THREADS)
-    waypoints_step_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
-                          const long long* __restrict__ seed, WaypointsConsts c) {
+__device__ __forceinline__ void agent_step(const float* S, float* O, size_t ld, int i,
+                                           const long long* __restrict__ seed, const WaypointsConsts& c) {
   constexpr int WB = Layout<MODE>::WB;
   constexpr int ROWS = Layout<MODE>::ROWS;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged edge
-  const size_t ld = static_cast<size_t>(n);
-  const float* S = in + i;
   WaypointsLane s;
   float sp[4];
   quadx_lane::load_lane(S, ld, s.d, sp);
@@ -150,44 +155,46 @@ __global__ void __launch_bounds__(THREADS)
   const float trunc_hit = (stepc > c.max_steps) ? 1.f : 0.f;  // pre-increment
 
   const float no_wind[3] = {0.f, 0.f, 0.f};
+  const quadx_lane::Recip rcp = quadx_lane::reciprocals(c);
   curandStatePhilox4_32_10_t rng;
   if (NOISY) curand_init(static_cast<unsigned long long>(seed[0]),
                          static_cast<unsigned long long>(i), 0ULL, &rng);
 
   for (int a = 0; a < c.inner_steps; ++a) {
-    const bool frozen = fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f;
-    WaypointsLane nw = s;
+    // done-freeze: the flags never clear, so a lane done before an aviary
+    // step is done for the rest of the agent step
+    if (fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f) break;  // probe: freeze
     float any_contact = 0.f;
     float q_pre[4];
     for (int it = 0; it < c.ratio; ++it) {
-      if (it == 0) quadx_lane::control<MODE, false>(nw.d, sp, c, &nw.cas);
-      for (int k = 0; k < 4; ++k) q_pre[k] = nw.d.quat[k];
-      quadx_lane::physics<NOISY, false, false>(nw.d, c, &rng, no_wind);
-      any_contact = fmaxf(any_contact, nw.d.contact);
+      if (it == 0) quadx_lane::control<MODE, false>(s.d, sp, c, &s.cas, &rcp);  // probe: recip
+      const bool read = it == c.ratio - 1;  // probe: read
+      if (read)
+        for (int k = 0; k < 4; ++k) q_pre[k] = s.d.quat[k];
+      quadx_lane::physics<NOISY, false, false>(s.d, c, &rng, no_wind, read, &rcp);  // probe: recip
+      any_contact = fmaxf(any_contact, s.d.contact);
     }
     // the task update on the lagged position; the deltas are rotated by
     // the last iteration's pre-integration rotation (pallas_quadx.py:677-680)
-    const float lp[3] = {nw.d.view[9], nw.d.view[10], nw.d.view[11]};
+    const float lp[3] = {s.d.view[9], s.d.view[10], s.d.view[11]};
     const float oob_i = (lp[0] * lp[0] + lp[1] * lp[1] + lp[2] * lp[2] > c.dome2) ? 1.f : 0.f;
     const float fatal = fmaxf(any_contact, oob_i);
-    float trunc = fminf(nw.trunc + trunc_hit, 1.f);
-    float rwd = (fatal > 0.f) ? -100.f : nw.rwd;
+    const float trunc = fminf(s.trunc + trunc_hit, 1.f);
+    float rwd = (fatal > 0.f) ? -100.f : s.rwd;
     float R[9];
     quadx_math::quat_rotmat(q_pre, R);
     float reached, all_reached;
-    const float progress = quadx_math::waypoint_track(R, lp, nw.tgt, nw.rem, nw.ndist, nw.odist, nw.tdlt,
+    const float progress = quadx_math::waypoint_track(R, lp, s.tgt, s.rem, s.ndist, s.odist, s.tdlt,
                                                       c.num_targets, c.goal, reached, all_reached);
-    if (!SPARSE) rwd = rwd + fmaxf(3.f * progress, 0.f) + 0.1f / nw.ndist;
-    nw.rwd = (reached > 0.f) ? 100.f : rwd;
-    nw.trunc = fminf(trunc + all_reached, 1.f);
-    nw.cplt = fminf(nw.cplt + all_reached, 1.f);
-    nw.term = fminf(nw.term + fatal, 1.f);
-    nw.coll = fminf(nw.coll + any_contact, 1.f);
-    nw.oob = fminf(nw.oob + oob_i, 1.f);
-    if (!frozen) s = nw;  // done-freeze as a select
+    if (!SPARSE) rwd = rwd + fmaxf(3.f * progress, 0.f) + 0.1f / s.ndist;
+    s.rwd = (reached > 0.f) ? 100.f : rwd;
+    s.trunc = fminf(trunc + all_reached, 1.f);
+    s.cplt = fminf(s.cplt + all_reached, 1.f);
+    s.term = fminf(s.term + fatal, 1.f);
+    s.coll = fminf(s.coll + any_contact, 1.f);
+    s.oob = fminf(s.oob + oob_i, 1.f);  // probe: freeze
   }
 
-  float* O = out + i;
   quadx_lane::store_lane(O, ld, s.d, sp);
   O[RWD * ld] = s.rwd;
   O[TERM * ld] = s.term;
@@ -208,6 +215,16 @@ __global__ void __launch_bounds__(THREADS)
   O[(WB + WP_ODIST) * ld] = s.odist;
   O[(WB + WP_CPLT) * ld] = s.cplt;
   for (int r = WB + WP_ROWS; r < ROWS; ++r) O[r * ld] = 0.f;
+}
+
+// One thread an env, the ragged tail masked.
+template <int MODE, bool NOISY, bool SPARSE>
+__global__ void __launch_bounds__(THREADS)
+    waypoints_step_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
+                          const long long* __restrict__ seed, const __grid_constant__ WaypointsConsts c) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  const size_t ld = static_cast<size_t>(n);
+  if (i < n) agent_step<MODE, NOISY, SPARSE>(in + i, out + i, ld, i, seed, c);  // probe: staged
 }
 
 struct Launch {

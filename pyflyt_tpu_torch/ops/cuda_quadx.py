@@ -38,7 +38,16 @@ base) and writes 56 (about 3.5 MB, 1.0 µs) and does about 1.1 kFLOP per
 env at 3 physics iterations; the waypoints step in mode 7 reads 101 rows
 and writes 112 (about 7.0 MB, 2.1 µs) and does about 4 kFLOP per env.
 Bytes bound all three, and launch latency and each thread's dependent
-chain cost more. See the source notes for the designs.
+chain cost more. All three run one thread an env and shorten that chain
+alike: the view only on an aviary step's last physics iteration, the
+divisions by the mass, the inertia and the control period (mode 7's
+cascade included) multiplications by reciprocals taken once a launch, the
+constants a ``__grid_constant__``, and in the two agent steps the
+done-freeze an exit from the aviary loop. Groups of lanes an env, the
+freeze as a select, and the waypoints step's rows staged through shared
+memory by bulk copies measured slower (PERF.md section 6; the source
+notes give the numbers). The twins keep the Pallas kernel's order of
+operations: they divide, and they select the frozen lanes.
 
 With noise or stochastic wind on, the kernels draw Philox normals keyed by
 (seed, env index, draw index) and the twins draw from a ``torch.Generator``

@@ -4,8 +4,8 @@ shorter chain relies on.
 The kernel runs one thread an env on ``quadx_lane.cuh``'s control and
 physics iteration. It computes the view only on an aviary step's last
 physics iteration (the shared iteration's ``read`` argument, which the
-generic and waypoints kernels leave at its default, true) and leaves the
-aviary loop when the env is done. No card here, so the source lines that
+generic and waypoints kernels pass the same way) and leaves the aviary
+loop when the env is done. No card here, so the source lines that
 do this are checked as written, and the plain twin shows what they rely
 on: no physics iteration reads a view row and the controller reads only
 the body-rate rows, so the view of every iteration but an aviary step's
@@ -37,8 +37,8 @@ def test_the_view_and_freeze_lines_are_the_source():
     """The lines the twin checks below stand for, as the sources write
     them: the view only on an aviary step's last iteration, the freeze an
     exit from the aviary loop, and the view's guard in the shared
-    iteration, which the other QuadX kernels call without ``read`` (and
-    without reciprocals, so they compile the code they did before)."""
+    iteration, which the generic and waypoints kernels call with ``read``
+    and reciprocals too (tests/test_torch_quadx_layout.py)."""
     text = csrc_text(SRC)
     for line in (
         "const bool read = it == c.ratio - 1;  // probe: read",
@@ -47,14 +47,15 @@ def test_the_view_and_freeze_lines_are_the_source():
     ):
         assert line in text, line
     shared = csrc_text("quadx_lane.cuh")
-    for line in ("const float wind[3], bool read = true,\n", "if (read) quadx_math::quat_to_euler(s.quat, eul);",
-                 "  if (read) {\n    if (NED) {"):
+    for line in ("const float wind[3], bool read, const Recip* rcp) {\n",
+                 "if (read) quadx_math::quat_to_euler(s.quat, eul);", "  if (read) {\n    if (NED) {"):
         assert line in shared, line
     generic, waypoints = csrc_text("quadx_step.cu"), csrc_text("quadx_waypoints_step.cu")
-    assert "quadx_lane::control<MODE, NED>(s, sp, c, &cas);" in generic
-    assert "quadx_lane::physics<NOISY, NED, WIND != quadx_lane::WIND_NONE>(s, c, &rng, w);" in generic
-    assert "quadx_lane::control<MODE, false>(nw.d, sp, c, &nw.cas);" in waypoints
-    assert "quadx_lane::physics<NOISY, false, false>(nw.d, c, &rng, no_wind);" in waypoints
+    assert "quadx_lane::control<MODE, NED>(s, sp, c, &cas, &rcp);  // probe: recip" in generic
+    assert ("quadx_lane::physics<NOISY, NED, WIND != quadx_lane::WIND_NONE>(s, c, &rng, w, read, &rcp);"
+            "  // probe: recip") in generic
+    assert "quadx_lane::control<MODE, false>(s.d, sp, c, &s.cas, &rcp);  // probe: recip" in waypoints
+    assert "quadx_lane::physics<NOISY, false, false>(s.d, c, &rng, no_wind, read, &rcp);  // probe: recip" in waypoints
 
 
 def _hover_state(n: int, seed: int):

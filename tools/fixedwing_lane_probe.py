@@ -1,10 +1,11 @@
-"""Times the vehicle kernels that spread a vehicle over a group of lanes on
-one card at their stock shapes, as built and in variants of the same
-sources, in one process and in turns: K5 (``csrc/fixedwing_step.cu``: row 5
-``fixedwing_step``, row 6 ``fixedwing_waypoints_step``), K7
-(``csrc/dogfight_step.cu``), K6 (``csrc/rocket_step.cu``: row 8
-``rocket_step``, row 9 ``rocket_landing_step``) and K1-hover (row 1,
-``csrc/quadx_hover_step.cu``). The variants:
+"""Times the vehicle kernels on one card at their stock shapes, as built
+and in variants of the same sources, in one process and in turns: K5
+(``csrc/fixedwing_step.cu``: row 5 ``fixedwing_step``, row 6
+``fixedwing_waypoints_step``), K7 (``csrc/dogfight_step.cu``), K6
+(``csrc/rocket_step.cu``: row 8 ``rocket_step``, row 9
+``rocket_landing_step``), K1-hover (row 1, ``csrc/quadx_hover_step.cu``),
+K1 generic (row 2, ``csrc/quadx_step.cu``) and the waypoints step (row 4,
+``csrc/quadx_waypoints_step.cu``). The variants:
 
 - ``built``: the sources as they are;
 - ``g2``, ``g4``, ``g8``, ``g16``: GROUP lanes a vehicle (the lines
@@ -17,13 +18,25 @@ sources, in one process and in turns: K5 (``csrc/fixedwing_step.cu``: row 5
   likes, where the bound caps them at 128, which keeps all 1024 blocks of
   its stock width resident at once;
 - ``no_hoist``: the view read on every physics iteration (the lines marked
-  ``probe: read``; in K1-hover the shared iteration's ``read`` argument);
-- ``no_recip``: K1-hover dividing by the mass, the inertia and the control
-  period, as rows 2 and 4 do, where it multiplies by reciprocals taken
-  once a launch (the lines marked ``probe: recip``);
+  ``probe: read``; in rows 1, 2 and 4 the shared iteration's ``read``
+  argument);
+- ``no_recip``: rows 1, 2 and 4 dividing by the mass, the inertia and the
+  control period (in mode 7 also the cascade's), where they multiply by
+  reciprocals taken once a launch (the lines marked ``probe: recip``);
+- ``select_freeze``: row 4's done-freeze as a copy of the lane and a
+  select after each aviary step, where it leaves the aviary loop (the
+  lines marked ``probe: freeze``);
+- ``roll_branch``: the target roll (``quadx_math.cuh::waypoint_track``,
+  rows 4 and 6) storing the first target under ``if (k == nt - 1)``, where
+  it selects in every slot: the compiler addressed that store at slot
+  nt - 1, a runtime index, and kept the caller's whole lane in local
+  memory;
+- ``staged``: row 4's design B (``STAGED_STEP``): the block's tile of the
+  rows it reads lands in shared memory by one bulk copy a row, completing
+  on one mbarrier, and the rows go back by one bulk copy each;
 - ``no_engage``: K7's gun cone stubbed (no ``sincosf``, ``sqrtf``,
   ``acosf``), to split K7's time from K5's;
-- with ``--other NAME=ROOT`` (repeatable): ``NAME``, the four sources of
+- with ``--other NAME=ROOT`` (repeatable): ``NAME``, the sources of
   another checkout (for example the parent commit, ``git archive`` of its
   ``pyflyt_tpu_torch/csrc`` unpacked under ``build/``), and
   ``NAME_no_engage``.
@@ -39,17 +52,30 @@ acting), where ``chip_smoke.py`` times them; row 1 at 8192 envs on the
 state a 64-step hover rollout with auto-reset leaves (a seeded random
 policy), and, as built and in the ``--other`` checkouts, with ``ratio``
 1-4 physics iterations an aviary step (``row1_ratio<r>``), which prices
-one iteration. Each with noise on and off. Beside each time: the
+one iteration; row 2 at 8192 envs of the mod-hovering recipe (mode 9, NED,
+per-env wind base, gusts) on the state ``chip_smoke.py``'s 128-step
+rollout under the exact auto-reset leaves, also at ``ratio`` 1-4
+(``row2_ratio<r>``); row 4 at 8192 stock mode-7 envs on the state
+``chip_smoke.py``'s 128-step waypoints serving rollout leaves. Each with
+noise on and off. Beside each time: the
 variant's registers, stack frames and spill stores (ptxas) and its
 largest difference from ``built`` over one call, noise off and on
-(``no_engage`` differs by design; a changed GROUP sums in another order).
+(``no_engage`` differs by design; a changed GROUP sums in another order;
+dividing moves the last bit); and for each ``--other`` checkout, the lines
+of each source's SASS that differ from ``built``'s (``cuobjdump -sass``,
+the anonymous namespace's hash taken out).
 
     python3 tools/fixedwing_lane_probe.py [--other NAME=ROOT ...] [--out FILE]
+    python3 tools/fixedwing_lane_probe.py --locals quadx_waypoints_step.cu
 
 Needs a CUDA card and ``nvcc``; the variants are built under
 ``build/fixedwing_lane_probe/``, each source only where the variant
 changes it. Prints the card line and one JSON line per variant and round
-(two rounds, the second in reverse order).
+(two rounds, the second in reverse order). With ``--locals SOURCE`` it
+only compiles SOURCE to PTX with ``-lineinfo``, as built and in each
+variant that changes it, and prints each kernel's local-memory bytes and
+its local loads and stores by source line: where a frame that ptxas
+reports comes from.
 """
 
 from __future__ import annotations
@@ -68,9 +94,72 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 K5, K7, K6, K1 = "fixedwing_step.cu", "dogfight_step.cu", "rocket_step.cu", "quadx_hover_step.cu"
-SOURCES = (K5, K7, K6, K1)
+K1G, K1W = "quadx_step.cu", "quadx_waypoints_step.cu"
+SOURCES = (K5, K7, K6, K1, K1G, K1W)
 FW_ENVS, DF_ARENAS, HOVER_ENVS, WARM_STEPS, HOVER_STEPS, ROUNDS = 4096, 4096, 8192, 16, 64, 2
 RATIOS = (1, 2, 3, 4)
+# row 4's design B: the block's tile staged through shared memory, one bulk
+# copy a row in (completing on one mbarrier) and one a row out; the step
+# runs on its column of the tile. Where n is not a multiple of 4 or an end
+# is not 16-byte aligned, a row segment is not a whole number of 16 B, and
+# each thread reads and writes its own column as in the kernel without it.
+STAGED_STEP = r"""
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int MODE>
+__device__ __forceinline__ bool row_read(int r) {  // all but the re-armed reward and the padding
+  constexpr int WB = Layout<MODE>::WB;
+  const int end = (MODE == 7) ? quadx_lane::CASCADE + quadx_lane::CASCADE_ROWS : STEP + 1;
+  return r < RWD || (r > RWD && r < end) || (r >= WB && r < WB + WP_ROWS);
+}
+
+template <int MODE, bool NOISY, bool SPARSE>
+__device__ __forceinline__ void staged_step(const float* __restrict__ in, float* __restrict__ out, int n, int i,
+                                            const long long* __restrict__ seed, const WaypointsConsts& c) {
+  constexpr int ROWS = Layout<MODE>::ROWS;
+  const size_t ld = static_cast<size_t>(n);
+  if (n % 4 != 0 || ((reinterpret_cast<unsigned long long>(in) | reinterpret_cast<unsigned long long>(out)) & 15)) {
+    if (i < n) agent_step<MODE, NOISY, SPARSE>(in + i, out + i, ld, i, seed, c);
+    return;
+  }
+  __shared__ __align__(128) float tile[ROWS * THREADS];
+  __shared__ __align__(8) unsigned long long bar;
+  const size_t col0 = static_cast<size_t>(blockIdx.x) * THREADS;
+  const unsigned seg = 4u * static_cast<unsigned>(min(THREADS, n - static_cast<int>(col0)));
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(&bar)), "r"(THREADS) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  unsigned mine = 0;
+  for (int r = threadIdx.x; r < ROWS; r += THREADS) mine += row_read<MODE>(r) ? seg : 0u;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(&bar)), "r"(mine)
+               : "memory");
+  for (int r = threadIdx.x; r < ROWS; r += THREADS)
+    if (row_read<MODE>(r))
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                   ::"r"(smem_u32(tile + r * THREADS)), "l"(in + r * ld + col0), "r"(seg), "r"(smem_u32(&bar))
+                   : "memory");
+  unsigned done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\nselp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done) : "r"(smem_u32(&bar)) : "memory");
+  } while (!done);
+  float* col = tile + threadIdx.x;
+  if (i < n) agent_step<MODE, NOISY, SPARSE>(col, col, THREADS, i, seed, c);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  for (int r = threadIdx.x; r < ROWS; r += THREADS)
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 ::"l"(out + r * ld + col0), "r"(smem_u32(tile + r * THREADS)), "r"(seg) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+"""
+WP_KERNEL_NOTE = "// One thread an env, the ragged tail masked."
+WP_CALL = "if (i < n) agent_step<MODE, NOISY, SPARSE>(in + i, out + i, ld, i, seed, c);"
 # K7's gun cone as both designs write it, and its stub
 ENGAGE = [
     ("sincosf(s.view[4], &sin_p, &cos_p);", "sin_p = 0.f, cos_p = 1.f;"),
@@ -96,23 +185,34 @@ VARIANTS = {
     "g16": {K5: [group(16)]},
     "no_min_blocks": {K7: [("min_blocks", "__launch_bounds__(THREADS, MIN_BLOCKS)", "__launch_bounds__(THREADS)")]},
     "no_hoist": {s: [("read", "it == c.ratio - 1;", "true;")] for s in SOURCES},
-    "no_recip": {K1: [("recip", "&rcp)", "nullptr)")]},
+    "no_recip": {s: [("recip", "&rcp)", "nullptr)")] for s in (K1, K1G, K1W)},
+    "select_freeze": {K1W: [
+        ("freeze", "if (fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f) break;",
+         "const bool frozen = fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f; const WaypointsLane kept = s;"),
+        ("freeze", "s.oob = fminf(s.oob + oob_i, 1.f);", "s.oob = fminf(s.oob + oob_i, 1.f); if (frozen) s = kept;"),
+    ]},
+    # the target roll's last slot stored under `k == nt - 1`, which the
+    # compiler addresses at a runtime index (rows 4 and 6 call it)
+    "roll_branch": {"quadx_math.cuh": [(None, "const bool last = k == nt - 1;", "if (k == nt - 1) {"),
+                                       (None, "tgt[3 * k + i] = last ? first[i] : tgt[3 * k + i];",
+                                        "tgt[3 * k + i] = first[i]; }")], K5: [], K1W: []},
+    "staged": {K1W: [(None, WP_KERNEL_NOTE, STAGED_STEP + WP_KERNEL_NOTE),
+                     ("staged", WP_CALL, "staged_step<MODE, NOISY, SPARSE>(in, out, n, i, seed, c);")]},
     "no_engage": {K7: [(None, a, b) for a, b in ENGAGE]},
 }
 CALL_SOURCE = {"row5": K5, "row6": K5, "k7": K7, "k7_league": K7, "row8": K6, "row9": K6, "row1": K1,
-               **{f"row1_ratio{r}": K1 for r in RATIOS}}
+               "row2": K1G, "row4": K1W, **{f"row1_ratio{r}": K1 for r in RATIOS},
+               **{f"row2_ratio{r}": K1G for r in RATIOS}}
+SWEEPS = ("row1_ratio", "row2_ratio")
 
 
 def write_variant(name: str, csrc: str, subs: dict) -> str:
-    """The sources of ``csrc`` with ``subs`` applied, and its headers, in
-    the variant's directory; returns it."""
+    """The sources and headers of ``csrc`` with ``subs`` applied, in the
+    variant's directory; returns it."""
     out = os.path.join(HERE, "build", "fixedwing_lane_probe", name)
     os.makedirs(out, exist_ok=True)
-    for f in os.listdir(csrc):
-        if f.endswith(".cuh"):
-            with open(os.path.join(csrc, f)) as src, open(os.path.join(out, f), "w") as dst:
-                dst.write(src.read())
-    for source in SOURCES:
+    headers = [f for f in os.listdir(csrc) if f.endswith(".cuh")]
+    for source in [*headers, *SOURCES]:
         with open(os.path.join(csrc, source)) as f:
             lines = f.read().split("\n")
         for marker, old, new in subs.get(source, []):
@@ -148,22 +248,73 @@ def build_variant(cuda_build, name: str, src_dir: str, sources) -> dict:
         return dict(pool.map(one, sources))
 
 
+def local_accesses(cuda_build, src_dir: str, source: str) -> dict:
+    """The local-memory traffic of ``source``'s PTX (built with
+    ``-lineinfo``): each kernel's ``__local_depot`` bytes, and the
+    ``ld.local``/``st.local`` instructions by the source line they come
+    from, most first."""
+    ptx = os.path.join(src_dir, source.replace(".cu", ".ptx"))
+    p = subprocess.run([cuda_build.nvcc_path(), "-arch=sm_90a", "-std=c++17", "-O3", "-lineinfo", "--ptx",
+                        "-I", src_dir, "-o", ptx, os.path.join(src_dir, source)], capture_output=True, text=True)
+    if p.returncode != 0:
+        raise SystemExit(f"fixedwing_lane_probe: {source} PTX failed:\n{p.stdout}{p.stderr}")
+    text = open(ptx).read()
+    files = {m.group(1): os.path.basename(m.group(2)) for m in re.finditer(r'\.file\s+(\d+)\s+"([^"]+)"', text)}
+    loc, depots, lines, entry = "?", {}, {}, "?"
+    for ln in text.splitlines():
+        t = ln.strip()
+        if m := re.search(r"\.entry (\w+)", t):
+            entry = m.group(1)
+        elif m := re.match(r"\.loc\s+(\d+)\s+(\d+)", t):
+            loc = f"{files.get(m.group(1), m.group(1))}:{m.group(2)}"
+        elif m := re.search(r"__local_depot\d+\[(\d+)\]", t):
+            depots[entry] = int(m.group(1))
+        elif re.match(r"(ld|st)\.local", t):
+            lines[loc] = lines.get(loc, 0) + 1
+    return {"depot_bytes": depots, "accesses_by_line": dict(sorted(lines.items(), key=lambda kv: -kv[1]))}
+
+
 def registers(log: str) -> dict:
-    """ptxas registers by kernel template (e.g. ``waypoints_kernel<0,1,0>``),
-    the largest stack frame and the spill stores summed."""
-    found = re.findall(r"entry function '_Z\w*?(hover_step_kernel|rocket_kernel|step_kernel|waypoints_kernel|"
-                       r"dogfight_kernel)I(\w+?)EEv\w*'.*?Used (\d+) registers", log, re.S)
-    frames = [int(v) for v in re.findall(r"(\d+) bytes stack frame", log)]
-    spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", log))
-    return {"by_template": {f"{k}<{t}>": int(r) for k, t, r in found}, "max_stack_frame": max(frames, default=0),
-            "spill_store_bytes": spills}
+    """ptxas's report by kernel template (e.g. ``waypoints_kernel<0,1,0>``):
+    [registers, stack frame bytes, spill store bytes]; the largest frame
+    and the spill stores summed."""
+    by = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        m = re.match(r"_Z\w*?(hover_step_kernel|rocket_kernel|step_kernel|waypoints_kernel|dogfight_kernel)"
+                     r"I(\w+?)EEv", chunk)
+        used = re.search(r"Used (\d+) registers", chunk)
+        if not (m and used):
+            continue
+        frame = re.search(r"(\d+) bytes stack frame", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        by[f"{m.group(1)}<{m.group(2)}>"] = [int(used.group(1)), int(frame.group(1)) if frame else 0,
+                                             int(spill.group(1)) if spill else 0]
+    return {"by_template": by, "max_stack_frame": max((v[1] for v in by.values()), default=0),
+            "spill_store_bytes": sum(v[2] for v in by.values())}
+
+
+def sass_diff(cuda_build, lib_a: str, lib_b: str) -> int:
+    """Lines in which two builds' SASS (``cuobjdump -sass``) differ, with
+    the anonymous namespace's per-file hash taken out of the names."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+
+    def sass(lib):
+        text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+        return [re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", ln) for ln in text.splitlines()
+                if ln.strip() and not ln.lstrip().startswith("Fatbin")]
+
+    a, b = sass(lib_a), sass(lib_b)
+    return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=ROOT",
-                    help="a checkout whose four sources to time beside these, under NAME")
+                    help="a checkout whose sources to time beside these, under NAME")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--locals", action="append", default=[], metavar="SOURCE",
+                    help="only print SOURCE's local-memory accesses by source line (PTX with -lineinfo), "
+                         "as built and in each variant that changes it, and exit")
     args = ap.parse_args(argv)
     import torch
 
@@ -187,7 +338,14 @@ def main(argv=None) -> int:
     csrc = str(cuda_build.CSRC)
     dirs = {name: write_variant(name, csrc, subs) for name, subs in VARIANTS.items()}
     dirs["built"] = write_variant("built", csrc, {})
-    changed = {name: tuple(s for s in SOURCES if subs.get(s)) for name, subs in VARIANTS.items()}
+    if args.locals:
+        jobs = [(name, src) for src in args.locals for name in dirs if name == "built" or src in VARIANTS[name]]
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            found = pool.map(lambda job: local_accesses(cuda_build, dirs[job[0]], job[1]), jobs)
+        for (name, src), rec in zip(jobs, found):
+            print(json.dumps({"locals": {"variant": name, "source": src, **rec}}), flush=True)
+        return 0
+    changed = {name: tuple(s for s in SOURCES if s in subs) for name, subs in VARIANTS.items()}
     changed["built"] = SOURCES
     others = []
     for spec in args.other:
@@ -202,9 +360,14 @@ def main(argv=None) -> int:
                                        dirs)))
     results["registers"] = {name: {s: registers(log) for s, (_, log) in v.items()} for name, v in libs.items()}
     print(json.dumps({"registers": results["registers"]}), flush=True)
+    results["sass_lines_differing_from_built"] = {
+        name: {s: sass_diff(cuda_build, os.path.join(dirs["built"], s.replace(".cu", ".so")),
+                            os.path.join(dirs[name], s.replace(".cu", ".so"))) for s in SOURCES}
+        for name in others if not name.endswith("_no_engage")}
+    print(json.dumps({"sass_lines_differing_from_built": results["sass_lines_differing_from_built"]}), flush=True)
 
     kernels = {"row5": cf.STEP_KERNEL, "row6": cf.WAYPOINTS_KERNEL, "k7": cd.KERNEL, "row8": cr.STEP_KERNEL,
-               "row9": cr.LANDING_KERNEL, "row1": cq.KERNEL}
+               "row9": cr.LANDING_KERNEL, "row1": cq.KERNEL, "row2": cq.GENERIC_KERNEL, "row4": cq.WAYPOINTS_KERNEL}
 
     def bind(name):
         """The variant's entry points, the built ones for the sources it
@@ -248,6 +411,12 @@ def main(argv=None) -> int:
     ars, hobs = packed_autoreset_init(henv, HOVER_ENVS, g)
     ars, _, _ = ppo.rollout(hnet, henv, ars, hobs, HOVER_STEPS, g, refresh=64)
     hover = ars.env_state.packed.contiguous()
+    _, mod = cs.mod_rollout(0, results["card"])
+    mod = mod.packed.contiguous()
+    c2 = cs.recipe_env().consts
+    _, wp, _, _ = cs.wp_rollout(0, results["card"])
+    wp = wp.packed.contiguous()
+    c4 = cs.wp_env(7).consts
     cfg = fixedwing.FixedwingConfig()
     c5 = cf.fixedwing_consts(fixedwing.build_params(cfg, "cuda"), cfg)
     rcfg = rocket.RocketConfig()
@@ -262,10 +431,14 @@ def main(argv=None) -> int:
         "row8": lambda noisy: cr.packed_step(rk, seed, c8, noisy),
         "row9": lambda noisy: cr.packed_landing_step(rk, seed, c9, noisy),
         "row1": lambda noisy: cq.packed_hover_step(hover, seed, c1, 0, noisy),
+        "row2": lambda noisy: cq.packed_step(mod, seed, c2, 9, noisy),
+        "row4": lambda noisy: cq.packed_waypoints_step(wp, seed, c4, 7, noisy),
     }
     for r in RATIOS:
         cr_ = dataclasses.replace(c1, ratio=r)
         calls[f"row1_ratio{r}"] = lambda noisy, cr_=cr_: cq.packed_hover_step(hover, seed, cr_, 0, noisy)
+        cg_ = dataclasses.replace(c2, ratio=r)
+        calls[f"row2_ratio{r}"] = lambda noisy, cg_=cg_: cq.packed_step(mod, seed, cg_, 9, noisy)
     reference = {(key, noisy): call(noisy).clone() for key, call in calls.items() for noisy in (False, True)}
 
     order = ["built", *VARIANTS] + others
@@ -279,7 +452,7 @@ def main(argv=None) -> int:
                 for key, call in calls.items():
                     if CALL_SOURCE[key] not in changed[name]:
                         continue
-                    if key.startswith("row1_ratio") and name != "built" and name not in others:
+                    if key.startswith(SWEEPS) and name != "built" and name not in others:
                         continue
                     if rnd == 0:
                         for noisy, tag in ((False, ""), (True, "noisy_")):

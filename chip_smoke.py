@@ -134,9 +134,39 @@ Phases, each of which fails the script on a failed check:
      with make_landing_eval's accounting, beside the archive's receipt
      (fails under a 0.90 pad rate);
  38. ``rk_kernel_times``: rows 8 and 9 against their bounds and their
-     twins, their ptxas report, and the ``kernels`` line for all eleven
-     kernels (rows 1, 2, 4, 5, 6, 8, 9 and 10 with phase 2's launch
-     records).
+     twins, their ptxas report;
+ 39. ``narrow_grid``, ``narrow_epochs``: the narrow trunks' kernels (K4n,
+     K3n: csrc/policy_narrow.cu; K2n: csrc/fused_epoch_narrow.cu) against
+     their twins: K4n over 6 trunk pairs (64-64-32-32, 32-32, 128, 48-24,
+     128-64-32-16, and a 64-64-32-32 actor with a 128-16 critic) x obs 16,
+     19, 21, 64 x act 1, 4, 8 x 64, 2048, 8192, 1000 and 16384 rows at
+     ``policy_atol``, K3n at the same rows and at the SMALL arm's
+     1,048,576-row batch, with and without a log_std range, at a tolerance
+     from the data (``logp_atol``), K2n at 8 shapes
+     (the r4 slow recipe's, the fast CLI's and the SMALL arm's minibatches,
+     the other trunks, ragged ones) at K2's epoch tolerances, and two K2n
+     calls bit-identical with the images its Adam wrote equal to
+     ``pack_trunk``;
+ 40. ``k4n_traj_policy``, ``traj_serving``: the archived r4 slow policy
+     (assets/policies/traj_slow_r4_seed0.npz) through K4n against its
+     twin, and through K3n at the r4 slow recipe's 262,144-row batch,
+     then acting (sampled) in 2048 r4 slow envs under the exact
+     auto-reset for 128 steps, one K4n launch a step, the env's step and
+     reset split;
+ 41. ``traj_eval``: that policy flown deterministically through K4n for
+     256 episodes, against floors from the archive's 32-episode eval (its
+     means less 3 standard errors of the difference of means);
+ 42. ``traj_train``: one timed iteration (after a warm-up) of the
+     trajectory CLI's ``train`` defaults (fast env, f32) and of the r4 slow
+     recipe with the fused forward and fused_sgd (K4n a step, K3n once,
+     K2n an epoch), and small fused iterations at the (32, 32) and (128,)
+     trunks; PPO refuses (256,) on the card naming ROADMAP item 27;
+ 43. ``small_arm_train``: ppo_20m_r4.py's SMALL fused arm (8192
+     mod-hovering envs: row 2 a step, K3n once, K2n an epoch);
+ 44. ``narrow_kernel_times``: K4n, K3n and K2n at those shapes against
+     their bounds, their twins and their library calls, and the
+     ``kernels`` line for all fourteen kernels (rows 1, 2, 4, 5, 6, 8, 9
+     and 10 with phase 2's launch records).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -529,9 +559,10 @@ def pi_leaves(net):
     return [t.detach() for t in cuda_sgd.params_to_leaves(net)[: 2 * len(net.pi_trunk.layers) + 3]]
 
 
-def check_logp(net, n: int, ranges=(None, (-1.0, -0.2))) -> float:
-    """K3 vs its twin over n packed rows, without and with a log_std range
-    that clips (``ranges``); returns the max error."""
+def check_logp(net, n: int, ranges=(None, (-1.0, -0.2)), atol=None) -> float:
+    """K3 (or K3n) vs its twin over n packed rows, without and with a
+    log_std range that clips (``ranges``), at LOGP_ATOL or ``atol(net, rows,
+    range)``; returns the max error."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_sgd
 
@@ -543,7 +574,8 @@ def check_logp(net, n: int, ranges=(None, (-1.0, -0.2))) -> float:
         torch.cuda.synchronize()
         check(k.shape == (n,) and bool(torch.isfinite(k).all()), f"logp n={n}: shape or non-finite")
         e = (k - p).abs().max().item()
-        check(e <= LOGP_ATOL, f"logp n={n} range={rng}: error {e}")
+        tol = LOGP_ATOL if atol is None else atol(net, rows, rng)
+        check(e <= tol, f"logp n={n} obs {net.obs_dim} act {net.action_dim} range={rng}: error {e} > {tol}")
         err = max(err, e)
     return err
 
@@ -564,6 +596,11 @@ EPOCH_SHAPES = ((33, 1, None, N_ENVS), (33, 8, EPOCH_RANGE, N_RAGGED), (35, 1, E
 EPOCH_TIMED = ((21, 4, 8, N_ENVS), (33, 4, 8, N_ENVS), (30, 4, 2, EPOCH_DF_ROWS))
 
 
+def trunk_sizes(trunk) -> tuple:
+    """A trunk's layer widths."""
+    return tuple(lin.out_features for lin in trunk.layers)
+
+
 def epoch_inputs(net, n_mb: int, mb: int, log_std_range=EPOCH_RANGE):
     """One epoch's K2 inputs from the network's weights: n_mb minibatches of
     mb packed rows, their advantage stats, Adam's count 7, seeded non-zero
@@ -580,7 +617,8 @@ def epoch_inputs(net, n_mb: int, mb: int, log_std_range=EPOCH_RANGE):
     stats = adv_stats(mbs[:, :, c0 + 1])
     t0 = torch.tensor([7], dtype=torch.int32, device="cuda")
     cfg = cuda_sgd.EpochConfig(
-        net.obs_dim, net.action_dim, (256, 256), (256, 256), learning_rate=3e-4, clip_eps=0.2,
+        net.obs_dim, net.action_dim, trunk_sizes(net.pi_trunk), trunk_sizes(net.vf_trunk), learning_rate=3e-4,
+        clip_eps=0.2,
         entropy_coef=0.01, value_coef=0.5, max_grad_norm=0.5, log_std_range=log_std_range,
     )
     return mbs, stats, t0, leaves, mu, nu, cfg
@@ -852,11 +890,12 @@ def time_sgd_kernels(tp, runner, label: str = "sgd_times") -> dict:
     return out
 
 
-def epoch_kernel_count(run, n_mb: int) -> dict:
-    """The CUDA kernels of one K2 call (torch.profiler): its own (they take
-    ``EpochArgs``), checked against ``KERNELS_PER_MINIBATCH`` per minibatch
-    plus ``KERNELS_PER_CALL``, and any other device operations the call
-    queued."""
+def epoch_kernel_count(run, n_mb: int, per_mb: int | None = None, per_call: int | None = None) -> dict:
+    """The CUDA kernels of one K2 (or K2n) call (torch.profiler): its own
+    (they take ``EpochArgs`` or ``NarrowEpochArgs``), checked against
+    ``per_mb`` (K2's ``KERNELS_PER_MINIBATCH``) per minibatch plus
+    ``per_call`` (``KERNELS_PER_CALL``), and any other device operations
+    the call queued."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -870,7 +909,9 @@ def epoch_kernel_count(run, n_mb: int) -> dict:
         torch.cuda.synchronize()
     counts = [(evt.key, evt.count) for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
     own = sum(c for k, c in counts if "EpochArgs" in k)
-    want = cuda_sgd.KERNELS_PER_MINIBATCH * n_mb + cuda_sgd.KERNELS_PER_CALL
+    per_mb = cuda_sgd.KERNELS_PER_MINIBATCH if per_mb is None else per_mb
+    per_call = cuda_sgd.KERNELS_PER_CALL if per_call is None else per_call
+    want = per_mb * n_mb + per_call
     check(own == want, f"fused_epoch: {own} CUDA kernels of its own in one call, expected {want}")
     return {"cuda_kernels_per_call": own, "other_device_ops_per_call": sum(c for k, c in counts if "EpochArgs" not in k)}
 
@@ -1202,7 +1243,7 @@ def recipe_env():
 
 
 def all_kernels():
-    from pyflyt_tpu_torch.ops import cuda_policy, cuda_sgd
+    from pyflyt_tpu_torch.ops import cuda_narrow, cuda_policy, cuda_sgd
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
     from pyflyt_tpu_torch.ops import cuda_dogfight as cd
@@ -1213,7 +1254,9 @@ def all_kernels():
             "quadx_waypoints_step": cq.WAYPOINTS_KERNEL, "policy_value_forward": cuda_policy.KERNEL,
             "logp_forward": cuda_sgd.LOGP_KERNEL, "fused_epoch": cuda_sgd.EPOCH_KERNEL,
             "fixedwing_step": cf.STEP_KERNEL, "fixedwing_waypoints_step": cf.WAYPOINTS_KERNEL,
-            "dogfight_step": cd.KERNEL, "rocket_step": cr.STEP_KERNEL, "rocket_landing_step": cr.LANDING_KERNEL}
+            "dogfight_step": cd.KERNEL, "rocket_step": cr.STEP_KERNEL, "rocket_landing_step": cr.LANDING_KERNEL,
+            "narrow_policy_value_forward": cuda_narrow.FORWARD_KERNEL, "narrow_logp_forward": cuda_narrow.LOGP_KERNEL,
+            "fused_epoch_narrow": cuda_narrow.EPOCH_KERNEL}
 
 
 def zero_launches() -> None:
@@ -3343,6 +3386,413 @@ def time_rk_kernels(packed) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 39: the narrow trunks' kernels (K4n, K3n, K2n) against their twins
+# ---------------------------------------------------------------------------
+
+TRAJ_TRUNK = (64, 64, 32, 32)  # the trajectory network's actor and critic (the reference's net_arch)
+# trunks of the narrow family: the trajectory network, the mesh curves'
+# (32, 32), one 128-wide layer, widths that pad (48, 24), a 4-deep funnel,
+# and an actor and a critic that differ
+NARROW_PAIRS = ((TRAJ_TRUNK, TRAJ_TRUNK), ((32, 32), (32, 32)), ((128,), (128,)), ((48, 24), (48, 24)),
+                ((128, 64, 32, 16), (128, 64, 32, 16)), (TRAJ_TRUNK, (128, 16)))
+NARROW_OBS = (16, 19, 21, 64)  # slow trajectory / mod-hovering, fast trajectory, hover, the widest
+NARROW_ACT = (1, 4, 8)
+# 16384 rows are 256 tiles, more than K4n's grid of one block an SM (132 on an
+# H100), so its blocks step through a second tile
+NARROW_ROWS = (64, 2048, N_ENVS, N_RAGGED, 16384)
+TRAJ_ENVS = 2048  # the trajectory CLI's and the r4 slow recipe's num_envs
+# K2n against its twin, two minibatches each: (pi, vf, obs, act, rows, log_std range): the r4 slow
+# recipe's minibatch (2048 x 128 / 64), the fast CLI's (2048 x 32 / 32), the SMALL arm's (8192 x 128 /
+# 64), then the other trunks, ragged minibatches and a clipping log_std range
+NARROW_EPOCHS = ((TRAJ_TRUNK, TRAJ_TRUNK, 16, 4, 4096, None), (TRAJ_TRUNK, TRAJ_TRUNK, 19, 4, 2048, EPOCH_RANGE),
+                 (TRAJ_TRUNK, TRAJ_TRUNK, 16, 4, 16384, None), ((32, 32), (32, 32), 21, 8, N_RAGGED, EPOCH_RANGE),
+                 ((128,), (128,), 64, 1, 4096, None), (TRAJ_TRUNK, (128, 16), 33, 4, N_RAGGED, EPOCH_RANGE),
+                 ((128, 64, 32, 16), (128, 64, 32, 16), 19, 4, 4096, EPOCH_RANGE),
+                 ((48, 24), (48, 24), 16, 4, N_RAGGED, None))
+
+
+def narrow_net(seed: int, obs: int, act: int, pi=TRAJ_TRUNK, vf=TRAJ_TRUNK, **kw):
+    """A random actor-critic of the narrow family (no feature trunk)."""
+    import torch
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+    return ActorCritic(obs, act, feature_sizes=(), pi_sizes=pi, vf_sizes=vf, device="cuda",
+                       generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def logp_atol(net, rows, log_std_range) -> float:
+    """K3n's tolerance from the data: a mean moved by ``policy_atol``'s
+    mean bound moves a row's log-prob by at most that times
+    sum_j |a_j - mean_j| / var_j; never less than LOGP_ATOL."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_policy
+
+    o, a = net.obs_dim, net.action_dim
+    mean, _ = cuda_policy.policy_value_forward_plain(rows[:, :o].contiguous(), net.kernel_weights())
+    ls = net.log_std.detach()
+    if log_std_range is not None:
+        ls = torch.clamp(ls, *log_std_range)
+    scale = ((rows[:, o : o + a] - mean).abs() / torch.exp(2.0 * ls)).sum(1).max().item()
+    return max(LOGP_ATOL, policy_atol(net)[0] * scale)
+
+
+def check_narrow_grid(seed: int) -> dict:
+    """K4n over every trunk pair x obs x action width x row count of the
+    grid at ``policy_atol``, and K3n (the actor) at every row count with
+    and without a log_std range; each launch counted. Then K3n at its main
+    paths' batches, where each of its 4 x SM-count blocks steps through many
+    tiles: the SMALL arm's 1,048,576 rows (obs 16, act 4, the reference
+    network); phase 40 adds the r4 slow recipe's batch on the archived
+    policy."""
+    from pyflyt_tpu_torch.ops import cuda_narrow
+
+    worst = {"mean": 0.0, "value": 0.0, "logp": 0.0}
+    fwd0, logp0 = cuda_narrow.FORWARD_KERNEL.launches, cuda_narrow.LOGP_KERNEL.launches
+    cases = 0
+    for pi, vf in NARROW_PAIRS:
+        for o in NARROW_OBS:
+            for a in NARROW_ACT:
+                net = narrow_net(seed + 100 * o + a + 7 * len(pi) + len(vf), o, a, pi, vf)
+                atol = policy_atol(net)
+                for n in NARROW_ROWS:
+                    e_m, e_v = check_policy(net, n, atol)
+                    worst["mean"], worst["value"] = max(worst["mean"], e_m), max(worst["value"], e_v)
+                    cases += 1
+                    if pi == vf:
+                        worst["logp"] = max(worst["logp"], check_logp(net, n, atol=logp_atol))
+    small = check_logp(narrow_net(seed + 16, 16, 4), K3_WIDE_ROWS, atol=logp_atol)
+    worst["logp"] = max(worst["logp"], small)
+    launches = {"narrow_policy_value_forward": cuda_narrow.FORWARD_KERNEL.launches - fwd0,
+                "narrow_logp_forward": cuda_narrow.LOGP_KERNEL.launches - logp0}
+    check(launches["narrow_policy_value_forward"] == cases, f"narrow grid: K4n launches {launches}, expected {cases}")
+    return {"cases": cases, "trunks": NARROW_PAIRS, "obs": NARROW_OBS, "act": NARROW_ACT, "rows": NARROW_ROWS,
+            "max_mean_err": worst["mean"], "max_value_err": worst["value"], "max_logp_err": worst["logp"],
+            "logp_small_arm_rows_1048576": small, "launches": launches}
+
+
+def check_narrow_epoch_repeat(net, n_mb: int, mb: int) -> dict:
+    """Two K2n calls on the same inputs give bit-identical parameters,
+    moments and metrics, and the images its last Adam step wrote are
+    ``cuda_narrow.pack_trunk`` of the returned leaves, byte for byte."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_narrow
+
+    inputs = epoch_inputs(net, n_mb, mb)
+    (a, images), (b, _) = cuda_narrow.launch_epoch(*inputs), cuda_narrow.launch_epoch(*inputs)
+    pi, vf = cuda_narrow.trunk_leaves(a[0], len(net.pi_trunk.layers), len(net.vf_trunk.layers))
+    want = torch.zeros_like(images)
+    for row, trunk in zip(want, (pi, vf)):
+        img = cuda_narrow.pack_trunk(*trunk)
+        row[: img.numel()] = img
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip([*a[0], *a[1], *a[2], a[3]], [*b[0], *b[1], *b[2], b[3]]))
+    check(same, f"narrow epoch {n_mb}x{mb}: two calls on the same inputs differ")
+    mismatched = int((images != want).sum())
+    check(mismatched == 0, f"narrow epoch {n_mb}x{mb}: {mismatched} image bytes differ from pack_trunk")
+    return {"n_mb": n_mb, "mb": mb, "bit_identical": same, "image_bytes": int(images.numel()),
+            "image_bytes_differing": mismatched}
+
+
+def check_narrow_epochs(seed: int) -> dict:
+    """K2n against its twin at ``NARROW_EPOCHS`` (two minibatches each, at
+    K2's epoch tolerance), then its repeat at the r4 slow recipe's shape."""
+    from pyflyt_tpu_torch.ops import cuda_narrow
+
+    launches0 = cuda_narrow.EPOCH_KERNEL.launches
+    checks = []
+    for pi, vf, o, a, mb, rng in NARROW_EPOCHS:
+        c = check_epoch(narrow_net(seed + 1000 + o + mb, o, a, pi, vf), 2, mb, rng)
+        checks.append({**c, "pi": pi, "vf": vf})
+    check(cuda_narrow.EPOCH_KERNEL.launches - launches0 == len(NARROW_EPOCHS), "narrow epochs: K2n not launched")
+    repeat = check_narrow_epoch_repeat(narrow_net(seed + 2000, 16, 4), 4, 4096)
+    return {"checks": checks, "repeat": repeat, "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "max_mu_rel_err": max(c["mu_rel_err"] for c in checks),
+            "max_nu_rel_err": max(c["nu_rel_err"] for c in checks)}
+
+
+def time_narrow_kernels(net, obs, rows, mbs_cfg) -> dict:
+    """K4n on ``obs``, K3n on the PPO batch ``rows`` and K2n over one epoch
+    (``mbs_cfg`` = (num_minibatches, minibatch_size, PPOConfig)) at the
+    trajectory network: device time, host time, the plain twin, the
+    library yardstick and the bound."""
+    from pyflyt_tpu_torch.ops import cuda_narrow, cuda_sgd
+
+    bound = lambda b, f: (1e3 * max(b / H100_BYTES_PER_S, f / H100_BF16_FLOPS),  # noqa: E731
+                          "bytes" if b / H100_BYTES_PER_S >= f / H100_BF16_FLOPS else "operations")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    o, a = net.obs_dim, net.action_dim
+    pi, vf = trunk_sizes(net.pi_trunk), trunk_sizes(net.vf_trunk)
+    out = {"narrow_policy_value_forward": time_policy_forward(net, obs, lib_iters=20)}  # ~21 launches a call
+
+    batch = rows.shape[0]
+    pl_ = pi_leaves(net)
+    # the wrapper packs the actor's image on each call: ~18 launches a call,
+    # the library chain ~20; 20 calls stay under the ~1000 a stream holds
+    ms, host = time_ms(lambda: cuda_sgd.logp_forward(rows, pl_, o), iters=20)
+    plain, _ = time_ms(lambda: cuda_sgd.logp_forward_plain(rows, pl_, o), iters=3, repeats=3, device_timed=False)
+    lib, _ = time_ms(library_logp(net, rows), iters=20)
+    b_ms, by = bound(nbytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a, sizes=pi))
+    # the kernel alone on an image packed once, and the pack alone
+    n_pi = len(pi)
+    pack = lambda: cuda_narrow.pack_trunk(pl_[:2 * n_pi:2], pl_[1:2 * n_pi:2], pl_[2 * n_pi],  # noqa: E731
+                                          pl_[2 * n_pi + 1])
+    image, lay = pack(), cuda_narrow.layout(o, pi, a)
+    kernel, _ = time_ms(lambda: cuda_narrow.launch_logp(rows, image, lay, pl_[-1], o), iters=100)
+    pack_ms, _ = time_ms(pack, iters=40)
+    out["narrow_logp_forward"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                                  "bound_by": by, "rows": batch, "kernel_ms": kernel, "pack_ms": pack_ms}
+
+    n_mb, mb, cfg = mbs_cfg
+    mbs = packed_rows(net, n_mb * mb, seed=301).reshape(n_mb, mb, -1)
+    stats = adv_stats(mbs[:, :, o + a + 1])
+    inputs = epoch_inputs(net, n_mb, mb, cfg.log_std_range)
+    _, _, t0, leaves, mu, nu, _ = inputs
+    ecfg = cuda_sgd.EpochConfig(o, a, pi, vf, cfg.learning_rate, cfg.clip_eps, cfg.entropy_coef, cfg.value_coef,
+                                cfg.max_grad_norm, cfg.log_std_range)
+    run = lambda: cuda_sgd.fused_epoch(mbs, stats, t0, leaves, mu, nu, ecfg)  # noqa: E731
+    ms, host = time_ms(run, iters=max(1, 192 // (cuda_narrow.KERNELS_PER_MINIBATCH * n_mb)), repeats=3)
+    plain, _ = time_ms(lambda: cuda_sgd.fused_epoch_plain(mbs, stats, t0, leaves, mu, nu, ecfg), iters=1, repeats=2,
+                       device_timed=False)
+    lib_fn = library_update(net, mbs[0], stats[0], cfg)
+    lib_mb = profiled_device_ms(lib_fn, iters=8)
+    lib_wall = host_wall_ms(lib_fn, iters=8)
+    state = nbytes(leaves) + nbytes(mu) + nbytes(nu)
+    b_ms, by = bound(nbytes([mbs, stats, t0]) + 2 * state + n_mb * 5 * 4,
+                     cuda_sgd.epoch_flops(n_mb * mb, o, a, pi_sizes=pi, vf_sizes=vf))
+    out["fused_epoch_narrow"] = {
+        "ms": ms, "host_ms": host, "ms_per_minibatch": ms / n_mb, "plain_ms": plain,
+        "library_ms": lib_mb * n_mb, "library_ms_per_minibatch": lib_mb,
+        "library_ms_source": "torch.profiler kernel time", "library_host_wall_ms_per_minibatch": lib_wall,
+        "bound_ms": b_ms, "bound_by": by, "minibatches": n_mb, "minibatch_size": mb,
+        **epoch_kernel_count(run, n_mb, cuda_narrow.KERNELS_PER_MINIBATCH, cuda_narrow.KERNELS_PER_CALL),
+    }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 40-44: trajectory following on the narrow kernels
+# ---------------------------------------------------------------------------
+
+TRAJ_POLICY = "traj_slow_r4_seed0"
+TRAJ_ARCHIVE_LOG = "docs/artifacts/traj_slow_stable_tpu.jsonl"
+TRAJ_ARCHIVE_EPISODES = 32  # the archive's independent eval (traj_slow_stable_r4.py:103)
+TRAJ_EVAL_EPISODES = 256
+TRAJ_ROLLOUT_STEPS = 128
+# the r4 campaign's slow env and recipe (docs/artifacts/traj_slow_stable_r4.py:55-59, 120-123)
+TRAJ_R4_ENV = dict(flight_mode=9, control_hz=80, simulate_wind=True, noisy_motors=True, flight_dome_size=100,
+                   max_duration_seconds=10.0)
+TRAJ_ARCH = dict(feature_sizes=(), pi_sizes=TRAJ_TRUNK, vf_sizes=TRAJ_TRUNK)
+
+
+def traj_r4_config(**kw):
+    """The r4 slow recipe (traj_slow_stable_r4.py:56-59) on the reference
+    network; ``num_envs`` 8192 with the mod-hovering env is ppo_20m_r4.py's
+    SMALL arm (:66-77)."""
+    from pyflyt_tpu_torch.rl import PPOConfig
+
+    return PPOConfig(**{**dict(num_envs=TRAJ_ENVS, rollout_steps=128, num_epochs=10, num_minibatches=64,
+                               learning_rate=1e-4, clip_eps=0.1, init_log_std=-1.6), **TRAJ_ARCH, **kw})
+
+
+def traj_archive_eval() -> dict:
+    """The JAX package's independent 32-episode eval of the archived slow
+    policy (traj_slow_stable_tpu.jsonl, stage E-seed0, the winning
+    best_raw checkpoint)."""
+    with open(os.path.join(HERE, TRAJ_ARCHIVE_LOG)) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return next(r for r in rows if r.get("stage") == "E-seed0")["independent_eval_32ep"]["best_raw"]
+
+
+def traj_floors(archive: dict) -> dict:
+    """Floors on the card's 256-episode means: the archive's mean less three
+    standard errors of the difference of two means, the archive's standard
+    deviation standing for both (32 and 256 episodes)."""
+    se = math.sqrt(1.0 / TRAJ_ARCHIVE_EPISODES + 1.0 / TRAJ_EVAL_EPISODES)
+    return {"mean_length": archive["mean_length"] - 3.0 * archive["std_length"] * se,
+            "mean_reward": archive["mean_reward"] - 3.0 * archive["std_reward"] * se}
+
+
+def traj_slow_env():
+    from pyflyt_tpu_torch.envs.quadx_mod import QuadXTrajectoryFollowingSlowEnv
+
+    return QuadXTrajectoryFollowingSlowEnv(device="cuda", **TRAJ_R4_ENV)
+
+
+def traj_serving(net, seed: int, card: str):
+    """The archived slow policy acting (sampled, through K4n) in TRAJ_ENVS
+    r4 slow envs under the exact auto-reset for TRAJ_ROLLOUT_STEPS steps,
+    one K4n launch per step and nothing else; then the same env stepped
+    alone and with its whole-batch reset, for the reset's share."""
+    import torch
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = traj_slow_env()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    ars, obs = ppo.env_init(env, TRAJ_ENVS, gen, 0)
+    ars, obs, _ = ppo.rollout(net, env, ars, obs, 4, gen, refresh=0)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ars, obs, traj = ppo.rollout(net, env, ars, obs, TRAJ_ROLLOUT_STEPS, gen, refresh=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "narrow_policy_value_forward": TRAJ_ROLLOUT_STEPS}
+    check(launches == want, f"trajectory serving launches {launches}, expected {want}")
+    check(bool(torch.isfinite(traj.reward).all() and torch.isfinite(traj.value).all()), "trajectory serving: non-finite")
+    action = torch.zeros((TRAJ_ENVS, 4), device="cuda")
+    step_ms = host_wall_ms(lambda: env.step(ars, action), iters=20)
+    reset_ms = host_wall_ms(lambda: env.reset(TRAJ_ENVS, gen), iters=20)
+    auto_ms = host_wall_ms(lambda: env.autoreset_step(ars, action), iters=20)
+    fwd_ms = host_wall_ms(lambda: ppo.act(net, obs, gen), iters=20)
+    zero_launches()
+    return {"card": card, "num_envs": TRAJ_ENVS, "steps": TRAJ_ROLLOUT_STEPS, "wall_s": wall,
+            "env_steps_per_s": TRAJ_ENVS * TRAJ_ROLLOUT_STEPS / wall, "ms_per_step": 1e3 * wall / TRAJ_ROLLOUT_STEPS,
+            "episodes_done": int(traj.done.sum()), "mean_reward": float(traj.reward.mean()), "launches": launches,
+            "split_ms": {"env_step": step_ms, "env_reset": reset_ms, "autoreset_step": auto_ms, "act_k4n": fwd_ms},
+            "reset_share_of_autoreset_step": (auto_ms - step_ms) / auto_ms}, obs
+
+
+def traj_eval(net, seed: int, card: str) -> dict:
+    """The archived slow policy flown deterministically (K4n's mean,
+    clipped) for TRAJ_EVAL_EPISODES fresh r4 slow episodes (noise and
+    gusts on) for max_steps + 2 steps, as ``PPO.evaluate`` counts them;
+    fails under ``traj_floors`` of the archive's eval."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_policy
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = traj_slow_env()
+    n = TRAJ_EVAL_EPISODES
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+    w = net.kernel_weights()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, obs = env.reset(n, torch.Generator(device="cuda").manual_seed(seed + 1234))
+    zeros = lambda: torch.zeros(n, device="cuda")  # noqa: E731
+    done, ep_rew, ep_len = zeros(), zeros(), zeros()
+    steps = env.max_steps + 2
+    for _ in range(steps):
+        mean, _ = cuda_policy.policy_value_forward(obs, w)
+        state, out = env.step(state, torch.clamp(mean, low, high))
+        ep_rew += out.reward * (1.0 - done)
+        ep_len += 1.0 - done
+        done = torch.maximum(done, (out.termination | out.truncation).float())
+        obs = out.obs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "narrow_policy_value_forward": steps}
+    check(launches == want, f"trajectory eval launches {launches}, expected {want}")
+    archive = traj_archive_eval()
+    floors = traj_floors(archive)
+    std = lambda x: float(x.std(correction=0))  # noqa: E731
+    res = {"card": card, "episodes": n, "steps": steps, "wall_s": wall, "all_done": bool(done.all()),
+           "mean_length": float(ep_len.mean()), "std_length": std(ep_len), "mean_reward": float(ep_rew.mean()),
+           "std_reward": std(ep_rew), "targets_reached_mean": float(state.current_target_index.float().mean()),
+           "archive": archive, "floors": floors, "policy": TRAJ_POLICY, "launches": launches}
+    check(res["all_done"], "trajectory eval: an episode did not end")
+    check(res["mean_length"] >= floors["mean_length"], f"trajectory eval: mean length {res['mean_length']} "
+                                                        f"under its floor {floors['mean_length']}")
+    check(res["mean_reward"] >= floors["mean_reward"], f"trajectory eval: mean reward {res['mean_reward']} "
+                                                        f"under its floor {floors['mean_reward']}")
+    zero_launches()
+    return res
+
+
+def timed_iterations(tp, want: dict, label: str, seed: int, card: str) -> tuple[dict, object]:
+    """A warm-up and a timed, split iteration of ``tp`` from a fresh
+    runner, each with its launches held to ``want`` (the rest 0) and Adam's
+    count to epochs x minibatches."""
+    import torch
+
+    cfg = tp.config
+    t0 = time.perf_counter()
+    runner = tp.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = []
+    for it in range(2):
+        count0 = int(runner.opt_state.count)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, metrics, split = run_iteration(tp, runner, split=it == 1)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        full = {**dict.fromkeys(launches, 0), **want}
+        check(launches == full, f"{label} iteration {it}: launches {launches}, expected {full}")
+        check(int(runner.opt_state.count) - count0 == cfg.num_epochs * cfg.num_minibatches,
+              f"{label} iteration {it}: Adam count")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"{label} iteration {it}: metrics")
+        rows.append({"wall_s": wall, "split_s": split, "launches": launches,
+                     "metrics": {k: float(v) for k, v in metrics.items()}})
+    check(all(bool(torch.isfinite(p).all()) for p in runner.network.parameters()), f"{label}: non-finite params")
+    zero_launches()
+    wall = rows[-1]["wall_s"]
+    return {"card": card, "num_envs": cfg.num_envs, "rollout_steps": cfg.rollout_steps, "batch": cfg.batch_size,
+            "epochs": cfg.num_epochs, "minibatches": cfg.num_minibatches, "minibatch_size": cfg.minibatch_size,
+            "fused_sgd": cfg.fused_sgd, "fused_rollout_forward": cfg.fused_rollout_forward, "init_s": init_s,
+            "warmup_s": rows[0]["wall_s"], "wall_s": wall, "samples_per_s": cfg.batch_size / wall,
+            "split_s": rows[-1]["split_s"], "launches_per_iteration": rows[-1]["launches"],
+            "metrics": rows[-1]["metrics"]}, runner
+
+
+def traj_train(seed: int, card: str) -> dict:
+    """(a) The JAX CLI's ``train`` defaults on the fast env (2048 envs, 32
+    steps, 15 epochs x 32 minibatches, the f32 path: nothing launches);
+    (b) the r4 slow recipe with the fused rollout forward and fused_sgd
+    (K4n a step, K3n once, K2n an epoch)."""
+    from pyflyt_tpu_torch.envs.quadx_mod import QuadXTrajectoryFollowingFastEnv
+    from pyflyt_tpu_torch.rl import PPO, PPOConfig
+
+    fast = PPO(QuadXTrajectoryFollowingFastEnv(device="cuda"), PPOConfig(num_envs=TRAJ_ENVS, **TRAJ_ARCH))
+    a, _ = timed_iterations(fast, {}, "trajectory fast CLI defaults", seed, card)
+    cfg = traj_r4_config(fused_rollout_forward=True, fused_sgd=True)
+    slow = PPO(traj_slow_env(), cfg)
+    b, runner = timed_iterations(slow, {"narrow_policy_value_forward": cfg.rollout_steps, "narrow_logp_forward": 1,
+                                        "fused_epoch_narrow": cfg.num_epochs}, "trajectory r4 slow recipe", seed, card)
+    return {"fast_cli_defaults": a, "r4_slow_fused": b, "other_trunks": other_trunks(seed, card)}, slow, runner
+
+
+def other_trunks(seed: int, card: str) -> dict:
+    """The fused PPO path on the mesh curves' (32, 32) and on (128,) (256
+    r4 slow envs x 16 steps, 2 epochs x 4 minibatches), and PPO refusing
+    (256,) on the card, naming ROADMAP item 27."""
+    from pyflyt_tpu_torch.rl import PPO
+
+    out = {}
+    for sizes in ((32, 32), (128,)):
+        cfg = traj_r4_config(num_envs=256, rollout_steps=16, num_epochs=2, num_minibatches=4, pi_sizes=sizes,
+                             vf_sizes=sizes, fused_rollout_forward=True, fused_sgd=True)
+        res, _ = timed_iterations(PPO(traj_slow_env(), cfg), {"narrow_policy_value_forward": cfg.rollout_steps,
+                                                             "narrow_logp_forward": 1, "fused_epoch_narrow": 2},
+                                  f"trunk {sizes}", seed, card)
+        out[str(sizes)] = {k: res[k] for k in ("wall_s", "samples_per_s", "launches_per_iteration")}
+    try:
+        PPO(traj_slow_env(), traj_r4_config(pi_sizes=(256,), vf_sizes=(256,), fused_sgd=True))
+    except NotImplementedError as e:
+        check("item 27" in str(e), f"PPO at (256,): {e}")
+        out["(256,)"] = str(e)
+    else:
+        fail("PPO took a (256,) trunk with fused_sgd on the card")
+    return out
+
+
+def small_arm_train(seed: int, card: str) -> dict:
+    """ppo_20m_r4.py's SMALL fused arm: 8192 PackedQuadXModHoveringEnv
+    (mode 9, NED, 80 Hz, wind) under the exact auto-reset, the reference
+    network, fused_sgd (the rollout's forward f32, as the JAX arm's): row 2
+    a step, K3n once, K2n an epoch."""
+    from pyflyt_tpu_torch.rl import PPO
+
+    cfg = traj_r4_config(num_envs=N_ENVS, fused_sgd=True)
+    res, _ = timed_iterations(PPO(recipe_env(), cfg), {"quadx_step": cfg.rollout_steps, "narrow_logp_forward": 1,
+                                                      "fused_epoch_narrow": cfg.num_epochs}, "SMALL arm", seed, card)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3367,7 +3817,7 @@ def main(argv=None) -> int:
         return 0
     from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv, packed_autoreset_init
     from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
-    from pyflyt_tpu_torch.ops import cuda_build
+    from pyflyt_tpu_torch.ops import cuda_build, cuda_policy
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
     from pyflyt_tpu_torch.rl import ppo
     from pyflyt_tpu_torch.rl.networks import ActorCritic
@@ -3797,6 +4247,76 @@ def main(argv=None) -> int:
         k["launches_per_rk_rollout"] = rk_roll["launches"][k["name"]]
         k["launches_per_rk_eval"] = results["rk_eval"]["launches"][k["name"]]
         k["launches_per_rk_settle"] = rk_step_launches[k["name"]]
+    # 39. the narrow trunks' kernels against their twins: K4n and K3n over
+    # the grid, K2n at the trajectory recipes' minibatches and on repeat
+    results["narrow_grid"] = check_narrow_grid(args.seed)
+    print(json.dumps({"narrow_grid": results["narrow_grid"]}), flush=True)
+    results["narrow_epochs"] = check_narrow_epochs(args.seed)
+    print(json.dumps({"narrow_epochs": results["narrow_epochs"]}), flush=True)
+    # 40. the archived slow policy: K4n at its weights, then its serving rollout
+    traj_net = checkpoint.load_policy_npz(TRAJ_POLICY, device="cuda")
+    check(trunk_sizes(traj_net.pi_trunk) == TRAJ_TRUNK and traj_net.obs_dim == 16 and
+          cuda_policy._kernel_family(traj_net.kernel_weights()) == "narrow", "the archived slow policy's widths")
+    atol_t = policy_atol(traj_net)
+    e_t = [check_policy(traj_net, n, atol_t) for n in (TRAJ_ENVS, N_RAGGED)]
+    r4 = traj_r4_config()
+    results["k4n_traj_policy"] = {"mean_err": max(e[0] for e in e_t), "value_err": max(e[1] for e in e_t),
+                                  "atol": atol_t,
+                                  "k3n_logp_err_rows_262144": check_logp(traj_net, r4.batch_size, atol=logp_atol)}
+    print(json.dumps({"k4n_traj_policy": results["k4n_traj_policy"]}), flush=True)
+    results["traj_serving"], traj_obs = traj_serving(traj_net, args.seed, card)
+    print(json.dumps({"traj_serving": results["traj_serving"]}), flush=True)
+    # 41. its 256-episode deterministic eval against the archive's floors
+    results["traj_eval"] = traj_eval(traj_net, args.seed, card)
+    print(json.dumps({"traj_eval": results["traj_eval"]}), flush=True)
+    # 42. training: the fast CLI's defaults (f32) and the r4 slow recipe (fused)
+    results["traj_train"], _, _ = traj_train(args.seed, card)
+    print(json.dumps({"traj_train": results["traj_train"]}), flush=True)
+    # 43. ppo_20m_r4.py's SMALL fused arm: row 2, K3n and K2n
+    results["small_arm_train"] = small_arm_train(args.seed, card)
+    print(json.dumps({"small_arm_train": results["small_arm_train"]}), flush=True)
+    # 44. K4n, K3n and K2n against their bounds at the trajectory shapes
+    nt = time_narrow_kernels(traj_net, traj_obs, packed_rows(traj_net, r4.batch_size, seed=302),
+                             (r4.num_minibatches, r4.minibatch_size, r4))
+    nt["narrow_policy_value_forward_obs19"] = time_policy_forward(
+        narrow_net(args.seed + 19, 19, 4), traj_obs.new_zeros((TRAJ_ENVS, 19)).normal_(), lib_iters=20)
+    results["narrow_kernel_times"] = nt
+    print(json.dumps({"narrow_kernel_times": nt, "card": card}), flush=True)
+    ng, ne = results["narrow_grid"], results["narrow_epochs"]
+    r4_launches = results["traj_train"]["r4_slow_fused"]["launches_per_iteration"]
+    for name, src, line, launches_, err, extra in (
+        ("narrow_policy_value_forward", "policy_narrow.cu", "pyflyt_tpu/ops/pallas_policy.py:35",
+         results["traj_serving"]["launches"]["narrow_policy_value_forward"],
+         max(ng["max_mean_err"], ng["max_value_err"], results["k4n_traj_policy"]["mean_err"],
+             results["k4n_traj_policy"]["value_err"]),
+         {"main_path": f"traj_serving, {TRAJ_ROLLOUT_STEPS} steps x {TRAJ_ENVS} envs, obs 16",
+          "obs19": {f: nt["narrow_policy_value_forward_obs19"][f] for f in
+                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}),
+        ("narrow_logp_forward", "policy_narrow.cu", "pyflyt_tpu/ops/pallas_sgd.py:173",
+         r4_launches["narrow_logp_forward"],
+         max(ng["max_logp_err"], results["k4n_traj_policy"]["k3n_logp_err_rows_262144"]),
+         {"main_path": f"traj_train r4_slow_fused, {r4.batch_size} rows",
+          **{k: nt["narrow_logp_forward"][k] for k in ("kernel_ms", "pack_ms")}}),
+        ("fused_epoch_narrow", "fused_epoch_narrow.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
+         r4_launches["fused_epoch_narrow"], ne["max_abs_err"],
+         {"main_path": f"traj_train r4_slow_fused, {r4.num_minibatches} x {r4.minibatch_size} rows an epoch",
+          "ptxas": ptxas_usage("fused_epoch_narrow.cu"),
+          **{k: nt["fused_epoch_narrow"][k] for k in ("ms_per_minibatch", "cuda_kernels_per_call")}}),
+    ):
+        t = nt[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"pyflyt_tpu_torch/csrc/{src}", "replaces": line,
+            "launches": launches_, "max_abs_err": err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, "host_ms": t["host_ms"],
+            **extra,
+        })
+    by_name = {k["name"]: k for k in kernels}
+    by_name["narrow_policy_value_forward"]["ptxas"] = ptxas_usage("policy_narrow.cu")
+    for k in kernels:
+        k["launches_per_traj_serving"] = results["traj_serving"]["launches"][k["name"]]
+        k["launches_per_traj_eval"] = results["traj_eval"]["launches"][k["name"]]
+        k["launches_per_traj_r4_iteration"] = r4_launches[k["name"]]
+        k["launches_per_small_arm_iteration"] = results["small_arm_train"]["launches_per_iteration"][k["name"]]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3812,9 +4332,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def time_policy_forward(net, obs) -> dict:
-    """K4 on ``obs``: device time, host time, the plain twin, the cuBLAS
-    chain and the bound (bf16 matmul operations, weights and I/O bytes)."""
+def time_policy_forward(net, obs, lib_iters: int = 50) -> dict:
+    """K4 (or K4n) on ``obs``: device time, host time, the plain twin, the
+    cuBLAS chain (``lib_iters`` calls queued: keep them under the ~1000
+    launches a stream holds) and the bound (bf16 matmul operations, weights
+    and I/O bytes)."""
     from pyflyt_tpu_torch.ops import cuda_policy
 
     w = net.kernel_weights()
@@ -3822,7 +4344,7 @@ def time_policy_forward(net, obs) -> dict:
     n = obs.shape[0]
     ms, host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=200)
     plain, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs, w), iters=20, device_timed=False)
-    lib, _ = time_ms(library_forward(net, obs), iters=50)  # 11 launches a call
+    lib, _ = time_ms(library_forward(net, obs), iters=lib_iters)  # 11 launches a call at 2 x 256
     w_bytes = sum(t.numel() * t.element_size() for t in (
         *w.pi_w, *w.pi_b, w.pi_head_w, w.pi_head_b, *w.vf_w, *w.vf_b, w.vf_head_w, w.vf_head_b))
     t_bytes = (obs.numel() * 4 + w_bytes + n * (w.act_dim + 1) * 4) / H100_BYTES_PER_S

@@ -21,6 +21,8 @@ from pyflyt_tpu_torch.envs.fixedwing_waypoints import FixedwingWaypointsState
 from pyflyt_tpu_torch.envs.ma_fixedwing_dogfight import DogfightState
 from pyflyt_tpu_torch.envs.ma_quadx_hover import MAQuadXState
 from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
+from pyflyt_tpu_torch.envs.quadx_mod.trajectory_following_fast import TrajFastState
+from pyflyt_tpu_torch.envs.quadx_mod.trajectory_following_slow import TrajSlowState
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsState
 from pyflyt_tpu_torch.envs.rocket_landing import RocketLandingState
 from pyflyt_tpu_torch.envs.utils.waypoints import WaypointState
@@ -89,6 +91,15 @@ def quadx_state_from_jax(tree, device: str | torch.device = "cuda") -> quadx.Qua
     )
 
 
+def _gaussian_wind_from_jax(wind, generator, f) -> GaussianWind:
+    """A JAX ``GaussianWind`` (batched numpy leaves) as the port's: the
+    per-env base, the gust clip and the convention; ``generator`` draws
+    the gusts."""
+    base = np.array(wind.base_wind, dtype=np.float32).reshape(-1, 3)
+    gust = float(np.asarray(wind.max_gust, dtype=np.float32).reshape(-1)[0])
+    return GaussianWind(base_wind=f(base), generator=generator, max_gust=gust, orn_conv=wind.orn_conv)
+
+
 def mod_hover_state_from_jax(
     tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
 ) -> ModHoverState:
@@ -99,12 +110,9 @@ def mod_hover_state_from_jax(
     dev = resolve_device(device)
     f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
     b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
-    base = np.array(tree.wind.base_wind, dtype=np.float32).reshape(-1, 3)
-    gust = float(np.asarray(tree.wind.max_gust, dtype=np.float32).reshape(-1)[0])
     return ModHoverState(
         drone=quadx_state_from_jax(tree.drone, dev),
-        wind=GaussianWind(base_wind=f(base), generator=generator, max_gust=gust,
-                          orn_conv=tree.wind.orn_conv),
+        wind=_gaussian_wind_from_jax(tree.wind, generator, f),
         generator=generator,
         step_count=torch.tensor(np.array(tree.step_count, dtype=np.int32), device=dev),
         termination=b(tree.termination),
@@ -116,6 +124,52 @@ def mod_hover_state_from_jax(
         state16=f(tree.state16),
         collision=b(tree.collision),
         env_complete=b(tree.env_complete),
+    )
+
+
+def traj_fast_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> TrajFastState:
+    """The port's ``TrajFastState`` from the numpy leaves of a batched JAX
+    ``TrajFastState`` (a ``vmap``-ed reset or step); the JAX PRNG keys
+    become the one ``generator`` of the batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    i32 = lambda a: torch.tensor(np.array(a, dtype=np.int32), device=dev)  # noqa: E731
+    return TrajFastState(
+        drone=quadx_state_from_jax(tree.drone, dev),
+        wind=_gaussian_wind_from_jax(tree.wind, generator, f),
+        generator=generator,
+        step_count=i32(tree.step_count), termination=b(tree.termination), truncation=b(tree.truncation),
+        reward=f(tree.reward), action=f(tree.action), waypoints=f(tree.waypoints),
+        num_targets_reached=i32(tree.num_targets_reached),
+        prev_step_count_reached=i32(tree.prev_step_count_reached),
+        target_pos=f(tree.target_pos), next_pos=f(tree.next_pos), delta_pos=f(tree.delta_pos),
+        lin_pos_error=f(tree.lin_pos_error), prev_lin_pos_error=f(tree.prev_lin_pos_error),
+        lin_pos_error_fixed=f(tree.lin_pos_error_fixed), angle_diff=f(tree.angle_diff),
+        state19=f(tree.state19), collision=b(tree.collision), env_complete=b(tree.env_complete),
+    )
+
+
+def traj_slow_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> TrajSlowState:
+    """The port's ``TrajSlowState`` from the numpy leaves of a batched JAX
+    ``TrajSlowState``; the JAX PRNG keys become the one ``generator`` of
+    the batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    i32 = lambda a: torch.tensor(np.array(a, dtype=np.int32), device=dev)  # noqa: E731
+    return TrajSlowState(
+        drone=quadx_state_from_jax(tree.drone, dev),
+        wind=_gaussian_wind_from_jax(tree.wind, generator, f),
+        generator=generator,
+        step_count=i32(tree.step_count), termination=b(tree.termination), truncation=b(tree.truncation),
+        reward=f(tree.reward), action=f(tree.action), current_target_index=i32(tree.current_target_index),
+        target_pos=f(tree.target_pos), target_psi=f(tree.target_psi), fixed_waypoints=f(tree.fixed_waypoints),
+        state16=f(tree.state16), collision=b(tree.collision), env_complete=b(tree.env_complete),
     )
 
 

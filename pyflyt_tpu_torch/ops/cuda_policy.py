@@ -14,7 +14,9 @@ Bound on an H100 at 8192 rows: about 2.34 GFLOP on the bf16 tensor cores
 operations bound it. The kernel (``csrc/policy_mlp.cuh``: wgmma on
 weights resident in shared memory) supports the rollouts' shapes: obs
 width at most 64, two 256-wide tanh layers per trunk, at most 8 actions,
-any number of rows. The twin takes any widths.
+any number of rows; narrower trunks (1 to 4 layers of at most 128 units)
+go to K4n (``ops/cuda_narrow.py``), and ``cuda_sgd._check_envelope``
+decides which. The twin takes any widths.
 
 Weights are converted to bf16 once (``prepare_weights``), which gives the
 same values as the Pallas kernel's per-call cast: both round to nearest
@@ -33,6 +35,7 @@ import functools
 import torch
 from torch import Tensor
 
+from pyflyt_tpu_torch.ops import cuda_narrow, cuda_sgd
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 from pyflyt_tpu_torch.ops.cuda_sgd import leaf_specs, params_to_leaves  # noqa: F401
 
@@ -148,24 +151,20 @@ class PolicyWeights:
 
     @property
     def obs_dim(self) -> int:
-        return self.pi_w[0].shape[0]
+        return (self.pi_w[0] if self.pi_w else self.pi_head_w).shape[0]
 
     @property
     def act_dim(self) -> int:
         return self.pi_head_w.shape[1]
 
 
-def _kernel_envelope(w: PolicyWeights) -> str | None:
-    """Why the kernel cannot take ``w``'s shapes, or None."""
-    widths = [t.shape[1] for t in (*w.pi_w, *w.vf_w)]
-    if len(w.pi_w) != 2 or len(w.vf_w) != 2 or any(h != HIDDEN for h in widths):
-        return (f"the CUDA forward covers two {HIDDEN}-wide layers per trunk, got "
-                f"pi {[t.shape[1] for t in w.pi_w]} vf {[t.shape[1] for t in w.vf_w]} (ROADMAP.md, item 27)")
-    if not 0 < w.obs_dim <= MAX_OBS_DIM or w.vf_w[0].shape[0] != w.obs_dim:
-        return f"obs width {w.obs_dim} outside 1..{MAX_OBS_DIM} (ROADMAP.md, item 27)"
-    if not 0 < w.act_dim <= HEAD_N:
-        return f"action width {w.act_dim} outside 1..{HEAD_N} (ROADMAP.md, item 27)"
-    return None
+def _kernel_family(w: PolicyWeights) -> str:
+    """The kernel family of ``w``'s shapes (``cuda_sgd._check_envelope``);
+    raises ``NotImplementedError`` outside the kernels' envelope."""
+    if (w.vf_w[0] if w.vf_w else w.vf_head_w).shape[0] != w.obs_dim:
+        raise NotImplementedError("actor and critic read different obs widths")
+    return cuda_sgd._check_envelope(w.obs_dim, w.act_dim, [t.shape[1] for t in w.pi_w],
+                                    [t.shape[1] for t in w.vf_w])
 
 
 def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights:
@@ -187,9 +186,16 @@ def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights
         vf_head_w=w(leaves[i_vf_head]),
         vf_head_b=b(leaves[i_vf_head + 1]),
     )
-    if _kernel_envelope(out) is None:
+    try:
+        family = _kernel_family(out)
+    except NotImplementedError:
+        return out
+    if family == "wide":
         out.pi_image = pack_trunk(out.pi_w[0], out.pi_b[0], out.pi_w[1], out.pi_b[1], out.pi_head_w, out.pi_head_b)
         out.vf_image = pack_trunk(out.vf_w[0], out.vf_b[0], out.vf_w[1], out.vf_b[1], out.vf_head_w, out.vf_head_b)
+    else:
+        out.pi_image = cuda_narrow.pack_trunk(out.pi_w, out.pi_b, out.pi_head_w, out.pi_head_b)
+        out.vf_image = cuda_narrow.pack_trunk(out.vf_w, out.vf_b, out.vf_head_w, out.vf_head_b)
     return out
 
 
@@ -230,17 +236,22 @@ KERNEL = Kernel(
 )
 
 
-def _check_kernel_shapes(obs: Tensor, w: PolicyWeights) -> None:
-    why = _kernel_envelope(w)
-    if why is not None:
-        raise NotImplementedError(why)
+def _check_kernel_shapes(obs: Tensor, w: PolicyWeights) -> str:
+    """Raises unless the kernel can run ``w`` on ``obs``; returns the
+    kernel family."""
+    family = _kernel_family(w)
     images = (w.pi_image, w.vf_image)
-    if any(t is None or t.dtype != torch.uint8 or t.shape != (TRUNK_BYTES,) for t in images):
+    if family == "wide":
+        sizes = [(TRUNK_BYTES,)] * 2
+    else:
+        sizes = [(lay.bytes,) for lay in cuda_narrow.weight_layouts(w)]
+    if any(t is None or t.dtype != torch.uint8 for t in images) or [tuple(t.shape) for t in images] != sizes:
         raise ValueError("the kernel reads the trunks' images (prepare_weights)")
     if any(t.device != obs.device for t in images):
         raise ValueError("weights and obs must be on one device")
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in images):
         raise ValueError("weight images must be contiguous and 16-byte aligned")
+    return family
 
 
 def policy_value_forward(obs: Tensor, w: PolicyWeights) -> tuple[Tensor, Tensor]:
@@ -251,8 +262,10 @@ def policy_value_forward(obs: Tensor, w: PolicyWeights) -> tuple[Tensor, Tensor]
         return policy_value_forward_plain(obs, w)
     if obs.device.type != "cuda":
         raise ValueError(f"unsupported device {obs.device}")
-    _check_kernel_shapes(obs, w)
+    family = _check_kernel_shapes(obs, w)
     obs = obs.contiguous()
+    if family == "narrow":
+        return cuda_narrow.forward(obs, w)
     n = obs.shape[0]
     mean = torch.empty((n, w.act_dim), dtype=torch.float32, device=obs.device)
     value = torch.empty((n,), dtype=torch.float32, device=obs.device)

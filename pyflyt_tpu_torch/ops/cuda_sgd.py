@@ -20,9 +20,10 @@ launches its kernel for CUDA tensors and runs its plain twin
 (``*_plain``) for CPU tensors; the twins' matmuls are the module-level
 ``_mm``, ``_mm_tn`` and ``_mm_nt``, which a test may replace with f32
 products. The twins take any widths; the kernels cover two 256-wide tanh
-layers per trunk, obs widths up to 64 (K4's trunk: layer 0's K is one
-64-wide chunk of ``csrc/policy_mlp.cuh``) and at most 8 actions, and raise
-``NotImplementedError`` outside that.
+layers per trunk (``csrc/policy_mlp.cuh``, layer 0's K one 64-wide chunk)
+or, through ``ops/cuda_narrow.py``, 1 to 4 layers of at most 128 units
+each, obs widths up to 64 and at most 8 actions, and raise
+``NotImplementedError`` outside that (``_check_envelope``).
 
 Parameters travel as the ordered leaf list of ``leaf_specs`` (flax layout:
 weights ``(in, out)``, biases and log_std ``(1, n)``).
@@ -40,8 +41,10 @@ from torch import Tensor
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 
 HIDDEN = 256
-MAX_OBS_DIM = 64  # K3 and K2 (csrc/policy_mlp.cuh: layer 0's K is one 64-wide chunk)
+MAX_OBS_DIM = 64  # K3 and K2 (csrc/policy_mlp.cuh: layer 0's K is one 64-wide chunk), and the narrow family
 MAX_ACT_DIM = 8
+MAX_DEPTH = 4  # the narrow family's tanh layers a trunk (csrc/policy_narrow.cuh)
+MAX_WIDTH = 128  # and its widest layer
 
 # Adam constants (optax.adam defaults; eps as rl/ppo.py)
 B1 = 0.9
@@ -189,22 +192,40 @@ class _LogpArgsC(ctypes.Structure):
 LOGP_KERNEL = Kernel("policy_value_forward.cu", "logp_forward", [ctypes.c_void_p, ctypes.c_void_p])
 
 
-def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> None:
-    """K3's envelope (the actor trunk only), or K2's when ``vf_sizes`` is
-    given (both trunks)."""
-    trunks = [("pi", tuple(pi_sizes))] + ([("vf", tuple(vf_sizes))] if vf_sizes is not None else [])
-    for name, sizes in trunks:
-        if sizes != (HIDDEN, HIDDEN):
-            raise NotImplementedError(
-                f"the CUDA SGD kernels cover two {HIDDEN}-wide layers per trunk, got {name} {sizes} "
-                "(ROADMAP.md, item 27)"
-            )
+def in_envelope(sizes) -> bool:
+    """Whether a trunk's widths are the narrow family's: 1..MAX_DEPTH
+    layers, each 1..MAX_WIDTH wide."""
+    sizes = tuple(sizes)
+    return 0 < len(sizes) <= MAX_DEPTH and all(0 < s <= MAX_WIDTH for s in sizes)
+
+
+def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> str:
+    """The one envelope of the card's policy kernels (K4, K3, K2 and their
+    narrow family, ``ops/cuda_narrow.py``): the actor trunk (K3), or both
+    trunks when ``vf_sizes`` is given (K4, K2). Returns ``"wide"`` for two
+    256-wide layers a trunk (``csrc/policy_value_forward.cu``,
+    ``csrc/fused_epoch.cu``) or ``"narrow"`` for 1 to 4 layers of at most
+    128 units each (``csrc/policy_narrow.cu``, ``csrc/fused_epoch_narrow.cu``);
+    raises ``NotImplementedError`` naming ROADMAP item 27 outside both."""
+    trunks = [tuple(pi_sizes)] + ([tuple(vf_sizes)] if vf_sizes is not None else [])
+    if all(t == (HIDDEN, HIDDEN) for t in trunks):
+        family = "wide"
+    elif all(in_envelope(t) for t in trunks):
+        family = "narrow"
+    else:
+        got = f"pi {trunks[0]}" + (f" vf {trunks[1]}" if len(trunks) > 1 else "")
+        raise NotImplementedError(
+            f"the CUDA policy kernels cover two {HIDDEN}-wide layers per trunk, or 1 to "
+            f"{MAX_DEPTH} layers of at most {MAX_WIDTH} units each, in both trunks; "
+            f"got {got} (ROADMAP.md, item 27)"
+        )
     if not 0 < obs_dim <= MAX_OBS_DIM:
         raise NotImplementedError(
-            f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the CUDA SGD kernels' envelope; ROADMAP.md, item 27)"
+            f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the CUDA policy kernels' envelope; ROADMAP.md, item 27)"
         )
     if not 0 < act_dim <= MAX_ACT_DIM:
         raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM} (ROADMAP.md, item 27)")
+    return family
 
 
 def _range_args(log_std_range) -> tuple[int, float, float]:
@@ -229,11 +250,13 @@ def logp_forward(
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     n_pi = (len(pi_leaves) - 3) // 2
-    _check_envelope(obs_dim, act_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)])
+    family = _check_envelope(obs_dim, act_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)])
     if any(t.device != packed.device for t in pi_leaves):
         raise ValueError("leaves and rows must be on one device")
-    from pyflyt_tpu_torch.ops import cuda_policy  # it imports this module
+    from pyflyt_tpu_torch.ops import cuda_narrow, cuda_policy  # they import this module
 
+    if family == "narrow":
+        return cuda_narrow.logp(packed.contiguous(), pi_leaves, obs_dim, log_std_range)
     return _launch_logp(packed.contiguous(), cuda_policy.pack_trunk(*pi_leaves[:6]), pi_leaves[6], obs_dim,
                         log_std_range)
 
@@ -261,10 +284,20 @@ def _launch_logp(packed: Tensor, image: Tensor, log_std: Tensor, obs_dim: int, l
     return out
 
 
-def logp_flops(n: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN) -> int:
-    """Matmul operations K3 needs for ``n`` rows (2 per multiply-add,
-    unpadded widths): the actor trunk and its head."""
-    return 2 * n * (obs_dim * hidden + hidden * hidden + hidden * act_dim)
+def trunk_macs(in_dim: int, sizes, outs: int) -> tuple[int, int]:
+    """Multiply-adds a row of one trunk and its head needs, unpadded
+    widths: ``(forward, data gradient)``, the data gradient through every
+    layer but the first (the head included)."""
+    dims = (in_dim, *sizes, outs)
+    fwd = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    return fwd, fwd - dims[0] * dims[1]
+
+
+def logp_flops(n: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN, sizes=None) -> int:
+    """Matmul operations K3 (or K3n) needs for ``n`` rows (2 per
+    multiply-add, unpadded widths): the actor trunk (``sizes``, two
+    ``hidden``-wide layers by default) and its head."""
+    return 2 * n * trunk_macs(obs_dim, (hidden, hidden) if sizes is None else sizes, act_dim)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -535,10 +568,15 @@ def fused_epoch(
         return fused_epoch_plain(mbs, adv_stats, t0, leaves, mu, nu, cfg)
     if mbs.device.type != "cuda":
         raise ValueError(f"unsupported device {mbs.device}")
-    _check_envelope(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
+    family = _check_envelope(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
     if any(t.device != mbs.device for t in (adv_stats, t0, *leaves, *mu, *nu)):
         raise ValueError("every input must be on the device of mbs")
-    out, _ = launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
+    if family == "narrow":
+        from pyflyt_tpu_torch.ops import cuda_narrow
+
+        out, _ = cuda_narrow.launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
+    else:
+        out, _ = launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
     return out
 
 
@@ -598,11 +636,14 @@ def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg: EpochConfig):
     return out, images
 
 
-def epoch_flops(n_rows: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN) -> int:
-    """Matmul operations K2 needs for ``n_rows`` rows of minibatches (2 per
-    multiply-add, unpadded widths): the forward and the weight gradient of
-    every layer of both trunks, and the data gradient of every layer but
-    the first (the heads included)."""
-    fwd = 2 * (obs_dim * hidden + hidden * hidden) + hidden * act_dim + hidden
-    dgrad = hidden * act_dim + hidden * hidden + hidden + hidden * hidden
-    return 2 * n_rows * (2 * fwd + dgrad)
+def epoch_flops(n_rows: int, obs_dim: int, act_dim: int, hidden: int = HIDDEN, pi_sizes=None,
+                vf_sizes=None) -> int:
+    """Matmul operations K2 (or K2n) needs for ``n_rows`` rows of
+    minibatches (2 per multiply-add, unpadded widths): the forward and the
+    weight gradient of every layer of both trunks, and the data gradient of
+    every layer but the first (the heads included). The trunks default to
+    two ``hidden``-wide layers."""
+    wide = (hidden, hidden)
+    pi_f, pi_d = trunk_macs(obs_dim, wide if pi_sizes is None else pi_sizes, act_dim)
+    vf_f, vf_d = trunk_macs(obs_dim, wide if vf_sizes is None else vf_sizes, 1)
+    return 2 * n_rows * (2 * (pi_f + vf_f) + pi_d + vf_d)

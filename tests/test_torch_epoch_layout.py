@@ -312,17 +312,28 @@ def _cuda_env(act: int, obs: int = 21):
 
 @pytest.mark.parametrize("act,kw,what", [
     (4, dict(fused_sgd=True, pi_sizes=(64, 64, 32, 32), vf_sizes=(64, 64, 32, 32)), "got pi"),
+    (4, dict(fused_sgd=True, feature_sizes=(), pi_sizes=(64, 64, 32, 32), vf_sizes=(64, 64, 32, 32)), None),
     (4, dict(fused_rollout_forward=True, feature_sizes=(256, 256, 256)), "got pi"),
     (9, dict(fused_sgd=True), "action width 9"),
     (4, dict(fused_sgd=True, obs=65), "obs width 65"),
+    (4, dict(fused_sgd=True, feature_sizes=(), pi_sizes=(64, 64, 32, 32, 32), vf_sizes=(64, 64, 32, 32)), "got pi"),
+    (4, dict(fused_rollout_forward=True, feature_sizes=(256, 256), pi_sizes=(64,)), "got pi"),
 ])
 def test_ppo_raises_outside_the_kernel_envelope_on_the_card(act, kw, what):
-    """On a CUDA env, ``PPO`` refuses a network K4, K3 or K2 does not take
-    (the 20 M search's SMALL arm, a three-layer trunk, 9 actions, obs 65),
-    naming ROADMAP item 27, before it puts anything on the card."""
+    """On a CUDA env, ``PPO`` refuses a network K4, K3 or K2 (or their
+    narrow family) does not take (64-64-32-32 behind the default 2 x 256
+    feature trunk, a three-layer 256-wide trunk, 9 actions, obs 65, a
+    5-layer actor, 2 x 256 plus one more layer), naming ROADMAP item 27,
+    before it puts anything on the card; the 20 M search's SMALL arm
+    (``what`` None: no feature trunk) is the narrow family's and passes."""
     from pyflyt_tpu_torch.rl import PPO, PPOConfig
 
     kw = dict(kw)
     obs = kw.pop("obs", 21)
+    if what is None:  # PPO's own check on the trunks it builds
+        cfg = PPOConfig(**kw)
+        assert cuda_sgd._check_envelope(obs, act, cfg.feature_sizes + cfg.pi_sizes,
+                                        cfg.feature_sizes + cfg.vf_sizes) == "narrow"
+        return
     with pytest.raises(NotImplementedError, match=f"{what}.*item 27"):
         PPO(_cuda_env(act, obs), PPOConfig(**kw))

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from pyflyt_tpu_torch.ops import cuda_build, cuda_policy, cuda_sgd
+from pyflyt_tpu_torch.ops import cuda_build, cuda_narrow, cuda_policy, cuda_sgd
 from pyflyt_tpu_torch.rl.networks import ActorCritic
 
 torch.set_num_threads(1)
@@ -157,7 +157,10 @@ def test_prepare_weights_packs_only_what_the_kernel_takes():
         inside.pi_w[0], inside.pi_b[0], inside.pi_w[1], inside.pi_b[1], inside.pi_head_w, inside.pi_head_b))
     assert torch.equal(inside.vf_image, cuda_policy.pack_trunk(
         inside.vf_w[0], inside.vf_b[0], inside.vf_w[1], inside.vf_b[1], inside.vf_head_w, inside.vf_head_b))
-    for net in (ActorCritic(21, 4, feature_sizes=(16,), device="cpu"), ActorCritic(65, 4, device="cpu"),
+    narrow = ActorCritic(21, 4, feature_sizes=(16,), device="cpu").kernel_weights()  # the narrow family's
+    assert cuda_policy._kernel_family(narrow) == "narrow" and torch.equal(narrow.pi_image, cuda_narrow.pack_trunk(
+        narrow.pi_w, narrow.pi_b, narrow.pi_head_w, narrow.pi_head_b))
+    for net in (ActorCritic(21, 4, feature_sizes=(256,), device="cpu"), ActorCritic(65, 4, device="cpu"),
                 ActorCritic(21, 9, device="cpu")):
         w = net.kernel_weights()
         assert w.pi_image is None and w.vf_image is None
@@ -182,7 +185,8 @@ def _misaligned(w):
         ("obs 65", NotImplementedError, "obs width 65"),
         ("act 9", NotImplementedError, "action width 9"),
         ("3-layer trunk", NotImplementedError, "two 256-wide"),
-        ("128-wide trunk", NotImplementedError, "two 256-wide"),
+        ("128-wide trunk", None, None),  # the narrow family's (cuda_narrow)
+        ("256-wide single layer", NotImplementedError, "two 256-wide"),
         ("misaligned weights", ValueError, "16-byte aligned"),
         ("no image", ValueError, "images"),
     ],
@@ -193,9 +197,13 @@ def test_forward_kernel_rejects_what_it_does_not_take(case, err, match):
         "act 9": lambda: _weights(act=9),
         "3-layer trunk": lambda: _weights(feature_sizes=(256, 256, 256)),
         "128-wide trunk": lambda: _weights(feature_sizes=(128, 128)),
+        "256-wide single layer": lambda: _weights(feature_sizes=(256,)),
         "misaligned weights": lambda: _misaligned(_weights()),
         "no image": lambda: dataclasses.replace(_weights(), vf_image=None),
     }[case]()
+    if err is None:
+        assert cuda_policy._check_kernel_shapes(torch.zeros(2, w.obs_dim), w) == "narrow"
+        return
     with pytest.raises(err, match=match):
         cuda_policy._check_kernel_shapes(torch.zeros(2, w.obs_dim), w)
 

@@ -267,11 +267,15 @@ def test_ctypes_mirrors_match_the_c_structs(source, struct, cls):
 @pytest.mark.parametrize(
     "obs,act,pi,err",
     [(21, 4, (256, 256), None), (65, 4, (256, 256), "obs width"), (21, 9, (256, 256), "action width"),
-     (21, 4, (256,), "two 256-wide"), (21, 4, (128, 128), "two 256-wide")],
+     (21, 4, (256,), "two 256-wide"), (21, 4, (128, 128), None), (21, 4, (160, 160), "two 256-wide"),
+     (19, 4, (64, 64, 32, 32, 16), "two 256-wide")],
 )
 def test_kernel_envelope(obs, act, pi, err):
+    """Two 256-wide layers route to the wgmma kernels, 1-4 layers of at most
+    128 units to the narrow family; anything else raises."""
     if err is None:
-        cuda_sgd._check_envelope(obs, act, pi, pi)
+        want = "wide" if tuple(pi) == (256, 256) else "narrow"
+        assert cuda_sgd._check_envelope(obs, act, pi, pi) == want
     else:
         with pytest.raises(NotImplementedError, match=err):
             cuda_sgd._check_envelope(obs, act, pi, pi)

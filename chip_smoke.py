@@ -164,9 +164,28 @@ Phases, each of which fails the script on a failed check:
  43. ``small_arm_train``: ppo_20m_r4.py's SMALL fused arm (8192
      mod-hovering envs: row 2 a step, K3n once, K2n an epoch);
  44. ``narrow_kernel_times``: K4n, K3n and K2n at those shapes against
-     their bounds, their twins and their library calls, and the
-     ``kernels`` line for all fourteen kernels (rows 1, 2, 4, 5, 6, 8, 9
-     and 10 with phase 2's launch records).
+     their bounds, their twins and their library calls;
+ 45. ``vision_render``: the ray-cast camera (``core/camera``, no kernel of
+     its own: the JAX module is plain JAX) on 256 r4 gates views at 32 and
+     128 px, the card against the CPU running the same code (at most 0.5%
+     of the pixels differing, each on an edge; depth within 1e-5 where the
+     segmentation agrees), its wall and device time, peak memory and bound;
+ 46. ``vision_net``: the archived r4 gates policy's ``VisionActorCritic``
+     (assets/policies/gates_vision_r4.npz) on the card against the CPU at
+     256 and 4096 rows (TF32 off), its forward and forward + backward times;
+ 47. ``gates_eval``: that policy flown deterministically for 256 episodes
+     at 32 px, with plain physics (no kernel) and with ``use_kernel`` (K1
+     generic, row 2: 3 launches an agent step, counted), each against the
+     JAX package's CPU eval of the same checkpoint (fails under its mean
+     less 3 standard errors), beside the archive's 8-episode receipt;
+ 48. ``gates_train``: one timed iteration of the r4 recipe (256 × 128, 4 ×
+     8) with the cached auto-reset (64) and the exact one (0);
+ 49. ``gates_cli``: the ``gates_vision`` CLI's ``train`` for one iteration
+     at its defaults and ``eval`` on the npz;
+ 50. ``gates_profile``: one gates rollout step and its parts (policy,
+     render, physics, the env step, the reset, the auto-reset step), wall
+     and device time; then the ``kernels`` line for all fourteen kernels
+     (rows 1, 2, 4, 5, 6, 8, 9 and 10 with phase 2's launch records).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -3701,10 +3720,11 @@ def traj_eval(net, seed: int, card: str) -> dict:
     return res
 
 
-def timed_iterations(tp, want: dict, label: str, seed: int, card: str) -> tuple[dict, object]:
+def timed_iterations(tp, want: dict, label: str, seed: int, card: str, warm_up: bool = True) -> tuple[dict, object]:
     """A warm-up and a timed, split iteration of ``tp`` from a fresh
-    runner, each with its launches held to ``want`` (the rest 0) and Adam's
-    count to epochs x minibatches."""
+    runner (the timed one alone without ``warm_up``), each with its
+    launches held to ``want`` (the rest 0) and Adam's count to epochs x
+    minibatches."""
     import torch
 
     cfg = tp.config
@@ -3713,12 +3733,12 @@ def timed_iterations(tp, want: dict, label: str, seed: int, card: str) -> tuple[
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rows = []
-    for it in range(2):
+    for it in range(2 if warm_up else 1):
         count0 = int(runner.opt_state.count)
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runner, metrics, split = run_iteration(tp, runner, split=it == 1)
+        runner, metrics, split = run_iteration(tp, runner, split=it == 1 or not warm_up)
         wall = time.perf_counter() - t0
         launches = read_launches()
         full = {**dict.fromkeys(launches, 0), **want}
@@ -3791,6 +3811,339 @@ def small_arm_train(seed: int, card: str) -> dict:
     res, _ = timed_iterations(PPO(recipe_env(), cfg), {"quadx_step": cfg.rollout_steps, "narrow_logp_forward": 1,
                                                       "fused_epoch_narrow": cfg.num_epochs}, "SMALL arm", seed, card)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 45-50: vision (the ray-cast camera, QuadX-Gates, VisionActorCritic)
+# ---------------------------------------------------------------------------
+
+
+GATES_ENVS = 256  # the r4 recipe's num_envs (docs/artifacts/gates_vision_r4.py)
+GATES_RES = 32  # its camera; the env's default is 128
+RENDER_EDGE_SHARE = 0.005  # of the pixels: f32 rounding of a ray flips a pixel across an edge
+RENDER_DEPTH_ATOL = 1e-5  # where the segmentation agrees
+# the card's f32 convs (cuDNN, TF32 off) and matmuls against the CPU's sum
+# in other orders: 1e-5 of the output's scale (at least 1)
+NET_REL = 1e-5
+NET_ROWS = (GATES_ENVS, 4096)
+GATES_POLICY = "gates_vision_r4"
+GATES_ARCHIVE_LOG = "docs/artifacts/policies_gates_vision_r4/metrics.jsonl"
+GATES_ARCHIVE_UPDATE = 800  # best_model_800_149_25_485_2
+GATES_JAX_EVAL = "docs/artifacts/gates_vision_r4_jax_cpu_eval.json"  # gates_vision_r4_reference.py eval
+GATES_EVAL_EPISODES = 256
+GATES_R4 = dict(num_envs=GATES_ENVS, rollout_steps=128, num_epochs=4, num_minibatches=8, learning_rate=3e-4,
+                clip_eps=0.2, init_log_std=-0.5)  # gates_vision_r4.py's PPOConfig
+GATES_R4_NET = dict(conv_features=(16, 32, 32), feature_sizes=(128,), init_log_std=-0.5)
+# f32 operations of one ray against one box in core/camera._ray_box and the
+# rotation before it: the ray into the box frame (9 mul, 6 add), its
+# guarded reciprocal (3 compares, 3 selects, 3 divides), the two slab
+# planes (6 mul, 6 sub shared per box), min/max of each pair (6), the
+# entry/exit reductions (4), the hit test and pick (5) and the running
+# nearest hit (3); a holed box adds the hole's 2D slab (4 mul, 4 min/max,
+# 2 reductions, 2 selects) and the two sub-intervals' tests (14)
+RAY_BOX_OPS = 9 + 6 + 9 + 6 + 6 + 4 + 5 + 3
+RAY_HOLED_BOX_OPS = RAY_BOX_OPS + 12 + 14
+RENDER_BYTES_PER_PIXEL = 4 + 4 + 4  # rgba bytes, f32 depth, int32 segment written
+
+
+def gates_env(res: int = GATES_RES, **kw):
+    from pyflyt_tpu_torch.envs.quadx_gates import QuadXGatesEnv
+
+    return QuadXGatesEnv(device="cuda", camera_resolution=(res, res), **kw)
+
+
+def gates_archive() -> dict:
+    """The archive's own 8-episode eval of the checkpoint the npz holds."""
+    with open(os.path.join(HERE, GATES_ARCHIVE_LOG)) as f:
+        row = next(r for r in map(json.loads, f) if r.get("update") == GATES_ARCHIVE_UPDATE)
+    return {k: row[f"eval_{k}"] for k in ("mean_reward", "std_reward", "mean_length", "std_length")} | {"episodes": 8}
+
+
+def gates_jax_eval() -> dict:
+    """The JAX package's 256-episode CPU eval of the same policy (written
+    once by docs/artifacts/gates_vision_r4_reference.py eval)."""
+    with open(os.path.join(HERE, GATES_JAX_EVAL)) as f:
+        return json.load(f)
+
+
+def edge_flips(j_rgba, t_rgba, j_seg, t_seg) -> tuple[float, int]:
+    """(share of the pixels whose bytes or segment differ, how many of
+    those have no 8-neighbour of another label in the reference image)."""
+    import numpy as np
+
+    pack = np.array([1 << 24, 1 << 16, 1 << 8, 1], dtype=np.int64)
+    lab_j = (j_seg.astype(np.int64) + 2) << 32 | j_rgba.astype(np.int64) @ pack
+    lab_t = (t_seg.astype(np.int64) + 2) << 32 | t_rgba.astype(np.int64) @ pack
+    diff = lab_j != lab_t
+    padded = np.pad(lab_j, ((0, 0), (1, 1), (1, 1)), mode="edge")
+    h, w = lab_j.shape[-2:]
+    edge = np.zeros_like(diff)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            edge |= padded[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w] != lab_j
+    return float(diff.mean()), int((diff & ~edge).sum())
+
+
+def gates_views(n: int, seed: int):
+    """``n`` r4 gates-env resets on the card, each drone turned to face its
+    first gate (so the gates fill part of the frame): (positions, eulers,
+    the gates' render boxes)."""
+    import torch
+
+    env = gates_env()
+    st, _ = env.reset(n, torch.Generator(device="cuda").manual_seed(seed))
+    view = st.drone.read.view
+    to_gate = st.gate_positions[:, 0] - view[:, 3]
+    euler = view[:, 1].clone()
+    euler[:, 2] = torch.atan2(to_gate[:, 1], to_gate[:, 0])
+    return view[:, 3].contiguous(), euler, env.scene_boxes(st)
+
+
+def check_render(res: int, seed: int, card: str) -> dict:
+    """The camera at ``res`` × ``res`` on GATES_ENVS views: the card against
+    the CPU running the same code (the edge rule, depth where the
+    segmentation agrees), its wall and device time, its peak memory and
+    its bound."""
+    import numpy as np
+    import torch
+    from pyflyt_tpu_torch.core import camera as cam
+
+    pos, euler, boxes = gates_views(GATES_ENVS, seed)
+    fn = lambda: cam.capture_image(pos, euler, boxes, resolution=(res, res))  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rgba, depth, seg = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu_boxes = cam.Boxes(**{f.name: None if getattr(boxes, f.name) is None else getattr(boxes, f.name).cpu()
+                             for f in dataclasses.fields(cam.Boxes)})
+    r_c, d_c, s_c = cam.capture_image(pos.cpu(), euler.cpu(), cpu_boxes, resolution=(res, res))
+    r_g, d_g, s_g = (x.cpu().numpy() for x in (rgba, depth, seg))
+    share, away = edge_flips(r_c.numpy(), r_g, s_c.numpy(), s_g)
+    same = s_c.numpy() == s_g
+    depth_err = float(np.abs(d_c.numpy() - d_g)[same].max())
+    check(share <= RENDER_EDGE_SHARE and away == 0, f"render {res}px: {share} of the pixels differ, {away} off edges")
+    check(depth_err <= RENDER_DEPTH_ATOL, f"render {res}px: depth error {depth_err}")
+    gate_px = int((s_c.numpy() > 0).sum())
+    check(gate_px > GATES_ENVS, f"render {res}px: the gates cover {gate_px} pixels")
+    wall = host_wall_ms(fn, iters=10)
+    dev = profiled_device_ms(fn, iters=3)
+    pixels = GATES_ENVS * res * res
+    holed = boxes.hole_half is not None
+    t_bytes = pixels * RENDER_BYTES_PER_PIXEL / H100_BYTES_PER_S
+    t_ops = pixels * boxes.count * (RAY_HOLED_BOX_OPS if holed else RAY_BOX_OPS) / H100_F32_FLOPS
+    return {"card": card, "envs": GATES_ENVS, "res": res, "boxes": boxes.count, "pixels": pixels,
+            "differing_share": share, "depth_err": depth_err, "gate_pixels": gate_px, "wall_ms": wall,
+            "device_ms": dev, "peak_bytes": int(peak), "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def vision_obs(net, rows: int, seed: int):
+    """Flat gates observations on the card: normal vector features and
+    random image bytes."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    i0, n = net.image_offset, net.image_size
+    return torch.cat([torch.randn((rows, i0), generator=g, device="cuda"),
+                      torch.randint(0, 256, (rows, n), generator=g, device="cuda").float(),
+                      torch.randn((rows, net.obs_dim - i0 - n), generator=g, device="cuda")], dim=1)
+
+
+def check_vision_net(net, seed: int, card: str) -> dict:
+    """``VisionActorCritic`` on the card (TF32 off for cuDNN and matmul)
+    against the same module on the CPU at NET_ROWS rows; its forward and
+    forward + backward, wall and device time."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(net).cpu()
+    out = {"card": card}
+    for rows in NET_ROWS:
+        obs = vision_obs(net, rows, seed + rows)
+        with torch.no_grad():
+            m, _, v = net(obs)
+            mc, _, vc = cpu(obs.cpu())
+        scale_m, scale_v = max(1.0, float(mc.abs().max())), max(1.0, float(vc.abs().max()))
+        e_m, e_v = float((m.cpu() - mc).abs().max()), float((v.cpu() - vc).abs().max())
+        check(e_m <= NET_REL * scale_m and e_v <= NET_REL * scale_v,
+              f"vision net at {rows} rows: mean error {e_m} (scale {scale_m}), value error {e_v} (scale {scale_v})")
+
+        def fwd():
+            with torch.no_grad():
+                return net(obs)
+
+        def fwd_bwd():
+            net.zero_grad(set_to_none=True)
+            mean, _, value = net(obs)
+            (mean.sum() + value.sum()).backward()
+
+        out[str(rows)] = {"mean_err": e_m, "value_err": e_v, "mean_scale": scale_m, "value_scale": scale_v,
+                          "forward_wall_ms": host_wall_ms(fwd, iters=20), "forward_ms": profiled_device_ms(fwd, 5),
+                          "forward_backward_wall_ms": host_wall_ms(fwd_bwd, iters=10),
+                          "forward_backward_ms": profiled_device_ms(fwd_bwd, 3)}
+    net.zero_grad(set_to_none=True)
+    return out
+
+
+def gates_eval(net, use_kernel: bool, seed: int, card: str) -> dict:
+    """The archived r4 policy flown deterministically (``PPO.evaluate``: the
+    f32 module's clipped mean) for GATES_EVAL_EPISODES fresh 32 px episodes
+    of max_steps + 2 agent steps; fails under the JAX CPU eval's mean less 3
+    standard errors. ``use_kernel`` steps the physics through K1 generic
+    (row 2): env_step_ratio launches an agent step."""
+    import torch
+    from pyflyt_tpu_torch.rl import PPO, PPOConfig
+
+    env = gates_env(use_kernel=use_kernel)
+    ppo = PPO(env, PPOConfig(), network=net)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1500)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    stats = {k: float(v) for k, v in ppo.evaluate(net, gen, GATES_EVAL_EPISODES).items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = env.max_steps + 2
+    want = {**dict.fromkeys(launches, 0), "quadx_step": steps * env.env_step_ratio if use_kernel else 0}
+    check(launches == want, f"gates eval (use_kernel={use_kernel}) launches {launches}, expected {want}")
+    jax_eval = gates_jax_eval()
+    floor = jax_eval["mean_reward"] - 3.0 * jax_eval["std_reward"] / math.sqrt(jax_eval["episodes"])
+    check(math.isfinite(stats["mean_reward"]) and stats["mean_reward"] >= floor,
+          f"gates eval (use_kernel={use_kernel}): mean reward {stats['mean_reward']} under its floor {floor}")
+    zero_launches()
+    return {"card": card, "use_kernel": use_kernel, "episodes": GATES_EVAL_EPISODES, "steps": steps, "wall_s": wall,
+            "ms_per_step": 1e3 * wall / steps, **stats, "floor_reward": floor, "jax_cpu_eval": jax_eval,
+            "archive": gates_archive(), "policy": GATES_POLICY, "launches": launches}
+
+
+def gates_r4_ppo(refresh: int):
+    from pyflyt_tpu_torch.rl import PPO, PPOConfig
+    from pyflyt_tpu_torch.rl.networks import VisionActorCritic
+
+    env = gates_env()
+    net = VisionActorCritic(env.flat_obs_size, 4, env.combined_size, env.image_shape, device="cuda", **GATES_R4_NET)
+    return PPO(env, PPOConfig(**GATES_R4, cached_reset_refresh=refresh), network=net)
+
+
+def gates_train(seed: int, card: str) -> dict:
+    """One timed, split iteration of the r4 recipe at 256 envs × 128
+    steps, 4 epochs × 8 minibatches, with the cached auto-reset at refresh
+    64 (the r5b value; after a warm-up iteration) and with the exact one
+    (0, the CLI's default; its shapes already warm); no kernel launches
+    (plain physics, the f32 module); finite metrics and parameters that
+    moved."""
+    out = {}
+    for refresh in (64, 0):
+        tp = gates_r4_ppo(refresh)
+        start = [p.detach().clone() for p in tp.init(seed).network.parameters()]
+        res, runner = timed_iterations(tp, {}, f"gates r4 refresh {refresh}", seed, card, warm_up=refresh > 0)
+        moved = sum(not bool((p == q).all()) for p, q in zip(runner.network.parameters(), start))
+        check(moved == len(start), f"gates r4 refresh {refresh}: {len(start) - moved} parameter tensors did not move")
+        out[f"refresh_{refresh}"] = res
+    return out
+
+
+def gates_cli(card: str) -> dict:
+    """The CLI on the card with the JAX CLI's defaults: ``train`` for one
+    iteration (256 envs × 128 steps, exact auto-reset, its 8-episode eval
+    and best-model checkpoint under build/) and ``eval --checkpoint`` on
+    the shipped npz (8 episodes)."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import torch
+    from pyflyt_tpu_torch.rl_training import gates_vision
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_gates_", dir=os.path.join(HERE, "build"))
+    try:
+        run_dir = os.path.join(work, "run")
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as printed:
+            runner = gates_vision.main(["train", "--total_timesteps", str(256 * 128), "--log_dir", run_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        row = json.loads(printed.getvalue().strip().splitlines()[-1])
+        check(runner.update_idx == 1, "gates cli train: one iteration")
+        best = [n for n in os.listdir(run_dir) if n.startswith("best_model_")]
+        check(len(best) == 1 and "metrics.jsonl" in os.listdir(run_dir), f"gates cli train wrote {os.listdir(run_dir)}")
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as printed:
+            npz = gates_vision.main(["eval", "--checkpoint", GATES_POLICY])
+        npz_s = time.perf_counter() - t0
+        check(json.loads(printed.getvalue().strip().splitlines()[-1]) == npz, "gates cli eval: printed line")
+        check(all(math.isfinite(v) for v in (*row.values(), *npz.values())), "gates cli: non-finite metrics")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"card": card, "train_s": train_s, "train_eval_mean_reward": row["eval_mean_reward"],
+            "train_eval_mean_length": row["eval_mean_length"], "eval_npz_s": npz_s, "eval_npz": npz}
+
+
+def device_busy_ms(fn, label: str) -> float:
+    """The summed device time of the CUDA kernels of one call of ``fn``
+    (after a warm-up), from one torch.profiler session over host and
+    device activities, as ``profiled`` takes it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum((getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    check(us > 0, f"profiler: no device time recorded for {label}")
+    return us / 1e3
+
+
+def gates_profile(net, seed: int, card: str) -> dict:
+    """One 256-env gates rollout step (the r4 env, the archived policy
+    sampling through the f32 module, the exact auto-reset) and its parts,
+    each timed alone on the same state: wall (synchronized, over 10 calls)
+    and device time (one call under torch.profiler). ``host_ms`` is the
+    step's wall less its device time."""
+    import torch
+    from pyflyt_tpu_torch.rl import ppo
+
+    env = gates_env()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1600)
+    ars, obs = ppo.env_init(env, GATES_ENVS, gen, 0)
+    ars, obs, _ = ppo.rollout(net, env, ars, obs, 8, gen, refresh=0, fused=False)
+    action, _, _ = ppo.act(net, obs, gen, fused=False)
+    low, high = ppo.action_bounds(env, torch.device("cuda"))
+    action = torch.clamp(action, low, high)
+
+    def physics():
+        drone = ars.drone
+        for _ in range(env.env_step_ratio):
+            drone, _ = env.aviary_step(drone, ars.generator)
+        return drone
+
+    parts = {
+        "rollout_step": lambda: ppo.rollout(net, env, ars, obs, 1, gen, refresh=0, fused=False),
+        "policy": lambda: ppo.act(net, obs, gen, fused=False),
+        "env_step": lambda: env.step(ars, action),
+        "render": lambda: env._render_camera(ars),
+        "physics": physics,
+        "reset": lambda: env.reset(GATES_ENVS, gen),
+        "autoreset_step": lambda: env.autoreset_step(ars, action),
+    }
+    out = {name: {"wall_ms": host_wall_ms(fn, iters=10), "device_ms": device_busy_ms(fn, name)}
+           for name, fn in parts.items()}
+    step = out["rollout_step"]
+    out["host_ms"] = step["wall_ms"] - step["device_ms"]
+    out["device_busy_share"] = step["device_ms"] / step["wall_ms"]
+    out["task_and_obs_ms"] = out["env_step"]["wall_ms"] - out["render"]["wall_ms"] - out["physics"]["wall_ms"]
+    out["card"] = card
+    return out
 
 
 def main(argv=None) -> int:
@@ -4317,6 +4670,30 @@ def main(argv=None) -> int:
         k["launches_per_traj_eval"] = results["traj_eval"]["launches"][k["name"]]
         k["launches_per_traj_r4_iteration"] = r4_launches[k["name"]]
         k["launches_per_small_arm_iteration"] = results["small_arm_train"]["launches_per_iteration"][k["name"]]
+    # 45. the camera on the card against the CPU, at the recipe's 32 px and the env's default 128 px
+    results["vision_render"] = {f"{res}px": check_render(res, args.seed + 45, card) for res in (GATES_RES, 128)}
+    print(json.dumps({"vision_render": results["vision_render"]}), flush=True)
+    # 46. the archived r4 policy's VisionActorCritic on the card against the CPU
+    gates_net = checkpoint.load_policy_npz(GATES_POLICY, device="cuda")
+    check(gates_net.image_shape == (4, GATES_RES, GATES_RES) and gates_net.conv_features == (16, 32, 32),
+          "the archived gates policy's layout")
+    results["vision_net"] = check_vision_net(gates_net, args.seed + 46, card)
+    print(json.dumps({"vision_net": results["vision_net"]}), flush=True)
+    # 47. its 256-episode eval, plain physics and through K1 generic (row 2)
+    results["gates_eval"] = {"plain": gates_eval(gates_net, False, args.seed, card),
+                             "use_kernel": gates_eval(gates_net, True, args.seed, card)}
+    print(json.dumps({"gates_eval": results["gates_eval"]}), flush=True)
+    # 48. one r4-recipe iteration, cached (64) and exact (0) resets
+    results["gates_train"] = gates_train(args.seed, card)
+    print(json.dumps({"gates_train": results["gates_train"]}), flush=True)
+    # 49. the gates_vision CLI
+    results["gates_cli"] = gates_cli(card)
+    print(json.dumps({"gates_cli": results["gates_cli"]}), flush=True)
+    # 50. one gates rollout step split
+    results["gates_profile"] = gates_profile(gates_net, args.seed, card)
+    print(json.dumps({"gates_profile": results["gates_profile"]}), flush=True)
+    for k in kernels:
+        k["launches_per_gates_eval_use_kernel"] = results["gates_eval"]["use_kernel"]["launches"][k["name"]]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -5,8 +5,9 @@ The functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
 on the JAX side) and read them by attribute or key name only, so the port
 imports nothing of JAX or of ``pyflyt_tpu``.
 
-Layouts differ in one place: a flax ``Dense.kernel`` is ``(in, out)`` and a
-``torch.nn.Linear.weight`` is ``(out, in)``, so weights are transposed.
+Layouts differ in two places: a flax ``Dense.kernel`` is ``(in, out)`` and
+a ``torch.nn.Linear.weight`` is ``(out, in)``, so weights are transposed;
+a flax ``Conv.kernel`` is HWIO and a ``torch.nn.Conv2d.weight`` OIHW.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pyflyt_tpu_torch.envs.ma_fixedwing_dogfight import DogfightState
 from pyflyt_tpu_torch.envs.ma_quadx_hover import MAQuadXState
 from pyflyt_tpu_torch.envs.quadx_mod.hovering import ModHoverState
 from pyflyt_tpu_torch.envs.quadx_mod.trajectory_following_fast import TrajFastState
+from pyflyt_tpu_torch.envs.quadx_gates import QuadXGatesState
 from pyflyt_tpu_torch.envs.quadx_mod.trajectory_following_slow import TrajSlowState
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsState
 from pyflyt_tpu_torch.envs.rocket_landing import RocketLandingState
@@ -29,7 +31,7 @@ from pyflyt_tpu_torch.envs.utils.waypoints import WaypointState
 from pyflyt_tpu_torch.models import fixedwing, quadx, rocket
 from pyflyt_tpu_torch.ops import boosters, motors, pid
 from pyflyt_tpu_torch.ops.cuda_sgd import params_to_leaves
-from pyflyt_tpu_torch.rl.networks import ActorCritic
+from pyflyt_tpu_torch.rl.networks import ActorCritic, VisionActorCritic, encoded_size
 from pyflyt_tpu_torch.rl.ppo import AdamState
 
 
@@ -199,6 +201,35 @@ def waypoints_state_from_jax(
             targets=f(wp.targets), yaw_targets=f(wp.yaw_targets), idx=i32(wp.idx),
             old_distance=f(wp.old_distance), new_distance=f(wp.new_distance), yaw_error=f(wp.yaw_error),
         ),
+        target_deltas=f(tree.target_deltas),
+    )
+
+
+def gates_state_from_jax(
+    tree, generator: torch.Generator | None = None, device: str | torch.device = "cuda"
+) -> QuadXGatesState:
+    """The port's ``QuadXGatesState`` from the numpy leaves of a batched
+    JAX ``QuadXGatesState`` (a ``vmap``-ed reset or step). The JAX PRNG
+    keys become the one ``generator`` of the batch."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.array(a, dtype=np.float32), device=dev)  # noqa: E731
+    b = lambda a: torch.tensor(np.array(a, dtype=bool), device=dev)  # noqa: E731
+    i32 = lambda a: torch.tensor(np.array(a, dtype=np.int32), device=dev)  # noqa: E731
+    return QuadXGatesState(
+        drone=quadx_state_from_jax(tree.drone, dev),
+        step_count=i32(tree.step_count),
+        termination=b(tree.termination),
+        truncation=b(tree.truncation),
+        reward=f(tree.reward),
+        action=f(tree.action),
+        collision=b(tree.collision),
+        out_of_bounds=b(tree.out_of_bounds),
+        env_complete=b(tree.env_complete),
+        generator=generator,
+        gate_positions=f(tree.gate_positions),
+        gate_eulers=f(tree.gate_eulers),
+        idx=i32(tree.idx),
+        dis_error_scalar=f(tree.dis_error_scalar),
         target_deltas=f(tree.target_deltas),
     )
 
@@ -395,6 +426,12 @@ def _dense_layers(trunk: dict) -> list[dict]:
     return layers
 
 
+def _load_dense(lin: torch.nn.Linear, dense: dict) -> None:
+    kernel = np.asarray(dense["kernel"], dtype=np.float32)
+    lin.weight.copy_(torch.tensor(kernel.T))  # (in, out) -> (out, in)
+    lin.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
+
+
 def actor_critic_from_flax(
     params,
     log_std_range: tuple[float, float] | None = None,
@@ -421,19 +458,65 @@ def actor_critic_from_flax(
         vf_sizes=vf_w[n_common:], log_std_range=log_std_range, device="cpu",
     )
 
-    def load(lin: torch.nn.Linear, dense: dict) -> None:
-        kernel = np.asarray(dense["kernel"], dtype=np.float32)
-        lin.weight.copy_(torch.tensor(kernel.T))  # (in, out) -> (out, in)
-        lin.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
-
     with torch.no_grad():
         for lin, dense in zip(net.pi_trunk.layers, pi_layers):
-            load(lin, dense)
-        load(net.pi_head, p["pi_head"])
+            _load_dense(lin, dense)
+        _load_dense(net.pi_head, p["pi_head"])
         net.log_std.copy_(torch.tensor(np.asarray(p["log_std"], dtype=np.float32)))
         for lin, dense in zip(net.vf_trunk.layers, vf_layers):
-            load(lin, dense)
-        load(net.vf_head, p["vf_head"])
+            _load_dense(lin, dense)
+        _load_dense(net.vf_head, p["vf_head"])
+    return net.to(resolve_device(device))
+
+
+def vision_actor_critic_from_flax(
+    params,
+    image_offset: int,
+    image_shape: tuple,
+    log_std_range: tuple[float, float] | None = None,
+    device: str | torch.device = "cuda",
+) -> VisionActorCritic:
+    """The port's ``VisionActorCritic`` from a flax ``VisionActorCritic``
+    param dict (``{"params": {"Conv_i": {"kernel" (3, 3, Cin, F), "bias"},
+    "pi_trunk", "pi_head", "log_std", "vf_trunk", "vf_head"}}``). Widths
+    and conv features are read from the kernels; ``image_offset``,
+    ``image_shape`` and ``log_std_range`` are not part of the params and are
+    passed as in the flax module. The conv kernels go HWIO -> OIHW; the
+    first dense layer needs no permutation, since the port flattens the
+    encoder's output in flax's NHWC order."""
+    p = params["params"]
+    convs = []
+    while f"Conv_{len(convs)}" in p:
+        convs.append(p[f"Conv_{len(convs)}"])
+    pi_layers = _dense_layers(p["pi_trunk"])
+    vf_layers = _dense_layers(p["vf_trunk"])
+    act_dim = np.asarray(p["pi_head"]["kernel"]).shape[1]
+    pi_w = [np.asarray(d["kernel"]).shape[1] for d in pi_layers]
+    vf_w = [np.asarray(d["kernel"]).shape[1] for d in vf_layers]
+    n_common = 0
+    while n_common < min(len(pi_w), len(vf_w)) and pi_w[n_common] == vf_w[n_common]:
+        n_common += 1
+    features = [np.asarray(c["kernel"]).shape[3] for c in convs]
+    # the flat obs width: the image and the vector features, the latter the
+    # first dense layer's input less the encoder's output
+    feat_in = np.asarray((pi_layers[0] if pi_layers else p["pi_head"])["kernel"]).shape[0]
+    net = VisionActorCritic(
+        int(np.prod(image_shape)) + feat_in - encoded_size(tuple(image_shape), features), act_dim, image_offset, image_shape, conv_features=features,
+        feature_sizes=pi_w[:n_common], pi_sizes=pi_w[n_common:], vf_sizes=vf_w[n_common:],
+        log_std_range=log_std_range, device="cpu",
+    )
+
+    with torch.no_grad():
+        for conv, c in zip(net.convs, convs):
+            conv.weight.copy_(torch.tensor(np.asarray(c["kernel"], dtype=np.float32).transpose(3, 2, 0, 1)))
+            conv.bias.copy_(torch.tensor(np.asarray(c["bias"], dtype=np.float32)))
+        for lin, dense in zip(net.pi_trunk.layers, pi_layers):
+            _load_dense(lin, dense)
+        _load_dense(net.pi_head, p["pi_head"])
+        net.log_std.copy_(torch.tensor(np.asarray(p["log_std"], dtype=np.float32)))
+        for lin, dense in zip(net.vf_trunk.layers, vf_layers):
+            _load_dense(lin, dense)
+        _load_dense(net.vf_head, p["vf_head"])
     return net.to(resolve_device(device))
 
 

@@ -10,6 +10,7 @@ from pyflyt_tpu_torch.envs.packed_fixedwing_waypoints import PackedFixedwingWayp
 from pyflyt_tpu_torch.envs.packed_hover import PackedQuadXHoverEnv
 from pyflyt_tpu_torch.envs.packed_quadx_waypoints import PackedQuadXWaypointsEnv, PackedWaypointsState
 from pyflyt_tpu_torch.envs.packed_rocket_landing import PackedRocketEnvState, PackedRocketLandingEnv
+from pyflyt_tpu_torch.envs.quadx_gates import QuadXGatesEnv, QuadXGatesState
 from pyflyt_tpu_torch.envs.quadx_hover import QuadXHoverEnv
 from pyflyt_tpu_torch.envs.quadx_waypoints import QuadXWaypointsEnv, QuadXWaypointsState
 from pyflyt_tpu_torch.envs.rocket_landing import RocketLandingEnv, RocketLandingState
@@ -34,6 +35,8 @@ __all__ = [
     "PackedRocketEnvState",
     "PackedRocketLandingEnv",
     "PackedWaypointsState",
+    "QuadXGatesEnv",
+    "QuadXGatesState",
     "QuadXHoverEnv",
     "QuadXWaypointsEnv",
     "QuadXWaypointsState",

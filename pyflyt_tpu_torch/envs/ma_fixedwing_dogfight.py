@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from pyflyt_tpu_torch.core import camera as cam
 from pyflyt_tpu_torch.core import math as pm
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.envs.ma_quadx_hover import MAStepOut
@@ -243,8 +244,21 @@ class MAFixedwingDogfightEnv:
         state = self._agent_states(state)
         return state, state.observations
 
-    def scene_boxes(self, state: DogfightState):
-        raise NotImplementedError("dogfight scene_boxes (gunsight markers): ROADMAP.md, item 21 (vision)")
+    def scene_boxes(self, state: DogfightState) -> cam.Boxes:
+        """Gunsight markers for third-person renders: a thin box 0.65 m
+        ahead of each nose along its rotation, red (alpha 0.2) while that
+        agent scores a hit and black otherwise, hidden once it is out;
+        ``(N, 2, ...)``."""
+        view = state.drones.read.view  # (N, 2, 4, 3)
+        R, forward = compute_rotation_forward(view[:, :, 1])
+        rgba = lambda c: view.new_tensor(c)  # noqa: E731
+        return cam.Boxes(
+            centers=view[:, :, 3] + forward * 0.65,
+            half_extents=view.new_tensor([0.4, 0.02, 0.02]).expand(2, 3),
+            rotations=R,
+            colors=torch.where(state.current_hits[..., None], rgba([1.0, 0.0, 0.0, 0.2]), rgba([0.0, 0.0, 0.0, 0.2])),
+            visible=state.alive,
+        )
 
     def step(self, state: DogfightState, actions: Tensor) -> tuple[DogfightState, MAStepOut]:
         """``actions``: (N, 2, action_size); rows of step-start-dead agents

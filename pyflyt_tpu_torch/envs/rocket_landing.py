@@ -24,6 +24,7 @@ import math
 import torch
 from torch import Tensor
 
+from pyflyt_tpu_torch.core import camera as cam
 from pyflyt_tpu_torch.core import math as pm
 from pyflyt_tpu_torch.envs.base import StepOut
 from pyflyt_tpu_torch.envs.rocket_base import RocketBaseEnv, RocketEnvState
@@ -130,8 +131,17 @@ class RocketLandingEnv(RocketBaseEnv):
             env_complete=state.env_complete | complete,
         )
 
-    def scene_boxes(self, state: RocketLandingState):
-        raise NotImplementedError("the landing pad's render boxes: ROADMAP.md, open item 21 (vision, core/camera)")
+    def scene_boxes(self, state: RocketLandingState) -> cam.Boxes:
+        """The landing pad for third-person renders: a box in place of the
+        cylinder (landing_pad.urdf: r = 2, l = 0.1), one an env."""
+        dt, dev = state.pad_position.dtype, state.pad_position.device
+        return cam.Boxes(
+            centers=state.pad_position[:, None, :],
+            half_extents=torch.tensor([[2.0, 2.0, 0.05]], dtype=dt, device=dev),
+            rotations=torch.eye(3, dtype=dt, device=dev)[None],
+            colors=torch.tensor([[0.2, 0.2, 0.8, 1.0]], dtype=dt, device=dev),
+            visible=torch.ones(1, dtype=torch.bool, device=dev),
+        )
 
     def step(self, state: RocketLandingState, action: Tensor) -> tuple[RocketLandingState, StepOut]:
         return self.base_step(state, action, self._task_update, self._obs, pad_position=state.pad_position)

@@ -21,6 +21,7 @@ import math
 import torch
 from torch import Tensor
 
+from pyflyt_tpu_torch.core import camera as cam
 from pyflyt_tpu_torch.core import math as pm
 
 
@@ -143,9 +144,18 @@ class WaypointHandler:
     def all_targets_reached(self, ws: WaypointState) -> Tensor:
         return ws.idx >= self.num_targets
 
-    def marker_boxes(self, ws: WaypointState):
-        """Waypoint markers for third-person renders: they need the
-        ray-cast camera, which is not ported yet."""
-        raise NotImplementedError(
-            "WaypointHandler.marker_boxes needs core/camera: ROADMAP.md, item 21 (vision)"
+    def marker_boxes(self, ws: WaypointState) -> cam.Boxes:
+        """Waypoint markers for third-person renders: one box a target,
+        ``goal_reach_distance / 4`` a side from the centre, coloured (0, 1 −
+        i/n, 0, 1) by its index, hidden once passed."""
+        n, dt, dev = self.num_targets, ws.targets.dtype, ws.targets.device
+        order = torch.arange(n, device=dev)
+        green = 1.0 - order.to(dt) / n
+        colors = torch.stack([torch.zeros_like(green), green, torch.zeros_like(green), torch.ones_like(green)], dim=-1)
+        return cam.Boxes(
+            centers=ws.targets,
+            half_extents=torch.full((n, 3), self.goal_reach_distance / 4.0, dtype=dt, device=dev),
+            rotations=torch.eye(3, dtype=dt, device=dev).expand(n, 3, 3),
+            colors=colors,
+            visible=order[None, :] >= ws.idx[:, None],
         )

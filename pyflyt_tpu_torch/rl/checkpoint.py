@@ -9,7 +9,8 @@ state and its auto-reset cache draw from one) stay shared after a restore.
 
 Orbax checkpoints of the JAX package are not read here (the port imports
 no orbax): ``pyflyt_tpu.rl.checkpoint.restore_params`` gives their params
-as numpy, and ``convert.actor_critic_from_flax`` builds the network.
+as numpy, and ``convert.actor_critic_from_flax`` (or
+``vision_actor_critic_from_flax``) builds the network.
 ``save_policy_npz`` writes such a network as a plain ``.npz`` of its
 f32 parameters, which ``load_policy_npz`` reads with numpy and torch
 alone; the archived policies the port ships live in
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import os
 from typing import Any
 
@@ -28,7 +30,7 @@ import torch
 from torch import Tensor, nn
 
 from pyflyt_tpu_torch.device import resolve_device
-from pyflyt_tpu_torch.rl.networks import ActorCritic
+from pyflyt_tpu_torch.rl.networks import ActorCritic, VisionActorCritic, encoded_size
 
 POLICY_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "policies")
 
@@ -138,23 +140,28 @@ def best_model_name(idx: int, mean_len: float, std_len: float, mean_rew: float, 
 
 
 LOG_STD_RANGE_KEY = "log_std_range"
+# a VisionActorCritic's layout, which its parameters do not fix
+VISION_KEYS = ("image_offset", "image_shape", "conv_features")
 
 
 def save_policy_npz(path: str, network: nn.Module) -> None:
     """Writes ``network``'s parameters (its ``state_dict``, f32) to the
-    ``.npz`` file ``path``, and its ``log_std_range`` under one more key
-    when the network has one."""
+    ``.npz`` file ``path``, its ``log_std_range`` under one more key when
+    the network has one, and a ``VisionActorCritic``'s ``VISION_KEYS``."""
     arrays = {k: v.detach().cpu().to(torch.float32).numpy() for k, v in network.state_dict().items()}
     if getattr(network, "log_std_range", None) is not None:
         arrays[LOG_STD_RANGE_KEY] = np.asarray(network.log_std_range, dtype=np.float32)
+    if isinstance(network, VisionActorCritic):
+        arrays.update({k: np.asarray(getattr(network, k), dtype=np.int64) for k in VISION_KEYS})
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "wb") as f:
         np.savez(f, **arrays)
 
 
-def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCritic:
-    """The ``ActorCritic`` saved by ``save_policy_npz`` at ``path`` (or
+def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCritic | VisionActorCritic:
+    """The ``ActorCritic`` (or, where the file has ``VISION_KEYS``, the
+    ``VisionActorCritic``) saved by ``save_policy_npz`` at ``path`` (or
     under that name in ``POLICY_DIR``), its widths read from the arrays and
     its ``log_std_range`` from the file where the file has one, on
     ``device``."""
@@ -166,6 +173,7 @@ def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCrit
     log_std_range = state.pop(LOG_STD_RANGE_KEY, None)
     if log_std_range is not None:
         log_std_range = tuple(float(v) for v in log_std_range)
+    vision = {k: state.pop(k).tolist() for k in VISION_KEYS if k in state}
     widths = lambda trunk: [state[f"{trunk}.layers.{i}.weight"].shape[0]  # noqa: E731
                             for i in range(sum(k.startswith(f"{trunk}.layers.") and k.endswith(".weight")
                                                for k in state))]
@@ -173,9 +181,16 @@ def load_policy_npz(path: str, device: str | torch.device = "cuda") -> ActorCrit
     n_common = 0
     while n_common < min(len(pi_w), len(vf_w)) and pi_w[n_common] == vf_w[n_common]:
         n_common += 1
-    obs_dim = state["pi_trunk.layers.0.weight"].shape[1] if pi_w else state["pi_head.weight"].shape[1]
-    net = ActorCritic(obs_dim, state["pi_head.weight"].shape[0], feature_sizes=pi_w[:n_common],
-                      pi_sizes=pi_w[n_common:], vf_sizes=vf_w[n_common:], log_std_range=log_std_range,
-                      device="cpu")
+    feat_dim = state["pi_trunk.layers.0.weight"].shape[1] if pi_w else state["pi_head.weight"].shape[1]
+    act_dim = state["pi_head.weight"].shape[0]
+    sizes = dict(feature_sizes=pi_w[:n_common], pi_sizes=pi_w[n_common:], vf_sizes=vf_w[n_common:],
+                 log_std_range=log_std_range, device="cpu")
+    if vision:
+        # the flat obs width: the image, and the trunks' input less the encoder's output
+        shape, conv = vision["image_shape"], vision["conv_features"]
+        net = VisionActorCritic(math.prod(shape) + feat_dim - encoded_size(shape, conv), act_dim,
+                                vision["image_offset"], shape, conv_features=conv, **sizes)
+    else:
+        net = ActorCritic(feat_dim, act_dim, **sizes)
     net.load_state_dict(state)
     return net.to(device)

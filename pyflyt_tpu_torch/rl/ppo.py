@@ -12,10 +12,19 @@ are Python loops and the hot pieces are the port's kernels.
   ``ActorCritic`` with optax's ``clip_by_global_norm`` and Adam written
   out, the exact-semantics path, as the XLA scan is in the JAX package.
 
-Dict observations (the waypoints envs) are flattened in sorted-key order
-(``_flat_obs``, ``ppo.py:224-230``) wherever PPO takes an observation:
-the batch it starts from, every rollout step, the truncation bootstrap's
-terminal observation and ``evaluate``.
+Dict observations (the waypoints and gates envs) are flattened in
+sorted-key order (``_flat_obs``, ``ppo.py:224-230``), a uint8 image
+promoted to f32, wherever PPO takes an observation: the batch it starts
+from, every rollout step, the truncation bootstrap's terminal observation
+and ``evaluate``.
+
+``PPO(env, config, network=...)`` takes another policy module in place of
+``ActorCritic`` (``VisionActorCritic`` for the gates env), as the JAX
+``PPO`` does: it keeps the ``(mean, log_std, value)`` contract, has
+``value(obs)``, ``clamped_log_std()`` and ``reset_parameters(generator)``,
+and trains on the default f32 path only (the fused kernels implement the
+``ActorCritic`` MLP). Clip and Adam then run over its parameters as they
+are.
 
 Differences from the JAX package, by design: a ``torch.Generator`` in the
 runner draws the action noise and the epoch permutations (threefry and
@@ -28,6 +37,7 @@ JAX default path keeps them as one ``optax.flatten`` vector
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -96,8 +106,8 @@ class AdamState:
     nu: list[Tensor]
 
     @classmethod
-    def zeros(cls, network: ActorCritic) -> "AdamState":
-        leaves = cuda_sgd.params_to_leaves(network)
+    def zeros(cls, network: torch.nn.Module) -> "AdamState":
+        leaves = optimizer_leaves(network)
         z = [torch.zeros_like(t, memory_format=torch.contiguous_format).detach() for t in leaves]
         return cls(
             count=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
@@ -105,9 +115,18 @@ class AdamState:
         )
 
 
+def optimizer_leaves(network: torch.nn.Module) -> list[Tensor]:
+    """The tensors clip and Adam run over: ``ActorCritic``'s in the leaf
+    layout of ``cuda_sgd.leaf_specs`` (views of its parameters), any other
+    module's parameters as they are."""
+    if isinstance(network, ActorCritic):
+        return cuda_sgd.params_to_leaves(network)
+    return list(network.parameters())
+
+
 @dataclasses.dataclass
 class RunnerState:
-    network: ActorCritic
+    network: torch.nn.Module
     opt_state: AdamState
     env_state: Any
     obs: Tensor  # (num_envs, obs_dim)
@@ -360,7 +379,15 @@ def _as_leaf(param: Tensor, g: Tensor) -> Tensor:
 class PPO:
     """PPO trainer bound to one env and config."""
 
-    def __init__(self, env, config: PPOConfig = PPOConfig(), mesh=None):
+    def __init__(self, env, config: PPOConfig = PPOConfig(), mesh=None, network: torch.nn.Module | None = None):
+        """``network``: a policy module in place of ``ActorCritic`` (see the
+        module note); ``init`` trains a copy of it, re-initialised from its
+        seed."""
+        if network is not None and (config.fused_sgd or config.fused_rollout_forward):
+            raise ValueError(
+                "fused_sgd / fused_rollout_forward implement the stock ActorCritic MLP; "
+                f"train a custom network ({type(network).__name__}) on the default f32 path"
+            )
         if mesh is not None:
             raise NotImplementedError("PPO on a device mesh: ROADMAP.md, open item 24 (parallel/mesh)")
         if config.compute_dtype != "float32":
@@ -391,6 +418,7 @@ class PPO:
             )
         self.env = env
         self.config = config
+        self.network = network
         self.device = env.device
         self.action_low, self.action_high = action_bounds(env, self.device)
         self.action_dim = int(self.action_low.shape[-1])
@@ -398,16 +426,22 @@ class PPO:
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> RunnerState:
         """Seeded network, zero Adam state, env batch (``env_init``) and the
-        runner's generator. The network is initialised on the CPU
-        from ``seed`` and moved to the env's device."""
+        runner's generator. The network (``ActorCritic``, or a copy of the
+        given one) is initialised on the CPU from ``seed`` and moved to the
+        env's device."""
         cfg = self.config
         dev = self.device
-        network = ActorCritic(
-            obs_width(self.env), self.action_dim,
-            feature_sizes=cfg.feature_sizes, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes,
-            init_log_std=cfg.init_log_std, log_std_range=cfg.log_std_range,
-            device=dev, generator=torch.Generator().manual_seed(seed),
-        )
+        if self.network is not None:
+            network = copy.deepcopy(self.network)
+            network.reset_parameters(torch.Generator().manual_seed(seed))
+            network.to(dev)
+        else:
+            network = ActorCritic(
+                obs_width(self.env), self.action_dim,
+                feature_sizes=cfg.feature_sizes, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes,
+                init_log_std=cfg.init_log_std, log_std_range=cfg.log_std_range,
+                device=dev, generator=torch.Generator().manual_seed(seed),
+            )
         env_gen = torch.Generator(device=dev).manual_seed(seed + 1)
         env_state, obs = env_init(self.env, cfg.num_envs, env_gen, cfg.cached_reset_refresh)
         return RunnerState(
@@ -490,17 +524,20 @@ class PPO:
         }
         return total, {k: v.detach() for k, v in metrics.items()}
 
-    def _minibatch_step(self, network: ActorCritic, opt: AdamState, mb: Tensor, obs_dim: int, act_dim: int):
+    def _minibatch_step(self, network: torch.nn.Module, opt: AdamState, mb: Tensor, obs_dim: int, act_dim: int):
         """One default-path update: autograd on the f32 network, optax's
         clip, Adam. Returns the new Adam state and the metrics."""
         c0 = obs_dim + act_dim
         loss, metrics = self._loss(
             network, mb[:, :obs_dim], mb[:, obs_dim:c0], mb[:, c0], mb[:, c0 + 1], mb[:, c0 + 2]
         )
-        params = _leaf_parameters(network)
-        grads = torch.autograd.grad(loss, params)
-        grads = clip_by_global_norm([_as_leaf(p, g) for p, g in zip(params, grads)], self.config.max_grad_norm)
-        opt = adam_update(cuda_sgd.params_to_leaves(network), grads, opt, self.config.learning_rate)
+        if isinstance(network, ActorCritic):
+            params = _leaf_parameters(network)
+            grads = [_as_leaf(p, g) for p, g in zip(params, torch.autograd.grad(loss, params))]
+        else:
+            grads = list(torch.autograd.grad(loss, list(network.parameters())))
+        grads = clip_by_global_norm(grads, self.config.max_grad_norm)
+        opt = adam_update(optimizer_leaves(network), grads, opt, self.config.learning_rate)
         return opt, metrics
 
     def epoch_config(self, obs_dim: int) -> cuda_sgd.EpochConfig:

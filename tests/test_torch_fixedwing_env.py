@@ -191,8 +191,10 @@ def test_reset_obs_shapes_and_scene_boxes_raise():
     pst, pobs = plain.reset(6, torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(obs["attitude"].numpy(), pobs["attitude"].numpy())
     assert float(st.packed[cf._POS + 2].min()) > 9.0 and float(st.packed[cf._LVEL].min()) > 15.0
-    with pytest.raises(NotImplementedError, match="item 21"):
-        plain.scene_boxes(pst)
+    # the waypoint markers (the camera came with ROADMAP item 21)
+    boxes = plain.scene_boxes(pst)
+    torch.testing.assert_close(boxes.centers, pst.wp.targets, rtol=0, atol=0)
+    assert boxes.visible.shape == (6, NT) and bool(boxes.visible.all()) and boxes.colors.shape == (NT, 4)
     with pytest.raises(ValueError, match="needs a torch.Generator"):
         FixedwingWaypointsEnv(device="cpu").reset(2, None)
 

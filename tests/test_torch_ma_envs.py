@@ -15,7 +15,7 @@
   6-dim unassisted actions; tests/test_pallas_dogfight.py:48-75's bounds
   (obs 2e-3 + 1e-3·step, reward 1e-4 relative, healths 1e-5, flags exact).
 - The port's own reset: spawn separation, shapes, and ``scene_boxes``
-  raising (item 21).
+  (the gunsight markers).
 """
 
 import dataclasses
@@ -108,7 +108,12 @@ def test_dogfight_reset_spawns_and_raises():
     six = MAFixedwingDogfightEnv(assisted_flight=False, device="cpu")
     st6, obs6 = six.reset(4, torch.Generator().manual_seed(0))
     assert obs6.shape == (4, 2, 32) and st6.drones.setpoint.shape == (4, 2, 6)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        env.scene_boxes(st)
+    # the gunsight markers (the camera came with ROADMAP item 21): one a
+    # drone, 0.65 m ahead of its nose, black while no hit is scored
+    boxes = env.scene_boxes(st)
+    assert boxes.centers.shape == (64, 2, 3) and boxes.rotations.shape == (64, 2, 3, 3)
+    ahead = (boxes.centers - st.drones.read.view[:, :, 3]).norm(dim=-1)
+    torch.testing.assert_close(ahead, torch.full_like(ahead, 0.65), rtol=0, atol=1e-5)
+    assert bool(boxes.visible.all()) and bool((boxes.colors[..., :3] == 0).all())
     with pytest.raises(ValueError, match="Generator"):
         env.reset(2, None)

@@ -223,8 +223,14 @@ def test_policy_npz_keeps_log_std_range(tmp_path):
 
 
 def test_scene_boxes_waits_on_vision():
-    with pytest.raises(NotImplementedError, match="item 21"):
-        _plain().scene_boxes(None)
+    """The landing pad's render box (the camera came with ROADMAP item 21):
+    one a env, at the pad, 4 x 4 x 0.1 m."""
+    env = _plain()
+    st, _ = env.reset(3, torch.Generator().manual_seed(0))
+    boxes = env.scene_boxes(st)
+    torch.testing.assert_close(boxes.centers, st.pad_position[:, None, :], rtol=0, atol=0)
+    torch.testing.assert_close(boxes.half_extents, torch.tensor([[2.0, 2.0, 0.05]]), rtol=0, atol=0)
+    assert boxes.visible.tolist() == [True]
 
 
 @pytest.mark.parametrize("entry", ["rocket_params", "rocket_env", "packed_rocket_env", "l0_policy", "gimbals",

@@ -105,8 +105,13 @@ def test_handler_matches_jax(use_yaw):
     if use_yaw:
         np.testing.assert_allclose(tws2.yaw_error.numpy()[live], np.asarray(jws2.yaw_error)[live], atol=1e-5)
         assert td.shape[-1] == 4 and th.delta_size == 4
-    with pytest.raises(NotImplementedError, match="item 21"):
-        th.marker_boxes(tws2)
+    # the render markers (the camera came with ROADMAP item 21): JAX's, field by field
+    jm, tm = jax.vmap(jh.marker_boxes)(jws2), th.marker_boxes(tws2)
+    np.testing.assert_array_equal(tm.centers.numpy(), np.asarray(jm.centers))
+    np.testing.assert_array_equal(tm.visible.numpy(), np.asarray(jm.visible))
+    for f in ("half_extents", "rotations", "colors"):  # shared by the port's batch
+        np.testing.assert_array_equal(getattr(tm, f).expand(np.shape(getattr(jm, f))).numpy(),
+                                      np.asarray(getattr(jm, f)), err_msg=f)
 
 
 def test_handler_reset_draws_by_their_statistics():

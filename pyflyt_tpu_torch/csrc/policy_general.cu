@@ -1,0 +1,116 @@
+// The general family's actor-critic forward (K4g) and log-prob of stored
+// actions (K3g): every trunk, obs and action width the Pallas builders
+// take and the wide (policy_value_forward.cu) and narrow (policy_narrow.cu)
+// kernels do not, a linear policy (no tanh layer) included.
+//
+// Replaces pyflyt_tpu/ops/pallas_policy.py::build_policy_value_forward and
+// pyflyt_tpu/ops/pallas_sgd.py::build_logp_forward at those trunks, with
+// their arithmetic: bf16 matmul inputs rounded to nearest even, f32
+// accumulation, f32 bias and tanh, the log-prob and the optional log_std
+// clamp in f32.
+//
+// What bounds it on an H100: at 8192 rows of obs 21 through two 3 x 256
+// trunks the forward is about 4.5 GFLOP of bf16 MMA (4.5 us at 989
+// TFLOP/s) against 1.9 MB of obs, f32 weights and outputs (0.6 us at 3.35
+// TB/s), so operations bound it; but each layer is a launch of
+// policy_general.cuh's GEMM, which writes its f32 activations to device
+// memory and reads them back for the next layer, so launches and that
+// traffic set the time.
+//
+// Design: one GEMM launch a layer a trunk (policy_general.cuh), the tanh
+// layers' outputs in a workspace the wrapper sizes per call (two row
+// buffers of the widest layer, in turn), the heads written straight into
+// the outputs; K3g then one thread a row for the log-prob
+// (general::row_logp), so its actor forward is K2g's
+// (fused_epoch_general.cu), the same GEMM launches, bit for bit.
+#include "policy_general.cuh"
+
+// Must match ops/cuda_general.py::_ForwardArgsC.
+struct GeneralForwardArgs {
+  const float* obs;     // (n, obs_dim) f32
+  const float* pi_base; // the actor's weights (ops/cuda_general.py::pack_trunk)
+  const float* vf_base; // the critic's
+  float* ws;            // the tanh layers' outputs
+  float* mean;          // (n, act_dim)
+  float* value;         // (n,)
+  GeneralTrunk pi;
+  GeneralTrunk vf;
+  long long pi_floats;
+  long long vf_floats;
+  long long ws_floats;
+  int n;
+  int obs_dim;
+  int act_dim;
+};
+
+// Must match ops/cuda_general.py::_LogpArgsC.
+struct GeneralLogpArgs {
+  const float* rows;     // (n, feat) f32: [obs | action | ...]
+  const float* base;     // the actor's weights
+  const float* log_std;  // (act_dim,)
+  float* ws;             // the tanh layers' outputs
+  float* mean;           // (n, act_dim) workspace
+  float* out;            // (n,)
+  GeneralTrunk pi;
+  long long base_floats;
+  long long ws_floats;
+  int n;
+  int feat;
+  int obs_dim;
+  int act_dim;
+  int has_range;
+  float ls_lo;
+  float ls_hi;
+};
+
+namespace {
+
+constexpr int LOGP_THREADS = 256;
+
+// the largest end (offset + rows x width) of a trunk's tanh outputs
+long long ws_need(const GeneralTrunk& T, int rows) {
+  long long need = 0;
+  for (int l = 0; l < T.depth; ++l) {
+    const long long end = T.out[l] + static_cast<long long>(rows) * T.dims[l + 1];
+    need = end > need ? end : need;
+  }
+  return need;
+}
+
+__global__ void __launch_bounds__(LOGP_THREADS) logp_kernel(const __grid_constant__ GeneralLogpArgs p) {
+  const long long r = static_cast<long long>(blockIdx.x) * LOGP_THREADS + threadIdx.x;
+  if (r >= p.n) return;
+  p.out[r] = general::row_logp(p.rows + r * p.feat + p.obs_dim, p.mean + r * p.act_dim, p.log_std, p.act_dim,
+                               p.has_range, p.ls_lo, p.ls_hi);
+}
+
+}  // namespace
+
+// K4g: the actor's trunk and head, then the critic's, one GEMM launch a
+// layer on `stream`. Returns the first CUDA error of a launch (0 = every
+// kernel launched), or cudaErrorInvalidValue outside the layouts.
+extern "C" int general_policy_value_forward(const GeneralForwardArgs* args, void* stream) {
+  const GeneralForwardArgs& p = *args;
+  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.pi_floats) ||
+      !general::trunk_ok(p.vf, p.obs_dim, 1, p.vf_floats) || ws_need(p.pi, p.n) > p.ws_floats ||
+      ws_need(p.vf, p.n) > p.ws_floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = general::trunk_forward(p.pi, p.pi_base, p.obs, p.obs_dim, p.n, p.ws, p.mean, st);
+  if (e == cudaSuccess) e = general::trunk_forward(p.vf, p.vf_base, p.obs, p.obs_dim, p.n, p.ws, p.value, st);
+  return static_cast<int>(e);
+}
+
+// K3g: the actor's forward on the rows' obs columns, then one thread a row
+// for the log-prob of its stored action.
+extern "C" int general_logp_forward(const GeneralLogpArgs* args, void* stream) {
+  const GeneralLogpArgs& p = *args;
+  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.obs_dim + p.act_dim > p.feat ||
+      !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.base_floats) || ws_need(p.pi, p.n) > p.ws_floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = general::trunk_forward(p.pi, p.base, p.rows, p.feat, p.n, p.ws, p.mean, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  logp_kernel<<<(p.n + LOGP_THREADS - 1) / LOGP_THREADS, LOGP_THREADS, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,9 +1,10 @@
 // One full QuadX-Hover agent step for a batch of envs, one thread an env.
 //
 // Replaces pyflyt_tpu/ops/pallas_quadx.py::packed_hover_step (the
-// env-fused variant of _build_kernel), modes 0 and 8, ENU: `inner_steps`
-// aviary steps of `ratio` physics iterations each (ang-vel PID or direct
-// PWM at iteration 0; saturation rescale; throttle lag + Philox motor
+// env-fused variant of _build_kernel), modes 0, 7 and 8, ENU:
+// `inner_steps` aviary steps of `ratio` physics iterations each (ang-vel
+// PID, mode 7's position cascade in front of it, or direct PWM at
+// iteration 0; saturation rescale; throttle lag + Philox motor
 // noise; wrench from the lagged read; semi-implicit Euler; detection-grade
 // ground contact), then the hover reward, termination, truncation and the
 // done-freeze.
@@ -11,7 +12,7 @@
 // What bounds it on an H100: each env reads 55 of its 56 f32 rows once
 // (not the reward row, re-armed below) and writes all 56 (444 B), about
 // 2 kFLOP of f32 work per env, so at 8192 envs the bytes (3.64 MB,
-// ~1.09 us at 3.35 TB/s) bound it, and each thread's dependent chain (3
+// ~1.09 us at 3.35 TB/s; mode 7 reads 73 of 80 rows, 5.0 MB, 1.5 us) bound it, and each thread's dependent chain (3
 // aviary steps x 2 physics iterations: the throttle lag, the wrench, the
 // rotation, the integration and the exponential-map quaternion step in a
 // row) costs more than either.
@@ -24,7 +25,10 @@
 // so 8192 envs spread over 128 of the 132 SMs. The per-iteration pieces
 // (row layout, Lane, control, physics) are quadx_lane.cuh's, shared with
 // quadx_step.cu and quadx_waypoints_step.cu; this file instantiates them
-// for modes 0 and 8, ENU, no wind, and shortens the chain in three ways:
+// for modes 0, 7 and 8, ENU, no wind (mode 7 on the 80-row layout: the
+// cascade's 18 registers loaded from rows 56-73 and stored back, rows
+// 74-79 written zero, as quadx_step.cu does), and shortens the chain in
+// three ways:
 // the view is computed only on an aviary step's last physics iteration,
 // whose view is the one read (by the next aviary step's controller and
 // the task update); the done-freeze leaves the aviary loop (termination
@@ -84,6 +88,28 @@ struct HoverConsts {
   float max_steps;
   int inner_steps;
   int ratio;
+  // mode 7: the position cascade's banks, last so that modes 0 and 8 read
+  // every other field at the offsets they always had
+  float lp_kp[2];
+  float lp_ki[2];
+  float lp_kd[2];
+  float lp_lim[2];
+  float lv_kp[2];
+  float lv_ki[2];
+  float lv_kd[2];
+  float lv_lim[2];
+  float ap_kp[3];
+  float ap_ki[3];
+  float ap_kd[3];
+  float ap_lim[3];
+  float zp_kp[1];
+  float zp_ki[1];
+  float zp_kd[1];
+  float zp_lim[1];
+  float zv_kp[1];
+  float zv_ki[1];
+  float zv_kd[1];
+  float zv_lim[1];
 };
 
 namespace {
@@ -107,6 +133,8 @@ __global__ void __launch_bounds__(THREADS)
   HoverLane s;
   float sp[4];
   quadx_lane::load_lane(S, ld, s.d, sp);
+  quadx_lane::Cascade cas;  // mode 7 only
+  if constexpr (MODE == 7) quadx_lane::load_cascade(S, ld, cas);
   s.term = S[TERM * ld];
   s.trunc = S[TRUNC * ld];
   s.coll = S[COLL * ld];
@@ -127,7 +155,11 @@ __global__ void __launch_bounds__(THREADS)
     if (fminf(fmaxf(s.term, s.trunc), 1.f) > 0.f) break;
     float any_contact = 0.f;
     for (int it = 0; it < c.ratio; ++it) {
-      if (it == 0) quadx_lane::control<MODE, false>(s.d, sp, c, nullptr, &rcp);  // probe: recip
+      if constexpr (MODE == 7) {
+        if (it == 0) quadx_lane::control<MODE, false>(s.d, sp, c, &cas, &rcp);  // probe: recip
+      } else {
+        if (it == 0) quadx_lane::control<MODE, false>(s.d, sp, c, nullptr, &rcp);  // probe: recip
+      }
       const bool read = it == c.ratio - 1;  // probe: read
       quadx_lane::physics<NOISY, false, false>(s.d, c, &rng, no_wind, read, &rcp);  // probe: recip
       any_contact = fmaxf(any_contact, s.d.contact);
@@ -157,6 +189,10 @@ __global__ void __launch_bounds__(THREADS)
   O[COLL * ld] = s.coll;
   O[OOB * ld] = s.oob;
   O[STEP * ld] = stepc + 1.f;  // unconditional, after the inner loop
+  if constexpr (MODE == 7) {
+    quadx_lane::store_cascade(O, ld, cas);
+    for (int r = quadx_lane::CASCADE + quadx_lane::CASCADE_ROWS; r < quadx_lane::ROWS_MODE7; ++r) O[r * ld] = 0.f;
+  }
 }
 
 template <int MODE, bool NOISY>
@@ -181,19 +217,21 @@ void launch_noisy(bool noisy, bool sparse, dim3 grid, dim3 block,
 
 }  // namespace
 
-// in/out: (56, n) f32 row-major on the device; seed: one int64 on the
+// in/out: (56, n) f32 row-major on the device, (80, n) in mode 7; seed: one int64 on the
 // device; consts: host pointer, copied into the launch by value.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int quadx_hover_step(const float* in, float* out, int n,
                                 const long long* seed, const HoverConsts* consts,
                                 int mode, int noisy, int sparse, void* stream) {
-  if (n <= 0 || n > INT_MAX - THREADS || (mode != 0 && mode != 8))
+  if (n <= 0 || n > INT_MAX - THREADS || (mode != 0 && mode != 7 && mode != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(THREADS);
   const dim3 grid((n + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0)
     launch_noisy<0>(noisy != 0, sparse != 0, grid, block, s, in, out, n, seed, *consts);
+  else if (mode == 7)
+    launch_noisy<7>(noisy != 0, sparse != 0, grid, block, s, in, out, n, seed, *consts);
   else
     launch_noisy<8>(noisy != 0, sparse != 0, grid, block, s, in, out, n, seed, *consts);
   return static_cast<int>(cudaGetLastError());

@@ -19,7 +19,7 @@
 // WaypointsConsts) whose vehicle fields have the same names in all, passed
 // to the kernels as a __grid_constant__; the functions are templated on
 // it. The cascade's gains (lp_*, lv_*, ap_*, zp_*, zv_*) are read in mode 7
-// only, so HoverConsts need not have them.
+// only (HoverConsts keeps them last, after the fields modes 0 and 8 read).
 //
 // All three kernels run one thread an env and shorten its chain the same
 // way: the view only on an aviary step's last physics iteration

@@ -10,8 +10,11 @@ observation from packed rows. Reset goes through the plain
 
 Semantics match ``QuadXHoverEnv`` with noise off, apart from the
 detection-grade contact, which only differs after a termination.
-Envelope: modes 0 and 8, ENU, quaternion or euler observations, dense or
-sparse reward. It auto-resets through its reset cache only: like the JAX
+Envelope: modes 0, 7 and 8, ENU, quaternion or euler observations, dense
+or sparse reward. In mode 7 the action is a position setpoint ``[x, y,
+yaw, z]`` written into the setpoint rows as any action is, and the state
+has 80 rows: the position cascade's five PID banks in rows 56-73
+(``cuda_quadx.rows_for``). It auto-resets through its reset cache only: like the JAX
 package's, it has no exact ``autoreset_step``.
 """
 
@@ -32,7 +35,7 @@ from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
 @dataclasses.dataclass
 class PackedHoverState:
-    packed: Tensor  # (ROWS, N): drone rows 0-49, env rows 50-55
+    packed: Tensor  # (rows_for(mode), N): drone rows 0-49, env rows 50-55, mode 7's cascade 56-73
     generator: torch.Generator | None  # draws each step's kernel seed
 
 
@@ -47,10 +50,9 @@ class PackedQuadXHoverEnv:
     native_batch = True
 
     def __post_init__(self):
-        if self.base.flight_mode not in (0, 8):
+        if self.base.flight_mode not in cq.HOVER_MODES:
             raise NotImplementedError(
-                f"the packed hover env covers modes 0 and 8, not "
-                f"{self.base.flight_mode}: ROADMAP.md, kernel queue row 2"
+                f"the packed hover env covers modes 0, 7 and 8, not {self.base.flight_mode}"
             )
         if self.base.orn_conv != "ENU_FLU":
             raise NotImplementedError("the packed hover env is ENU only")
@@ -84,8 +86,8 @@ class PackedQuadXHoverEnv:
 
     # ----- layout conversions ---------------------------------------------
     def pack_env_state(self, st: QuadXEnvState) -> Tensor:
-        """Batched ``QuadXEnvState`` → packed ``(ROWS, N)``."""
-        packed = cq.pack_state(st.drone)
+        """Batched ``QuadXEnvState`` → packed ``(rows_for(mode), N)``."""
+        packed = cq.pack_state(st.drone, self.base.flight_mode)
         env_rows = torch.stack([
             st.reward, st.termination, st.truncation, st.collision,
             st.out_of_bounds, st.step_count,
@@ -94,7 +96,7 @@ class PackedQuadXHoverEnv:
         return packed
 
     def unpack_env_state(self, packed: Tensor, template: QuadXEnvState) -> QuadXEnvState:
-        """Packed ``(ROWS, N)`` → batched ``QuadXEnvState``."""
+        """Packed ``(rows_for(mode), N)`` → batched ``QuadXEnvState``."""
         return dataclasses.replace(
             template,
             drone=cq.unpack_state(packed, template.drone),

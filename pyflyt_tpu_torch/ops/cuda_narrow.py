@@ -8,8 +8,8 @@ trunk, each at most ``MAX_WIDTH`` wide, obs widths up to ``MAX_OBS_DIM`` and
 at most ``MAX_ACT_DIM`` actions (``cuda_sgd``'s limits), actor and critic trunks that may differ: the
 trajectory-following network ``(64, 64, 32, 32)``, the ``(32, 32)`` of the
 mesh curves, ``(128,)``. ``cuda_sgd._check_envelope`` routes a network here
-(``"narrow"``) or to the 2 x 256 kernels (``"wide"``) and raises outside
-both. The arithmetic is the Pallas kernels': bf16 matmul inputs rounded to
+(``"narrow"``), to the 2 x 256 kernels (``"wide"``) or to every other
+trunk's (``"general"``, ``ops/cuda_general.py``). The arithmetic is the Pallas kernels': bf16 matmul inputs rounded to
 nearest even, f32 accumulation, bias, tanh, loss, clip and Adam in f32.
 
 Each trunk reaches its kernel as one image (``pack_trunk``; the layout is
@@ -318,6 +318,7 @@ def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg):
     actor's and the critic's images as the last Adam step wrote them
     (``pack_trunk`` of the returned leaves, each zero-padded to the
     stride)."""
+    cuda_sgd.check_family("narrow", cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
     dev = mbs.device
     n_mb, mb_size, feat = mbs.shape
     net = dict(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes)

@@ -15,8 +15,9 @@ operations bound it. The kernel (``csrc/policy_mlp.cuh``: wgmma on
 weights resident in shared memory) supports the rollouts' shapes: obs
 width at most 64, two 256-wide tanh layers per trunk, at most 8 actions,
 any number of rows; narrower trunks (1 to 4 layers of at most 128 units)
-go to K4n (``ops/cuda_narrow.py``), and ``cuda_sgd._check_envelope``
-decides which. The twin takes any widths.
+go to K4n (``ops/cuda_narrow.py``), every other network to K4g
+(``ops/cuda_general.py``), and ``cuda_sgd._check_envelope`` decides
+which. The twin takes any widths.
 
 Weights are converted to bf16 once (``prepare_weights``), which gives the
 same values as the Pallas kernel's per-call cast: both round to nearest
@@ -35,7 +36,7 @@ import functools
 import torch
 from torch import Tensor
 
-from pyflyt_tpu_torch.ops import cuda_narrow, cuda_sgd
+from pyflyt_tpu_torch.ops import cuda_general, cuda_narrow, cuda_sgd
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 from pyflyt_tpu_torch.ops.cuda_sgd import leaf_specs, params_to_leaves  # noqa: F401
 
@@ -135,8 +136,8 @@ def image_pointers(image: Tensor) -> list[int]:
 @dataclasses.dataclass
 class PolicyWeights:
     """The forward's weights: bf16 (in, out) matrices, f32 biases (the
-    twin's), and each trunk's image (the kernel's; None where the shapes
-    are outside the kernel's)."""
+    twin's), and each trunk's image (its kernel family's, ``prepare_weights``;
+    None where the two trunks read different obs widths)."""
 
     pi_w: list[Tensor]
     pi_b: list[Tensor]
@@ -160,7 +161,8 @@ class PolicyWeights:
 
 def _kernel_family(w: PolicyWeights) -> str:
     """The kernel family of ``w``'s shapes (``cuda_sgd._check_envelope``);
-    raises ``NotImplementedError`` outside the kernels' envelope."""
+    raises ``NotImplementedError`` where the trunks read different obs
+    widths."""
     if (w.vf_w[0] if w.vf_w else w.vf_head_w).shape[0] != w.obs_dim:
         raise NotImplementedError("actor and critic read different obs widths")
     return cuda_sgd._check_envelope(w.obs_dim, w.act_dim, [t.shape[1] for t in w.pi_w],
@@ -169,7 +171,7 @@ def _kernel_family(w: PolicyWeights) -> str:
 
 def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights:
     """Ordered leaves → ``PolicyWeights`` (one bf16 cast, contiguous), with
-    the trunks' images where the kernel takes the shapes."""
+    the trunks' images for their kernel family."""
     # copies, never views of the parameters: the set stays as converted
     w = lambda t: t.detach().to(torch.bfloat16, copy=True).contiguous()  # noqa: E731
     b = lambda t: t.detach().to(torch.float32, copy=True).reshape(-1).contiguous()  # noqa: E731
@@ -193,6 +195,10 @@ def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights
     if family == "wide":
         out.pi_image = pack_trunk(out.pi_w[0], out.pi_b[0], out.pi_w[1], out.pi_b[1], out.pi_head_w, out.pi_head_b)
         out.vf_image = pack_trunk(out.vf_w[0], out.vf_b[0], out.vf_w[1], out.vf_b[1], out.vf_head_w, out.vf_head_b)
+    elif family == "general":  # f32, as given: the kernel rounds the matrices as it reads them
+        out.pi_image = cuda_general.pack_trunk(leaves[:i_head:2], leaves[1:i_head:2], leaves[i_head], leaves[i_head + 1])
+        out.vf_image = cuda_general.pack_trunk(leaves[i_vf0:i_vf_head:2], leaves[i_vf0 + 1:i_vf_head:2],
+                                               leaves[i_vf_head], leaves[i_vf_head + 1])
     else:
         out.pi_image = cuda_narrow.pack_trunk(out.pi_w, out.pi_b, out.pi_head_w, out.pi_head_b)
         out.vf_image = cuda_narrow.pack_trunk(out.vf_w, out.vf_b, out.vf_head_w, out.vf_head_b)
@@ -243,6 +249,8 @@ def _check_kernel_shapes(obs: Tensor, w: PolicyWeights) -> str:
     images = (w.pi_image, w.vf_image)
     if family == "wide":
         sizes = [(TRUNK_BYTES,)] * 2
+    elif family == "general":
+        sizes = [(4 * floats,) for _, floats in cuda_general.weight_layouts(w)]
     else:
         sizes = [(lay.bytes,) for lay in cuda_narrow.weight_layouts(w)]
     if any(t is None or t.dtype != torch.uint8 for t in images) or [tuple(t.shape) for t in images] != sizes:
@@ -264,6 +272,8 @@ def policy_value_forward(obs: Tensor, w: PolicyWeights) -> tuple[Tensor, Tensor]
         raise ValueError(f"unsupported device {obs.device}")
     family = _check_kernel_shapes(obs, w)
     obs = obs.contiguous()
+    if family == "general":
+        return cuda_general.forward(obs, w)
     if family == "narrow":
         return cuda_narrow.forward(obs, w)
     n = obs.shape[0]

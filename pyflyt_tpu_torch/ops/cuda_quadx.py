@@ -6,7 +6,8 @@ Three kernels share one per-iteration body (``csrc/quadx_lane.cuh``):
 - ``packed_hover_step`` (``csrc/quadx_hover_step.cu``, replaces
   ``pallas_quadx.packed_hover_step``): the whole QuadX-Hover agent step,
   ``inner_steps`` aviary steps plus reward, termination, truncation and
-  the done-freeze; modes 0 and 8, ENU.
+  the done-freeze; modes 0, 7 and 8, ENU (mode 7 on the 80-row layout,
+  the position cascade's banks in rows 56-73).
 - ``packed_step`` (``csrc/quadx_step.cu``, replaces
   ``pallas_quadx.packed_step``): one aviary step, the generic variant;
   modes 0, 7, 8 and 9, ENU or NED (mode 7 ENU only, as in the Pallas
@@ -32,8 +33,8 @@ the Pallas module so packed rows compare one to one. The TPU's
 env and a warp's load of a row is one coalesced transaction. Any N works.
 
 Bounds on an H100 at N=8192: the hover step reads 55 of the 56 f32 rows
-and writes all 56 (3.64 MB, about 1.09 µs at 3.35 TB/s) and does about
-2 kFLOP per env; the generic step reads 50 rows (53 with a per-env wind
+and writes all 56 (3.64 MB, about 1.09 µs at 3.35 TB/s), in mode 7 73
+of 80 (5.0 MB, 1.5 µs), and does about 2 kFLOP per env; the generic step reads 50 rows (53 with a per-env wind
 base) and writes 56 (about 3.5 MB, 1.0 µs) and does about 1.1 kFLOP per
 env at 3 physics iterations; the waypoints step in mode 7 reads 101 rows
 and writes 112 (about 7.0 MB, 2.1 µs) and does about 4 kFLOP per env.
@@ -135,6 +136,7 @@ OPS_PER_WAYPOINT_TASK = 160  # the rotation, 4 targets' deltas, distance, mask, 
 # wind kinds of the generic kernel (csrc/quadx_lane.cuh::Wind)
 WIND_NONE, WIND_GAUSSIAN, WIND_GAUSSIAN_ENV, WIND_SIMPLE = 0, 1, 2, 3
 GENERIC_MODES = (0, 7, 8, 9)
+HOVER_MODES = (0, 7, 8)
 WAYPOINT_MODES = (0, 7, 8)
 
 
@@ -225,13 +227,8 @@ def unpack_state(packed: Tensor, template: quadx.QuadXState) -> quadx.QuadXState
 
 
 @dataclasses.dataclass(frozen=True)
-class HoverConsts:
-    """Vehicle and task constants of one hover env, as Python floats.
-
-    The kernel gets them as one POD struct by value (``_HoverConstsC``,
-    whose fields are these, in this order); the twin reads the same values,
-    so both round them identically.
-    """
+class _Vehicle:
+    """The vehicle fields every QuadX constants struct starts with."""
 
     mass: float
     inertia: tuple = array_field(3)
@@ -254,40 +251,13 @@ class HoverConsts:
     min_pwm: float
     max_pwm: float
     half_ext: tuple = array_field(3)
-    dome2: float
-    max_steps: float
-    inner_steps: int
-    ratio: int
 
 
 @dataclasses.dataclass(frozen=True)
-class CascadeVehicle:
-    """The vehicle fields of ``HoverConsts`` and the gains of the mode-7
-    position cascade's five PID banks (``lp`` lin_pos, ``lv`` lin_vel,
-    ``ap`` ang_pos, ``zp`` z_pos, ``zv`` z_vel): the leading fields of the
-    generic and the waypoints constants."""
+class _CascadeGains:
+    """The gains of the mode-7 position cascade's five PID banks (``lp``
+    lin_pos, ``lv`` lin_vel, ``ap`` ang_pos, ``zp`` z_pos, ``zv`` z_vel)."""
 
-    mass: float
-    inertia: tuple = array_field(3)
-    motor_map: tuple = array_field(16)  # row-major (4, 4)
-    mpos_x: tuple = array_field(4)
-    mpos_y: tuple = array_field(4)
-    thrust_coef: tuple = array_field(4)
-    torque_coef: tuple = array_field(4)
-    lag: tuple = array_field(4)  # physics_period / tau
-    max_rpm: tuple = array_field(4)
-    noise_ratio: tuple = array_field(4)
-    drag_xyz: tuple = array_field(3)
-    drag_pqr: float
-    kp: tuple = array_field(3)
-    ki: tuple = array_field(3)
-    kd: tuple = array_field(3)
-    lim: tuple = array_field(3)
-    period: float
-    dt: float
-    min_pwm: float
-    max_pwm: float
-    half_ext: tuple = array_field(3)
     lp_kp: tuple = array_field(2)
     lp_ki: tuple = array_field(2)
     lp_kd: tuple = array_field(2)
@@ -308,6 +278,33 @@ class CascadeVehicle:
     zv_ki: tuple = array_field(1)
     zv_kd: tuple = array_field(1)
     zv_lim: tuple = array_field(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class _HoverTask(_Vehicle):
+    dome2: float
+    max_steps: float
+    inner_steps: int
+    ratio: int
+
+
+# dataclass fields follow the reversed MRO: the base's first, the gains last
+@dataclasses.dataclass(frozen=True)
+class HoverConsts(_CascadeGains, _HoverTask):
+    """Vehicle and task constants of one hover env, as Python floats: the
+    vehicle, the task, then the cascade gains that mode 7 reads (last, so
+    modes 0 and 8 read every other field at the offsets they always had).
+
+    The kernel gets them as one POD struct by value (``_HoverConstsC``,
+    whose fields are these, in this order); the twin reads the same values,
+    so both round them identically.
+    """
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadeVehicle(_CascadeGains, _Vehicle):
+    """The vehicle fields and the cascade gains: the leading fields of the
+    generic and the waypoints constants."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,7 +396,7 @@ def hover_consts(
     if cfg.orn_conv != "ENU_FLU":
         raise NotImplementedError("the fused hover step is ENU only")
     return HoverConsts(
-        **_vehicle(params, cfg),
+        **_vehicle(params, cfg), **_cascade_gains(params),
         dome2=float(dome) ** 2,
         max_steps=float(max_steps),
         inner_steps=int(inner_steps),
@@ -473,10 +470,20 @@ def with_wind(consts: GenericConsts, wind) -> GenericConsts:
     return _with_wind(consts, tuple(sorted(_wind_fields(wind).items())))
 
 
-def ops_per_env(c: HoverConsts) -> int:
+def ops_per_env(c: HoverConsts, mode: int = 0) -> int:
     """f32 operations one hover agent step does per env (for the bound)."""
-    per_aviary = OPS_PER_CONTROL + c.ratio * OPS_PER_PHYSICS_ITER + OPS_PER_TASK_UPDATE
+    cascade = OPS_PER_CASCADE if mode == 7 else 0
+    per_aviary = OPS_PER_CONTROL + cascade + c.ratio * OPS_PER_PHYSICS_ITER + OPS_PER_TASK_UPDATE
     return c.inner_steps * per_aviary
+
+
+def hover_rows_moved(mode: int) -> tuple[int, int]:
+    """(rows read, rows written) per env by the hover kernel: it reads
+    every row of the drone and the env but the reward (re-armed), and the
+    cascade's 18 in mode 7, and writes every row of ``rows_for(mode)``,
+    mode 7's padding included."""
+    read = ROWS - 1 + (CASCADE_ROWS if mode == 7 else 0)
+    return read, rows_for(mode)
 
 
 def generic_ops_per_env(c: GenericConsts, mode: int = 0) -> int:
@@ -582,7 +589,7 @@ WAYPOINTS_KERNEL = Kernel(
 )
 
 
-def _check_packed(packed: Tensor, seed: Tensor, rows: int = ROWS) -> None:
+def _check_packed(packed: Tensor, seed: Tensor, rows: int) -> None:
     if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] != rows:
         raise ValueError(f"packed must be ({rows}, N) float32, got {tuple(packed.shape)} {packed.dtype}")
     if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != packed.device:
@@ -590,11 +597,11 @@ def _check_packed(packed: Tensor, seed: Tensor, rows: int = ROWS) -> None:
 
 
 def _check_args(packed: Tensor, seed: Tensor, mode: int) -> None:
-    if mode not in (0, 8):
+    if mode not in HOVER_MODES:
         raise NotImplementedError(
-            f"the fused hover step covers modes 0 and 8, not {mode}"
+            f"the fused hover step covers modes 0, 7 and 8, not {mode}"
         )
-    _check_packed(packed, seed)
+    _check_packed(packed, seed, rows_for(mode))
 
 
 def _check_generic(packed: Tensor, seed: Tensor, mode: int, c: GenericConsts) -> None:
@@ -644,8 +651,8 @@ def packed_hover_step(
     noisy: bool,
     sparse: bool = False,
 ) -> Tensor:
-    """One full hover agent step on the packed ``(ROWS, N)`` state: returns
-    the new packed state (a new tensor). ``seed`` is a one-element int64
+    """One full hover agent step on the packed ``(rows_for(mode), N)``
+    state: returns the new packed state (a new tensor). ``seed`` is a one-element int64
     tensor on the state's device (the motor-noise key of this step)."""
     _check_args(packed, seed, mode)
     if packed.device.type == "cpu":
@@ -952,7 +959,7 @@ def packed_hover_step_plain(
     c = consts
     S = list(packed.unbind(0))
     gen = _twin_generator(seed, packed.device) if noisy else None
-    st = _unpack_rows(S)
+    st = _unpack_rows(S, mode)
     st.update(term=S[_TERM], trunc=S[_TRUNC], coll=S[_COLL], oob=S[_OOB])
     sp = S[_SP:_SP + 4]
     stepc = S[_STEP]
@@ -983,7 +990,7 @@ def packed_hover_step_plain(
         nw["oob"] = torch.clamp(nw["oob"] + oob_i, max=1.0)
         _freeze(st, nw, frozen)
 
-    out = [None] * ROWS
+    out = [torch.zeros_like(stepc)] * rows_for(mode)
     _pack_rows(out, st, sp)
     out[_RWD] = st["rwd"]
     out[_TERM] = st["term"]

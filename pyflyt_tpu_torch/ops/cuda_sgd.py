@@ -19,11 +19,12 @@ exact-semantics path is ``PPOConfig(fused_sgd=False)`` (autograd on the f32
 launches its kernel for CUDA tensors and runs its plain twin
 (``*_plain``) for CPU tensors; the twins' matmuls are the module-level
 ``_mm``, ``_mm_tn`` and ``_mm_nt``, which a test may replace with f32
-products. The twins take any widths; the kernels cover two 256-wide tanh
+products. The twins take any widths, and so do the kernels, in three
+families that ``_check_envelope`` chooses between: two 256-wide tanh
 layers per trunk (``csrc/policy_mlp.cuh``, layer 0's K one 64-wide chunk)
-or, through ``ops/cuda_narrow.py``, 1 to 4 layers of at most 128 units
-each, obs widths up to 64 and at most 8 actions, and raise
-``NotImplementedError`` outside that (``_check_envelope``).
+here, 1 to 4 layers of at most 128 units each through
+``ops/cuda_narrow.py`` (both at obs widths up to 64 and at most 8
+actions), and every other network through ``ops/cuda_general.py``.
 
 Parameters travel as the ordered leaf list of ``leaf_specs`` (flax layout:
 weights ``(in, out)``, biases and log_std ``(1, n)``).
@@ -199,33 +200,50 @@ def in_envelope(sizes) -> bool:
     return 0 < len(sizes) <= MAX_DEPTH and all(0 < s <= MAX_WIDTH for s in sizes)
 
 
-def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes=None) -> str:
-    """The one envelope of the card's policy kernels (K4, K3, K2 and their
-    narrow family, ``ops/cuda_narrow.py``): the actor trunk (K3), or both
-    trunks when ``vf_sizes`` is given (K4, K2). Returns ``"wide"`` for two
-    256-wide layers a trunk (``csrc/policy_value_forward.cu``,
-    ``csrc/fused_epoch.cu``) or ``"narrow"`` for 1 to 4 layers of at most
-    128 units each (``csrc/policy_narrow.cu``, ``csrc/fused_epoch_narrow.cu``);
-    raises ``NotImplementedError`` naming ROADMAP item 27 outside both."""
-    trunks = [tuple(pi_sizes)] + ([tuple(vf_sizes)] if vf_sizes is not None else [])
-    if all(t == (HIDDEN, HIDDEN) for t in trunks):
-        family = "wide"
-    elif all(in_envelope(t) for t in trunks):
-        family = "narrow"
-    else:
-        got = f"pi {trunks[0]}" + (f" vf {trunks[1]}" if len(trunks) > 1 else "")
-        raise NotImplementedError(
-            f"the CUDA policy kernels cover two {HIDDEN}-wide layers per trunk, or 1 to "
-            f"{MAX_DEPTH} layers of at most {MAX_WIDTH} units each, in both trunks; "
-            f"got {got} (ROADMAP.md, item 27)"
-        )
+FAMILIES = ("wide", "narrow", "general")
+
+
+def _misfit(family: str, obs_dim: int, act_dim: int, trunks: list) -> str | None:
+    """Why ``family``'s kernels do not take these widths, or None."""
+    if family == "general":
+        return None
+    got = f"got pi {trunks[0]} vf {trunks[1]}"
+    if family == "wide" and not all(t == (HIDDEN, HIDDEN) for t in trunks):
+        return f"the wide kernels take two {HIDDEN}-wide layers per trunk; {got}"
+    if family == "narrow" and not all(in_envelope(t) for t in trunks):
+        return f"the narrow kernels take 1 to {MAX_DEPTH} layers of at most {MAX_WIDTH} units each; {got}"
     if not 0 < obs_dim <= MAX_OBS_DIM:
-        raise NotImplementedError(
-            f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the CUDA policy kernels' envelope; ROADMAP.md, item 27)"
-        )
+        return f"obs width {obs_dim} outside 1..{MAX_OBS_DIM} (the {family} kernels)"
     if not 0 < act_dim <= MAX_ACT_DIM:
-        raise NotImplementedError(f"action width {act_dim} outside 1..{MAX_ACT_DIM} (ROADMAP.md, item 27)")
-    return family
+        return f"action width {act_dim} outside 1..{MAX_ACT_DIM} (the {family} kernels)"
+    return None
+
+
+def check_family(family: str, obs_dim: int, act_dim: int, pi_sizes, vf_sizes) -> None:
+    """Raises ``NotImplementedError`` unless ``family``'s kernels take both
+    trunks: the wide ones two 256-wide layers a trunk, the narrow ones 1 to
+    4 layers of at most 128 units, both obs widths up to 64 and at most 8
+    actions; the general ones any."""
+    why = _misfit(family, obs_dim, act_dim, [tuple(pi_sizes), tuple(vf_sizes)])
+    if why is not None:
+        raise NotImplementedError(why)
+
+
+def _check_envelope(obs_dim: int, act_dim: int, pi_sizes, vf_sizes) -> str:
+    """The router in front of the card's policy kernels (K4, K3, K2 and
+    their narrow and general families): the family that takes both trunks,
+    one for all three, so that K3's log-probs are K2's forward. ``"wide"``
+    for two 256-wide layers a trunk (``csrc/policy_value_forward.cu``,
+    ``csrc/fused_epoch.cu``), ``"narrow"`` for 1 to 4 layers of at most 128
+    units (``csrc/policy_narrow.cu``, ``csrc/fused_epoch_narrow.cu``), both
+    at obs widths up to 64 and at most 8 actions, ``"general"``
+    (``csrc/policy_general.cu``, ``csrc/fused_epoch_general.cu``) for every
+    other network the Pallas builders take: any depth (0 included), any
+    positive widths. Raises ``ValueError`` on a zero or negative width."""
+    trunks = [tuple(pi_sizes), tuple(vf_sizes)]
+    if obs_dim < 1 or act_dim < 1 or any(s < 1 for t in trunks for s in t):
+        raise ValueError(f"obs {obs_dim}, act {act_dim}, trunks {trunks}: every width must be positive")
+    return next(f for f in FAMILIES if _misfit(f, obs_dim, act_dim, trunks) is None)
 
 
 def _range_args(log_std_range) -> tuple[int, float, float]:
@@ -235,11 +253,13 @@ def _range_args(log_std_range) -> tuple[int, float, float]:
 
 
 def logp_forward(
-    packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None
+    packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None, *, vf_sizes
 ) -> Tensor:
     """Log-probs ``(rows,)`` of the stored actions in ``packed`` (rows,
     feat) f32 under ``pi_leaves``: the kernel for a CUDA tensor, the twin
-    for a CPU one."""
+    for a CPU one. The critic's widths ``vf_sizes`` choose the kernel: the
+    family K2 takes for the pair (``_check_envelope``), so its log-probs
+    are K2's forward bit for bit (PPO's ``fused_sgd_consistent_logp``)."""
     if packed.dtype != torch.float32 or packed.dim() != 2:
         raise ValueError(f"packed must be (rows, feat) float32, got {tuple(packed.shape)} {packed.dtype}")
     act_dim = pi_leaves[-1].shape[-1]
@@ -250,11 +270,13 @@ def logp_forward(
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     n_pi = (len(pi_leaves) - 3) // 2
-    family = _check_envelope(obs_dim, act_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)])
+    family = _check_envelope(obs_dim, act_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)], vf_sizes)
     if any(t.device != packed.device for t in pi_leaves):
         raise ValueError("leaves and rows must be on one device")
-    from pyflyt_tpu_torch.ops import cuda_narrow, cuda_policy  # they import this module
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_narrow, cuda_policy  # they import this module
 
+    if family == "general":
+        return cuda_general.logp(packed.contiguous(), pi_leaves, obs_dim, log_std_range)
     if family == "narrow":
         return cuda_narrow.logp(packed.contiguous(), pi_leaves, obs_dim, log_std_range)
     return _launch_logp(packed.contiguous(), cuda_policy.pack_trunk(*pi_leaves[:6]), pi_leaves[6], obs_dim,
@@ -571,7 +593,11 @@ def fused_epoch(
     family = _check_envelope(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
     if any(t.device != mbs.device for t in (adv_stats, t0, *leaves, *mu, *nu)):
         raise ValueError("every input must be on the device of mbs")
-    if family == "narrow":
+    if family == "general":
+        from pyflyt_tpu_torch.ops import cuda_general
+
+        out = cuda_general.launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
+    elif family == "narrow":
         from pyflyt_tpu_torch.ops import cuda_narrow
 
         out, _ = cuda_narrow.launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
@@ -587,6 +613,7 @@ def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg: EpochConfig):
     step wrote them (``cuda_policy.pack_trunk`` of the returned leaves)."""
     from pyflyt_tpu_torch.ops import cuda_policy
 
+    check_family("wide", cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
     dev = mbs.device
     n_mb, mb_size, feat = mbs.shape
     net = dict(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes)

@@ -405,17 +405,11 @@ class PPO:
                 f"{type(env).__name__} has no cached auto-reset; set cached_reset_refresh=0"
             )
         if (config.fused_sgd or config.fused_rollout_forward) and torch.device(env.device).type == "cuda":
-            # the card's K4, K3 and K2 share one envelope (raising naming
-            # ROADMAP item 27)
+            # the card's K4, K3 and K2 route through one router: the wide,
+            # narrow or general family (raising only on a non-positive width)
             cuda_sgd._check_envelope(obs_width(env), int(torch.as_tensor(env.action_bounds()[0]).shape[-1]),
                                      tuple(config.feature_sizes) + tuple(config.pi_sizes),
                                      tuple(config.feature_sizes) + tuple(config.vf_sizes))
-        elif config.fused_sgd and obs_width(env) > cuda_sgd.MAX_OBS_DIM:
-            # the CPU twins take any trunk, but fused_sgd keeps K2's obs width
-            raise NotImplementedError(
-                f"fused_sgd at observation width {obs_width(env)}: the CUDA SGD kernels cover widths "
-                f"up to {cuda_sgd.MAX_OBS_DIM} (ROADMAP.md, item 27)"
-            )
         self.env = env
         self.config = config
         self.network = network
@@ -569,7 +563,7 @@ class PPO:
         n_pi_leaves = 2 * (len(cfg.feature_sizes) + len(cfg.pi_sizes)) + 3
         leaves = [t.detach() for t in cuda_sgd.params_to_leaves(network)[:n_pi_leaves]]
         packed[:, obs_dim + self.action_dim] = cuda_sgd.logp_forward(
-            packed, leaves, obs_dim, cfg.log_std_range
+            packed, leaves, obs_dim, cfg.log_std_range, vf_sizes=self.epoch_config(obs_dim).vf_sizes
         )
 
     def sgd(self, runner: RunnerState, packed: Tensor, obs_dim: int) -> dict[str, Tensor]:

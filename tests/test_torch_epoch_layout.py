@@ -283,30 +283,39 @@ def test_source_constants_match_the_host():
 
 @pytest.mark.parametrize("obs,act,ok", [(64, 8, True), (33, 1, True), (65, 4, False), (21, 9, False)])
 def test_epoch_envelope_is_k4s(obs, act, ok):
+    """K2's envelope is K4's (obs up to 64, at most 8 actions at 2 x 256);
+    past it the router sends the same trunks to the general family, and
+    the wide family's own check still refuses them."""
     if ok:
-        cuda_sgd._check_envelope(obs, act, (H, H), (H, H))
+        assert cuda_sgd._check_envelope(obs, act, (H, H), (H, H)) == "wide"
+        cuda_sgd.check_family("wide", obs, act, (H, H), (H, H))
     else:
+        assert cuda_sgd._check_envelope(obs, act, (H, H), (H, H)) == "general"
         with pytest.raises(NotImplementedError):
-            cuda_sgd._check_envelope(obs, act, (H, H), (H, H))
+            cuda_sgd.check_family("wide", obs, act, (H, H), (H, H))
 
 
 def test_ppo_fused_sgd_raises_past_the_envelope():
-    """``PPO(fused_sgd=True)`` refuses an obs width the kernels do not take
-    (65), naming their envelope, before it touches the env further."""
-    from types import SimpleNamespace
-
+    """Past the wide and narrow kernels' obs width 64, ``PPO(fused_sgd=True)``
+    no longer raises on the CPU (the twins take any width) and the card's
+    router sends the network to the general family; only the wide family's
+    own check still refuses obs 65, naming its envelope."""
     from pyflyt_tpu_torch.rl import PPO, PPOConfig
 
-    with pytest.raises(NotImplementedError, match="up to 64"):
-        PPO(SimpleNamespace(obs_size=65, device="cpu"), PPOConfig(fused_sgd=True))
+    ppo = PPO(_cuda_env(4, obs=65, device="cpu"), PPOConfig(fused_sgd=True))
+    assert ppo.config.fused_sgd and ppo.action_dim == 4
+    cfg = PPOConfig()
+    assert cuda_sgd._check_envelope(65, 4, cfg.feature_sizes + cfg.pi_sizes, cfg.feature_sizes + cfg.vf_sizes) == "general"
+    with pytest.raises(NotImplementedError, match="outside 1..64"):
+        cuda_sgd.check_family("wide", 65, 4, cfg.feature_sizes + cfg.pi_sizes, cfg.feature_sizes + cfg.vf_sizes)
 
 
-def _cuda_env(act: int, obs: int = 21):
+def _cuda_env(act: int, obs: int = 21, device: str = "cuda"):
     """An env as far as ``PPO.__init__``'s envelope check reads it, on the
-    card by name only: the check raises before anything is put there."""
+    card by name only (or on ``device``)."""
     from types import SimpleNamespace
 
-    return SimpleNamespace(obs_size=obs, device=torch.device("cuda"),
+    return SimpleNamespace(obs_size=obs, device=torch.device(device),
                            action_bounds=lambda: (-np.ones(act, np.float32), np.ones(act, np.float32)))
 
 
@@ -320,20 +329,28 @@ def _cuda_env(act: int, obs: int = 21):
     (4, dict(fused_rollout_forward=True, feature_sizes=(256, 256), pi_sizes=(64,)), "got pi"),
 ])
 def test_ppo_raises_outside_the_kernel_envelope_on_the_card(act, kw, what):
-    """On a CUDA env, ``PPO`` refuses a network K4, K3 or K2 (or their
-    narrow family) does not take (64-64-32-32 behind the default 2 x 256
-    feature trunk, a three-layer 256-wide trunk, 9 actions, obs 65, a
-    5-layer actor, 2 x 256 plus one more layer), naming ROADMAP item 27,
-    before it puts anything on the card; the 20 M search's SMALL arm
-    (``what`` None: no feature trunk) is the narrow family's and passes."""
+    """On a CUDA env, ``PPO``'s router takes every network the Pallas
+    builders take: those the wide kernels and their narrow family do not
+    (64-64-32-32 behind the default 2 x 256 feature trunk, a three-layer
+    256-wide trunk, 9 actions, obs 65, a 5-layer actor, 2 x 256 plus one
+    more layer) go to the general family, and the wide and narrow
+    families' own checks still refuse them, saying why (``what``); the
+    20 M search's SMALL arm (``what`` None: no feature trunk) stays the
+    narrow family's. Only a non-positive width raises, before anything
+    is put on the card."""
     from pyflyt_tpu_torch.rl import PPO, PPOConfig
 
     kw = dict(kw)
     obs = kw.pop("obs", 21)
+    cfg = PPOConfig(**kw)
+    pi, vf = cfg.feature_sizes + cfg.pi_sizes, cfg.feature_sizes + cfg.vf_sizes
     if what is None:  # PPO's own check on the trunks it builds
-        cfg = PPOConfig(**kw)
-        assert cuda_sgd._check_envelope(obs, act, cfg.feature_sizes + cfg.pi_sizes,
-                                        cfg.feature_sizes + cfg.vf_sizes) == "narrow"
+        assert cuda_sgd._check_envelope(obs, act, pi, vf) == "narrow"
         return
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 27"):
-        PPO(_cuda_env(act, obs), PPOConfig(**kw))
+    assert cuda_sgd._check_envelope(obs, act, pi, vf) == "general"
+    with pytest.raises(NotImplementedError, match=what):
+        cuda_sgd.check_family("wide", obs, act, pi, vf)
+    with pytest.raises(NotImplementedError):
+        cuda_sgd.check_family("narrow", obs, act, pi, vf)
+    with pytest.raises(ValueError, match="positive"):
+        PPO(_cuda_env(act, obs), PPOConfig(**{**kw, "feature_sizes": (0,)}))

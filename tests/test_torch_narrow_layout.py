@@ -138,19 +138,21 @@ def test_zero_padding_stays_zero_through_the_epoch_twin():
 ])
 def test_one_envelope_routes_every_kernel(pi, vf, want):
     """``cuda_sgd._check_envelope`` decides for K4 (via the weights), K3
-    (actor only) and K2 (both trunks) alike."""
+    and K2 alike, by both trunks; ``want`` None: neither the wide nor the
+    narrow family takes the pair, so the general family does, with its
+    images; the actor beside a critic of its own widths takes its own."""
     net = ActorCritic(19, 4, feature_sizes=(), pi_sizes=pi, vf_sizes=vf, device="cpu")
     w = net.kernel_weights()
+    family = want or "general"
+    assert cuda_sgd._check_envelope(19, 4, pi, vf) == family
+    assert cuda_policy._kernel_family(w) == family and cuda_policy._check_kernel_shapes(torch.zeros(2, 19), w) == family
+    assert w.pi_image is not None and w.vf_image is not None
+    own = "wide" if tuple(pi) == (256, 256) else "narrow" if cuda_sgd.in_envelope(pi) else "general"
+    assert cuda_sgd._check_envelope(19, 4, pi, pi) == own
     if want is None:
-        with pytest.raises(NotImplementedError, match="item 27"):
-            cuda_sgd._check_envelope(19, 4, pi, vf)
-        assert w.pi_image is None and w.vf_image is None
-        with pytest.raises(NotImplementedError, match="item 27"):
-            cuda_policy._check_kernel_shapes(torch.zeros(2, 19), w)
-        return
-    assert cuda_sgd._check_envelope(19, 4, pi, vf) == want
-    assert cuda_policy._kernel_family(w) == want and cuda_policy._check_kernel_shapes(torch.zeros(2, 19), w) == want
-    assert cuda_sgd._check_envelope(19, 4, pi) == ("wide" if tuple(pi) == (256, 256) else "narrow")
+        for other in ("wide", "narrow"):
+            with pytest.raises(NotImplementedError, match="got pi"):
+                cuda_sgd.check_family(other, 19, 4, pi, vf)
 
 
 @pytest.mark.parametrize("pi,vf", [((64, 64, 32, 32), (64, 64, 32, 32)), ((128, 64, 32, 16), (48, 24))])

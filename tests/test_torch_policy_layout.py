@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from pyflyt_tpu_torch.ops import cuda_build, cuda_narrow, cuda_policy, cuda_sgd
+from pyflyt_tpu_torch.ops import cuda_build, cuda_general, cuda_narrow, cuda_policy, cuda_sgd
 from pyflyt_tpu_torch.rl.networks import ActorCritic
 
 torch.set_num_threads(1)
@@ -161,9 +161,12 @@ def test_prepare_weights_packs_only_what_the_kernel_takes():
     assert cuda_policy._kernel_family(narrow) == "narrow" and torch.equal(narrow.pi_image, cuda_narrow.pack_trunk(
         narrow.pi_w, narrow.pi_b, narrow.pi_head_w, narrow.pi_head_b))
     for net in (ActorCritic(21, 4, feature_sizes=(256,), device="cpu"), ActorCritic(65, 4, device="cpu"),
-                ActorCritic(21, 9, device="cpu")):
+                ActorCritic(21, 9, device="cpu")):  # the general family's: its images are the f32 leaves
         w = net.kernel_weights()
-        assert w.pi_image is None and w.vf_image is None
+        assert cuda_policy._kernel_family(w) == "general"
+        assert torch.equal(w.pi_image, cuda_general.pack_trunk(
+            [lin.weight.T for lin in net.pi_trunk.layers], [lin.bias for lin in net.pi_trunk.layers],
+            net.pi_head.weight.T, net.pi_head.bias))
         obs = torch.zeros(3, net.obs_dim)
         mean, value = cuda_policy.policy_value_forward(obs, w)  # the twin takes any widths
         assert mean.shape == (3, net.action_dim) and value.shape == (3,)
@@ -192,6 +195,10 @@ def _misaligned(w):
     ],
 )
 def test_forward_kernel_rejects_what_it_does_not_take(case, err, match):
+    """K4's image refuses what it does not take (``match``); obs 65, 9
+    actions, three layers and a single 256-wide layer route to the general
+    family (K4g), while the wide family's own check still names why; the
+    wide images must be aligned and present."""
     w = {
         "obs 65": lambda: _weights(obs=65),
         "act 9": lambda: _weights(act=9),
@@ -203,6 +210,12 @@ def test_forward_kernel_rejects_what_it_does_not_take(case, err, match):
     }[case]()
     if err is None:
         assert cuda_policy._check_kernel_shapes(torch.zeros(2, w.obs_dim), w) == "narrow"
+        return
+    if err is NotImplementedError:
+        assert cuda_policy._check_kernel_shapes(torch.zeros(2, w.obs_dim), w) == "general"
+        pi, vf = [t.shape[1] for t in w.pi_w], [t.shape[1] for t in w.vf_w]
+        with pytest.raises(err, match=match):
+            cuda_sgd.check_family("wide", w.obs_dim, w.act_dim, pi, vf)
         return
     with pytest.raises(err, match=match):
         cuda_policy._check_kernel_shapes(torch.zeros(2, w.obs_dim), w)
@@ -220,8 +233,11 @@ def test_forward_kernel_takes_the_main_paths_shapes():
      (21, 4, (256, 256, 256), "two 256-wide")],
 )
 def test_logp_kernel_rejects_what_it_does_not_take(obs, act, pi, match):
+    """K3 refuses these actors (the wide family's check names why); the
+    router sends them to K3g."""
+    assert cuda_sgd._check_envelope(obs, act, pi, pi) == "general"
     with pytest.raises(NotImplementedError, match=match):
-        cuda_sgd._check_envelope(obs, act, pi)
+        cuda_sgd.check_family("wide", obs, act, pi, pi)
 
 
 def test_pack_trunk_rejects_shapes_outside_the_image():

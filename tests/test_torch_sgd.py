@@ -91,7 +91,7 @@ def test_logp_twin_matches_pallas_kernel(arith, log_std_range, request):
         chunk=128, interpret=True,
     )
     want = np.asarray(run(jnp.asarray(packed), [jnp.asarray(x) for x in pi]))
-    got = cuda_sgd.logp_forward(T(packed), [T(x) for x in pi], OBS, log_std_range)
+    got = cuda_sgd.logp_forward(T(packed), [T(x) for x in pi], OBS, log_std_range, vf_sizes=H)
     assert got.shape == (256,)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4 if arith == "bf16" else 2e-5, rtol=0)
 
@@ -100,7 +100,7 @@ def test_logp_rejects_a_row_too_narrow():
     rng = np.random.default_rng(2)
     leaves, _, _ = _leaves(rng)
     with pytest.raises(ValueError, match="does not hold"):
-        cuda_sgd.logp_forward(torch.zeros(4, OBS + 2), [T(x) for x in leaves[:7]], OBS)
+        cuda_sgd.logp_forward(torch.zeros(4, OBS + 2), [T(x) for x in leaves[:7]], OBS, vf_sizes=H)
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +272,15 @@ def test_ctypes_mirrors_match_the_c_structs(source, struct, cls):
 )
 def test_kernel_envelope(obs, act, pi, err):
     """Two 256-wide layers route to the wgmma kernels, 1-4 layers of at most
-    128 units to the narrow family; anything else raises."""
+    128 units to the narrow family; anything else to the general family,
+    which the wide family's own check refuses, naming why (``err``)."""
     if err is None:
         want = "wide" if tuple(pi) == (256, 256) else "narrow"
         assert cuda_sgd._check_envelope(obs, act, pi, pi) == want
     else:
+        assert cuda_sgd._check_envelope(obs, act, pi, pi) == "general"
         with pytest.raises(NotImplementedError, match=err):
-            cuda_sgd._check_envelope(obs, act, pi, pi)
+            cuda_sgd.check_family("wide", obs, act, pi, pi)
 
 
 def test_cpu_tensors_count_no_launch():

@@ -63,10 +63,12 @@ largest difference from ``built`` over one call, noise off and on
 (``no_engage`` differs by design; a changed GROUP sums in another order;
 dividing moves the last bit); and for each ``--other`` checkout, the lines
 of each source's SASS that differ from ``built``'s (``cuobjdump -sass``,
-the anonymous namespace's hash taken out).
+function by function, the anonymous namespace's hash taken out).
 
     python3 tools/fixedwing_lane_probe.py [--other NAME=ROOT ...] [--out FILE]
     python3 tools/fixedwing_lane_probe.py --locals quadx_waypoints_step.cu
+    python3 tools/fixedwing_lane_probe.py --sass build/parent/pyflyt_tpu_torch/csrc/quadx_hover_step.cu \
+        pyflyt_tpu_torch/csrc/quadx_hover_step.cu --match hover_step_kernelILi0E --match hover_step_kernelILi8E
 
 Needs a CUDA card and ``nvcc``; the variants are built under
 ``build/fixedwing_lane_probe/``, each source only where the variant
@@ -75,7 +77,11 @@ changes it. Prints the card line and one JSON line per variant and round
 only compiles SOURCE to PTX with ``-lineinfo``, as built and in each
 variant that changes it, and prints each kernel's local-memory bytes and
 its local loads and stores by source line: where a frame that ptxas
-reports comes from.
+reports comes from. With ``--sass BEFORE AFTER`` it only builds two
+versions of a source (``nvcc``, no card needed) and compares the SASS of
+the functions whose mangled names hold a ``--match`` string, instruction
+for instruction: whether an edit left them as they were; it exits 1 if
+one differs or is missing.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import difflib
 import json
 import os
 import re
@@ -293,18 +300,68 @@ def registers(log: str) -> dict:
             "spill_store_bytes": sum(v[2] for v in by.values())}
 
 
-def sass_diff(cuda_build, lib_a: str, lib_b: str) -> int:
-    """Lines in which two builds' SASS (``cuobjdump -sass``) differ, with
-    the anonymous namespace's per-file hash taken out of the names."""
+_FILE_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def sass_functions(cuda_build, lib: str) -> dict[str, list[str]]:
+    """``{mangled name: SASS lines}`` of a built library (``cuobjdump
+    -sass``), the anonymous namespace's per-file hash taken out and each
+    line's tokens single-spaced (cuobjdump pads its columns to the widest
+    line of the file)."""
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    out: dict[str, list[str]] = {}
+    name = None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = _FILE_HASH.sub("", m.group(1))
+            out[name] = []
+        elif name is not None and ln.strip() and not ln.lstrip().startswith("Fatbin"):
+            out[name].append(" ".join(_FILE_HASH.sub("", ln).split()))
+    return out
 
-    def sass(lib):
-        text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
-        return [re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", ln) for ln in text.splitlines()
-                if ln.strip() and not ln.lstrip().startswith("Fatbin")]
 
-    a, b = sass(lib_a), sass(lib_b)
-    return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+def function_diffs(cuda_build, lib_a: str, lib_b: str, match=()) -> dict:
+    """For each function of two builds whose mangled name holds one of
+    ``match`` (every function if empty): the lines in which its SASS
+    differs (a function missing from one build differs in all its lines),
+    and the first differences."""
+    a_fns, b_fns = sass_functions(cuda_build, lib_a), sass_functions(cuda_build, lib_b)
+    out = {}
+    for n in sorted(n for n in set(a_fns) | set(b_fns) if not match or any(m in n for m in match)):
+        a, b = a_fns.get(n, []), b_fns.get(n, [])
+        ops = [op for op in difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes() if op[0] != "equal"]
+        out[n] = {"lines_before": len(a), "lines_after": len(b),
+                  "lines_differing": sum(max(i2 - i1, j2 - j1) for _, i1, i2, j1, j2 in ops),
+                  "first_differences": [[a[i1:i2][:4], b[j1:j2][:4]] for _, i1, i2, j1, j2 in ops[:4]]}
+    return out
+
+
+def sass_diff(cuda_build, lib_a: str, lib_b: str, match=()) -> int:
+    """Lines in which two builds' SASS differs, over the functions that
+    ``function_diffs`` compares."""
+    return sum(d["lines_differing"] for d in function_diffs(cuda_build, lib_a, lib_b, match).values())
+
+
+def sass_against(cuda_build, before: str, after: str, match) -> int:
+    """``--sass``: both sources built with the port's flags (each with its
+    own directory on the include path) under
+    ``build/fixedwing_lane_probe/sass``; prints ``function_diffs`` of the
+    functions ``match`` names as one JSON line; 1 if one differs or is
+    missing, or none matched."""
+    work = os.path.join(HERE, "build", "fixedwing_lane_probe", "sass")
+    os.makedirs(work, exist_ok=True)
+    libs = []
+    for tag, source in (("before", before), ("after", after)):
+        lib = os.path.join(work, f"{tag}.so")
+        subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", os.path.dirname(os.path.abspath(source)),
+                        "-o", lib, source], check=True, capture_output=True, text=True)
+        libs.append(lib)
+    diffs = function_diffs(cuda_build, *libs, match)
+    ok = bool(diffs) and all(d["lines_differing"] == 0 for d in diffs.values())
+    print(json.dumps({"sass_functions": diffs, "unchanged": ok}), flush=True)
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -315,7 +372,14 @@ def main(argv=None) -> int:
     ap.add_argument("--locals", action="append", default=[], metavar="SOURCE",
                     help="only print SOURCE's local-memory accesses by source line (PTX with -lineinfo), "
                          "as built and in each variant that changes it, and exit")
+    ap.add_argument("--sass", nargs=2, metavar=("BEFORE", "AFTER"),
+                    help="only compare the SASS of the --match functions of two builds of a source, and exit")
+    ap.add_argument("--match", action="append", default=[], help="with --sass: a substring of the mangled names")
     args = ap.parse_args(argv)
+    if args.sass:
+        from pyflyt_tpu_torch.ops import cuda_build
+
+        return sass_against(cuda_build, *args.sass, args.match)
     import torch
 
     if not torch.cuda.is_available():

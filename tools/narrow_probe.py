@@ -114,7 +114,8 @@ def main(argv=None) -> int:
                                           leaves[2 * n_pi + 1])
     image = pack()
     lay = cuda_narrow.layout(16, cs.trunk_sizes(net.pi_trunk), 4)
-    wrapper, _ = cs.time_ms(lambda: cuda_sgd.logp_forward(rows, leaves, 16), iters=20)
+    wrapper, _ = cs.time_ms(lambda: cuda_sgd.logp_forward(rows, leaves, 16, vf_sizes=cs.trunk_sizes(net.vf_trunk)),
+                             iters=20)
     kernel, _ = cs.time_ms(lambda: cuda_narrow.launch_logp(rows, image, lay, leaves[-1], 16), iters=100)
     packed_ms, _ = cs.time_ms(pack, iters=40)
     emit("k3n_ms", {"wrapper": wrapper, "kernel": kernel, "pack": packed_ms, "rows": r4.batch_size})

@@ -82,7 +82,7 @@ def main(argv=None) -> int:
         rows = cs.packed_rows(net, n, seed=300)
         leaves = cs.pi_leaves(net)
         it = max(1, 20 * cs.BATCH // n)
-        ms, host = cs.time_ms(lambda: cuda_sgd.logp_forward(rows, leaves, obs_dim), iters=it)
+        ms, host = cs.time_ms(lambda: cuda_sgd.logp_forward(rows, leaves, obs_dim, vf_sizes=(256, 256)), iters=it)
         lib, _ = cs.time_ms(cs.library_logp(net, rows), iters=it)
         results[f"k3_{n}x{obs_dim}"] = {"ms": ms, "host_ms": host, "library_ms": lib,
                                         **cs.logp_kernel_only(rows, leaves, obs_dim)}

@@ -14,7 +14,8 @@ Phases, each of which fails the script on a failed check:
      8, 9 and 10 with torch.profiler and checks its grid, block and
      registers a thread (CUPTI's kernel record) against the source's
      THREADS and GROUP (the lanes an env; rows 1, 2 and 4 are one thread an
-     env), and counts K2g's own CUDA kernels in a 4-minibatch call;
+     env), and counts K2g's own CUDA kernels in a 4-minibatch call and the
+     resident K4g's and K3g's in one call each (one kernel);
   3. holds the hover-step kernel against its plain twin on the card: noise
      off, N=8192, a ragged N=1000 and a mid-warp N=4093 (its envs
      truncating at staggered agent steps), 20 agent steps with half the
@@ -191,10 +192,13 @@ Phases, each of which fails the script on a failed check:
      tests/test_packed_hover.py's setpoints, half the fleet climbing out of
      a 1.5 m dome, lane by lane; its noise and a noisy repeat;
  52. ``general_grid``: the general family's K4g and K3g
-     (csrc/policy_general.cu) against their twins over 8 trunk pairs (a
+     (csrc/policy_general.cu) against their twins over 9 trunk pairs (a
      linear policy, six 48-wide layers, 160-72, a 2 x 256 actor beside a
-     32-32 critic, (256,), 3 x 256, 2 x 512, 2 x 256 + 64) x (obs 21, act
-     4), (obs 72, act 10) x 1, 1000 and 8192 rows;
+     32-32 critic, (256,), 3 x 256, 2 x 512, 2 x 256 + 64 on the resident
+     route, (1024,) past it on the per-layer route) x (obs 21, act 4),
+     (obs 72, act 10) x 1, 1000 and 8192 rows, each launch counted on its
+     route; where a pair is resident, its K4g and K3g bit for bit the
+     per-layer route's at 1000 and 8192 rows;
  53. ``general_epochs``: K2g (csrc/fused_epoch_general.cu) against its
      twin at each pair, two calls bit-identical, and K3g's log-probs equal
      to K2g's forward bit for bit (approx_kl exactly 0 on the first
@@ -208,9 +212,18 @@ Phases, each of which fails the script on a failed check:
      (row 1, K4g, K3g, K2g), and one at the default 2 x 256 trunk (row 1,
      K4, K3, K2);
  56. ``general_kernel_times``: row 1 in mode 7, K4g, K3g and K2g at those
-     shapes against their bounds, their twins and their library calls;
-     then the ``kernels`` line for all seventeen kernels (rows 1, 2, 4, 5,
-     6, 8, 9 and 10 with phase 2's launch records).
+     shapes against their bounds, their twins and their library calls; K4g
+     and K3g on the resident route, the per-layer route forced at the same
+     shapes and the library call in turns (K3g also its kernel and its
+     image build alone), with the resident kernels' ptxas registers and
+     spills; and the per-layer route where its main path runs it (the
+     (1024,) trunk of ``traj_train``'s ``other_trunks``, at its rows);
+ 57. ``general_main_path_checks``: K3g over the training path's batch and
+     K2g over two of its minibatches on its trained 3 x 256 network, and
+     its 32 x 8192 epoch bit for bit as 32 chained one-minibatch calls;
+     then the ``kernels`` line for all nineteen kernels (rows 1, 2, 4, 5,
+     6, 8, 9 and 10 with phase 2's launch records; the general family's
+     two routes of K4g and K3g each a kernel).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -221,6 +234,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -313,7 +327,9 @@ def time_ms(fn, iters: int, repeats: int = 5, device_timed: bool = True) -> tupl
     must also stay under the ~1000 a stream queues before a launch blocks).
     The host clock around the enqueue gives the wrapper's own cost per
     call. A call that enqueues slower than the device runs it (the plain
-    twins, ``device_timed=False``) is timed at its host rate.
+    twins, ``device_timed=False``) is timed at its host rate. The garbage
+    collector waits while the calls are enqueued: late in a long run one of
+    its passes can outlast the spin.
     """
     import torch
 
@@ -325,12 +341,17 @@ def time_ms(fn, iters: int, repeats: int = 5, device_timed: bool = True) -> tupl
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        host.append(1e3 * (time.perf_counter() - t0) / iters)
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            gc.enable()
+        host.append(enqueue_ms / iters)
         check(not device_timed or not start.query(),
-              f"time_ms: the device caught up with the host's enqueue of {iters} calls")
+              f"time_ms: the device caught up with the host's enqueue of {iters} calls ({enqueue_ms:.1f} ms)")
         end.record()
         end.synchronize()
         dev.append(start.elapsed_time(end) / iters)
@@ -1332,7 +1353,9 @@ def all_kernels():
             "narrow_policy_value_forward": cuda_narrow.FORWARD_KERNEL, "narrow_logp_forward": cuda_narrow.LOGP_KERNEL,
             "fused_epoch_narrow": cuda_narrow.EPOCH_KERNEL,
             "general_policy_value_forward": cuda_general.FORWARD_KERNEL,
-            "general_logp_forward": cuda_general.LOGP_KERNEL, "fused_epoch_general": cuda_general.EPOCH_KERNEL}
+            "general_logp_forward": cuda_general.LOGP_KERNEL, "fused_epoch_general": cuda_general.EPOCH_KERNEL,
+            "general_resident_forward": cuda_general.RESIDENT_FORWARD_KERNEL,
+            "general_resident_logp": cuda_general.RESIDENT_LOGP_KERNEL}
 
 
 def zero_launches() -> None:
@@ -2884,7 +2907,8 @@ def measure_launches() -> dict:
         "rocket_landing_step": (lambda: cr.packed_landing_step(rk, seed, renv.consts, True), "rocket_kernel",
                                 "rocket_step.cu", RK_ENVS),
     }
-    out = {"fused_epoch_general": general_epoch_kernels()}  # first: profiles late in a process drop records
+    out = {"fused_epoch_general": general_epoch_kernels(), "general_resident": general_resident_kernels()}  # first:
+    # profiles late in a process drop records
     out.update({name: measured_launch(fn, kernel, source, n) for name, (fn, kernel, source, n) in calls.items()})
     return out
 
@@ -2901,6 +2925,52 @@ def general_epoch_kernels() -> dict:
     per_mb = cuda_general.kernels_per_minibatch(len(GENERAL_TRUNK), len(GENERAL_TRUNK))
     return {"cuda_kernels_per_minibatch": per_mb,
             **epoch_kernel_count(lambda: cuda_sgd.fused_epoch(*inputs), 4, per_mb, cuda_general.KERNELS_PER_CALL)}
+
+
+def general_resident_kernels() -> dict:
+    """The CUDA kernels of one K4g call (8192 rows) and one K3g call
+    (262,144 rows) at the slice's 3 x 256 trunk on the resident route, and
+    of each on the per-layer route at the (1024,) trunk where its main path
+    runs it (256 and 4096 rows), counted by torch.profiler (in the launch
+    records' child process): the resident K4g one kernel and nothing else,
+    the resident K3g one kernel of its own beside its image build's, the
+    per-layer K4g a GEMM a layer a trunk, the per-layer K3g a GEMM a layer
+    beside its log-prob kernel and its image build's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_policy, cuda_sgd
+
+    net = general_net(0, 21, 4, GENERAL_TRUNK, GENERAL_TRUNK)
+    w = net.kernel_weights()
+    obs = torch.randn((N_ENVS, 21), generator=torch.Generator().manual_seed(3)).cuda()
+    rows = packed_rows(net, BATCH, seed=305)
+    wide_net = general_net(0, 21, 4, (1024,), (1024,))
+    wide_w = wide_net.kernel_weights()
+    wide_obs, wide_rows = obs[:256].contiguous(), packed_rows(wide_net, 4096, seed=307)
+
+    def count(fn, own: str) -> dict:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return {"own": sum(c for k, c in counts if own in k), "other": sum(c for k, c in counts if own not in k)}
+
+    out = {"k4g": count(lambda: cuda_policy.policy_value_forward(obs, w), "resident_kernel"),
+           "k3g": count(lambda: cuda_sgd.logp_forward(rows, pi_leaves(net), 21, vf_sizes=GENERAL_TRUNK),
+                        "resident_kernel"),
+           "k4g_per_layer": count(lambda: cuda_policy.policy_value_forward(wide_obs, wide_w), "GemmArgs"),
+           "k3g_per_layer": count(lambda: cuda_sgd.logp_forward(wide_rows, pi_leaves(wide_net), 21,
+                                                                vf_sizes=(1024,)), "GemmArgs")}
+    check(out["k4g"] == {"own": 1, "other": 0}, f"resident K4g: CUDA kernels a call {out['k4g']}")
+    check(out["k3g"]["own"] == 1, f"resident K3g: CUDA kernels a call {out['k3g']}")
+    check(cuda_general.forward_route(wide_w) == "per_layer" and out["k4g_per_layer"] == {"own": 4, "other": 0},
+          f"per-layer K4g: CUDA kernels a call {out['k4g_per_layer']}")
+    check(out["k3g_per_layer"]["own"] == 2, f"per-layer K3g: CUDA kernels a call {out['k3g_per_layer']}")
+    return out
 
 
 def launch_records() -> dict:
@@ -3857,19 +3927,24 @@ def traj_train(seed: int, card: str) -> dict:
 
 def other_trunks(seed: int, card: str) -> dict:
     """The fused PPO path on the mesh curves' (32, 32) and on (128,) (the
-    narrow family's) and on (256,) (the general family's), 256 r4 slow envs
-    x 16 steps, 2 epochs x 4 minibatches."""
+    narrow family's), on (256,) (the general family's resident route) and
+    on (1024,) (its per-layer route), 256 r4 slow envs x 16 steps, 2 epochs
+    x 4 minibatches."""
     from pyflyt_tpu_torch.rl import PPO
 
+    names = {"narrow": ("narrow_policy_value_forward", "narrow_logp_forward", "fused_epoch_narrow"),
+             "resident": ("general_resident_forward", "general_resident_logp", "fused_epoch_general"),
+             "per_layer": ("general_policy_value_forward", "general_logp_forward", "fused_epoch_general")}
     out = {}
-    for sizes, prefix in (((32, 32), "narrow_"), ((128,), "narrow_"), ((256,), "general_")):
+    for sizes, kind in (((32, 32), "narrow"), ((128,), "narrow"), ((256,), "resident"), ((1024,), "per_layer")):
         cfg = traj_r4_config(num_envs=256, rollout_steps=16, num_epochs=2, num_minibatches=4, pi_sizes=sizes,
                              vf_sizes=sizes, fused_rollout_forward=True, fused_sgd=True)
-        epoch = "fused_epoch_narrow" if prefix == "narrow_" else "fused_epoch_general"
-        res, _ = timed_iterations(PPO(traj_slow_env(), cfg), {f"{prefix}policy_value_forward": cfg.rollout_steps,
-                                                             f"{prefix}logp_forward": 1, epoch: 2},
-                                  f"trunk {sizes}", seed, card)
+        fwd, logp, epoch = names[kind]
+        res, runner = timed_iterations(PPO(traj_slow_env(), cfg), {fwd: cfg.rollout_steps, logp: 1, epoch: 2},
+                                       f"trunk {sizes}", seed, card)
         out[str(sizes)] = {k: res[k] for k in ("wall_s", "samples_per_s", "launches_per_iteration")}
+        out[str(sizes)]["shapes"] = {"obs_dim": runner.network.obs_dim, "act_dim": runner.network.action_dim,
+                                     "sizes": sizes, "forward_rows": cfg.num_envs, "logp_rows": cfg.batch_size}
     return out
 
 
@@ -4243,6 +4318,8 @@ GENERAL_TRUNK = (256, 256, 256)  # the hovering CLI's --num_of_layers 3 --layer_
 GENERAL_PAIRS = (((), ()), ((48,) * 6, (48,) * 6), ((160, 72), (160, 72)), ((256, 256), (32, 32)),
                  ((256,), (256,)), (GENERAL_TRUNK, GENERAL_TRUNK), ((512, 512), (512, 512)),
                  ((256, 256, 64), (256, 256, 64)))
+# the grid's pairs: those and one past the resident route's envelope (the per-layer route)
+GENERAL_GRID_PAIRS = GENERAL_PAIRS + (((1024,), (1024,)),)
 GENERAL_WIDTHS = ((21, 4), (72, 10))
 # K2g's first moment against the twin's, of each leaf's largest (K2 and K2n
 # are held at EPOCH_MU_REL at 2 x 256 and narrow trunks): about twice what
@@ -4348,32 +4425,85 @@ def general_net(seed: int, obs: int, act: int, pi, vf, **kw):
                        generator=torch.Generator().manual_seed(seed), **kw)
 
 
+def per_layer_images(net):
+    """The per-layer route's f32 vectors (``cuda_general.pack_trunk``) of
+    ``net``'s actor and critic."""
+    from pyflyt_tpu_torch.ops import cuda_general
+
+    def one(trunk, head):
+        return cuda_general.pack_trunk([lin.weight.detach().T for lin in trunk.layers],
+                                       [lin.bias.detach() for lin in trunk.layers], head.weight.detach().T,
+                                       head.bias.detach())
+
+    return one(net.pi_trunk, net.pi_head), one(net.vf_trunk, net.vf_head)
+
+
+def check_routes_equal(net, n: int) -> bool:
+    """K4g's and K3g's resident route against the per-layer route on the
+    same inputs: the mean, value and log-probs equal bit for bit (both run
+    each output's k16 steps in order on the same mma.sync fragments)."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_policy
+
+    w = net.kernel_weights()
+    g = torch.Generator().manual_seed(7 + n)
+    obs = torch.randn((n, net.obs_dim), generator=g).cuda()
+    rows = packed_rows(net, n, seed=11 + n)
+    mp, vp = cuda_general.forward_per_layer(obs, w, *per_layer_images(net))
+    lp = cuda_general.logp_per_layer(rows, pi_leaves(net), net.obs_dim, (-1.0, -0.2))
+    mr, vr = cuda_policy.policy_value_forward(obs, w)
+    lr = cuda_general.logp(rows, pi_leaves(net), net.obs_dim, (-1.0, -0.2))
+    torch.cuda.synchronize()
+    return bool(torch.equal(mr, mp) and torch.equal(vr, vp) and torch.equal(lr, lp))
+
+
 def check_general_grid(seed: int) -> dict:
     """K4g over every trunk pair x (obs, act) x rows of the grid at
     ``policy_atol``, and K3g (the pair's family) at the same rows, with and
-    without a log_std range, at ``logp_atol``; each launch counted."""
+    without a log_std range, at ``logp_atol``; each launch counted on the
+    route of the pair's widths (the resident one but past its envelope),
+    each error counted on the route that gave it. Where both trunks take
+    the resident route, it is also held bit for bit against the per-layer
+    route at 1000 and 8192 rows."""
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy
 
-    worst = {"mean": 0.0, "value": 0.0, "logp": 0.0}
-    fwd0, logp0 = cuda_general.FORWARD_KERNEL.launches, cuda_general.LOGP_KERNEL.launches
-    cases = 0
-    for k, (pi, vf) in enumerate(GENERAL_PAIRS):
+    routes = {"general_resident_forward": cuda_general.RESIDENT_FORWARD_KERNEL,
+              "general_policy_value_forward": cuda_general.FORWARD_KERNEL,
+              "general_resident_logp": cuda_general.RESIDENT_LOGP_KERNEL,
+              "general_logp_forward": cuda_general.LOGP_KERNEL}
+    worst = {route: {"mean": 0.0, "value": 0.0, "logp": 0.0} for route in ("resident", "per_layer")}
+    start = {k: v.launches for k, v in routes.items()}
+    want = dict.fromkeys(routes, 0)
+    cases, equal = 0, []
+    for k, (pi, vf) in enumerate(GENERAL_GRID_PAIRS):
         for o, a in GENERAL_WIDTHS:
             net = general_net(seed + 31 * k + o + a, o, a, pi, vf)
-            check(cuda_policy._kernel_family(net.kernel_weights()) == "general", f"general grid: {pi} {vf} family")
+            w = net.kernel_weights()
+            check(cuda_policy._kernel_family(w) == "general", f"general grid: {pi} {vf} family")
+            fwd = cuda_general.forward_route(w)
+            lp = cuda_general.logp_route(o, a, pi)
             atol = policy_atol(net)
             for n in GENERAL_ROWS:
                 e_m, e_v = check_policy(net, n, atol)
-                worst["mean"], worst["value"] = max(worst["mean"], e_m), max(worst["value"], e_v)
-                worst["logp"] = max(worst["logp"], check_logp(net, n, atol=logp_atol))
+                worst[fwd]["mean"], worst[fwd]["value"] = max(worst[fwd]["mean"], e_m), max(worst[fwd]["value"], e_v)
+                worst[lp]["logp"] = max(worst[lp]["logp"], check_logp(net, n, atol=logp_atol))
+                want["general_resident_forward" if fwd == "resident" else "general_policy_value_forward"] += 1
+                want["general_resident_logp" if lp == "resident" else "general_logp_forward"] += 2
                 cases += 1
-    launches = {"general_policy_value_forward": cuda_general.FORWARD_KERNEL.launches - fwd0,
-                "general_logp_forward": cuda_general.LOGP_KERNEL.launches - logp0}
-    check(launches == {"general_policy_value_forward": cases, "general_logp_forward": 2 * cases},
-          f"general grid: launches {launches} for {cases} cases")
-    return {"cases": cases, "pairs": GENERAL_PAIRS, "widths": GENERAL_WIDTHS, "rows": GENERAL_ROWS,
-            "max_mean_err": worst["mean"], "max_value_err": worst["value"], "max_logp_err": worst["logp"],
-            "launches": launches}
+            if fwd == lp == "resident":
+                for n in (N_RAGGED, N_ENVS):
+                    same = check_routes_equal(net, n)
+                    check(same, f"general grid: {pi} {vf} obs {o} act {a} n={n}: resident != per-layer route")
+                    equal.append(same)
+                    for name in routes:
+                        want[name] += 1
+    launches = {k: v.launches - start[k] for k, v in routes.items()}
+    check(launches == want, f"general grid: launches {launches}, expected {want}")
+    check(want["general_policy_value_forward"] > 0 and want["general_resident_forward"] > 0,
+          "general grid: both routes")
+    return {"cases": cases, "pairs": GENERAL_GRID_PAIRS, "widths": GENERAL_WIDTHS, "rows": GENERAL_ROWS,
+            **{f"max_{k}_err": max(v[k] for v in worst.values()) for k in ("mean", "value", "logp")},
+            "by_route": worst, "launches": launches, "routes_bit_equal_cases": len(equal)}
 
 
 def check_general_consistency(net, n_mb: int, mb: int) -> dict:
@@ -4479,7 +4609,7 @@ def hover7_serving(seed: int, card: str):
     wall = time.perf_counter() - t0
     launches = read_launches()
     want = {**dict.fromkeys(launches, 0), "quadx_hover_step": HOVER7_ROLLOUT_STEPS,
-            "general_policy_value_forward": HOVER7_ROLLOUT_STEPS}
+            "general_resident_forward": HOVER7_ROLLOUT_STEPS}
     check(launches == want, f"mode-7 hover serving launches {launches}, expected {want}")
     check(ars.env_state.packed.shape == (cq.ROWS_MODE7, N_ENVS), "mode-7 hover serving: state rows")
     check(obs.shape == (N_ENVS, env.obs_size) and bool(torch.isfinite(obs).all()), "mode-7 hover serving: obs")
@@ -4508,8 +4638,8 @@ def hover7_train(seed: int, card: str) -> tuple[dict, object, object]:
                     feature_sizes=GENERAL_TRUNK)
     tp = PPO(hover7_env(), cfg)
     general, runner = timed_iterations(tp, {"quadx_hover_step": cfg.rollout_steps,
-                                            "general_policy_value_forward": cfg.rollout_steps,
-                                            "general_logp_forward": 1, "fused_epoch_general": cfg.num_epochs},
+                                            "general_resident_forward": cfg.rollout_steps,
+                                            "general_resident_logp": 1, "fused_epoch_general": cfg.num_epochs},
                                        "mode-7 hover at 3 x 256", seed, card)
     wide_cfg = PPOConfig(num_envs=N_ENVS, cached_reset_refresh=64, fused_sgd=True, fused_rollout_forward=True)
     wide, _ = timed_iterations(PPO(hover7_env(), wide_cfg), {"quadx_hover_step": cfg.rollout_steps,
@@ -4519,18 +4649,101 @@ def hover7_train(seed: int, card: str) -> tuple[dict, object, object]:
     return {"general_3x256": general, "wide_2x256": wide}, tp, runner
 
 
-def time_general_kernels(tp, runner, obs, packed7) -> dict:
+def time_in_turns(calls: dict) -> dict:
+    """``time_ms`` of each ``{name: (fn, iters)}`` in turns: in that order,
+    then reversed; per name both rounds and their mean."""
+    rounds = {name: [] for name in calls}
+    for order in (list(calls), list(reversed(list(calls)))):
+        for name in order:
+            fn, iters = calls[name]
+            rounds[name].append(time_ms(fn, iters=iters))
+    return {name: {"ms_rounds": [r[0] for r in v], "ms": statistics.mean(r[0] for r in v),
+                   "host_ms": statistics.mean(r[1] for r in v)} for name, v in rounds.items()}
+
+
+def resident_ptxas() -> dict:
+    """Registers, stack frame and spills of each resident instantiation
+    (K4g or K3g x tile 128/64) from policy_general.cu's ``-Xptxas -v``
+    report."""
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    text = cuda_build.library_path("policy_general.cu").with_suffix(".log").read_text()
+    out = {}
+    for m in re.finditer(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers", text):
+        t = re.search(r"resident_kernelILi(\d+)ELb([01])E", m.group(1))
+        if t:
+            out[f"{'k3g' if t.group(2) == '1' else 'k4g'}_tile{t.group(1)}"] = {
+                "registers": int(m.group(5)), "stack_frame_bytes": int(m.group(2)),
+                "spill_store_bytes": int(m.group(3)), "spill_load_bytes": int(m.group(4))}
+    check(len(out) == 4, f"resident ptxas report: {sorted(out)}")
+    return out
+
+
+def roofline(b: float, f: float, rate: float = H100_BF16_FLOPS) -> tuple[float, str]:
+    """The bound of moving ``b`` bytes and doing ``f`` operations at
+    ``rate``: (ms, what bounds it)."""
+    return (1e3 * max(b / H100_BYTES_PER_S, f / rate),
+            "bytes" if b / H100_BYTES_PER_S >= f / rate else "operations")
+
+
+def tensor_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def time_per_layer_route(shapes: dict) -> dict:
+    """K4g's and K3g's per-layer route where the main path runs it:
+    ``other_trunks``' (1024,) iteration (``shapes``: its network's widths,
+    here with random weights from a seed), K4g over a rollout step's rows
+    and K3g over the iteration's batch; each route call and its library
+    call in turns, the twin, and the bound at those shapes."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_policy, cuda_sgd
+
+    o, a, sizes = shapes["obs_dim"], shapes["act_dim"], tuple(shapes["sizes"])
+    net = general_net(41, o, a, sizes, sizes)
+    w = net.kernel_weights()
+    check(cuda_general.forward_route(w) == "per_layer" and cuda_general.logp_route(o, a, sizes) == "per_layer",
+          f"trunk {sizes}: not the per-layer route")
+    obs = torch.randn((shapes["forward_rows"], o), generator=torch.Generator().manual_seed(43)).cuda()
+    k4 = time_in_turns({"per_layer": (lambda: cuda_policy.policy_value_forward(obs, w), 60),
+                        "library": (library_forward(net, obs), 20)})
+    plain, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs, w), iters=20, device_timed=False)
+    b_ms, by = policy_bound(w, obs)
+    out = {"general_policy_value_forward": {
+        "ms": k4["per_layer"]["ms"], "host_ms": k4["per_layer"]["host_ms"], "plain_ms": plain,
+        "library_ms": k4["library"]["ms"], "bound_ms": b_ms, "bound_by": by, "rows": obs.shape[0], "obs_dim": o,
+        "sizes": sizes, "turns": k4}}
+    batch = shapes["logp_rows"]
+    rows = packed_rows(net, batch, seed=306)
+    pl_ = pi_leaves(net)
+    k3 = time_in_turns({"per_layer": (lambda: cuda_sgd.logp_forward(rows, pl_, o, vf_sizes=sizes), 20),
+                        "library": (library_logp(net, rows), 20)})
+    plain, _ = time_ms(lambda: cuda_sgd.logp_forward_plain(rows, pl_, o), iters=3, repeats=3, device_timed=False)
+    b_ms, by = roofline(tensor_bytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a, sizes=sizes))
+    out["general_logp_forward"] = {
+        "ms": k3["per_layer"]["ms"], "host_ms": k3["per_layer"]["host_ms"], "plain_ms": plain,
+        "library_ms": k3["library"]["ms"], "bound_ms": b_ms, "bound_by": by, "rows": batch, "obs_dim": o,
+        "sizes": sizes, "turns": k3}
+    return out
+
+
+def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict) -> dict:
     """Row 1 in mode 7 on the serving rollout's state, and K4g, K3g and
     K2g at the slice's shapes (the trained 3 x 256 network; 8192 rows; the
     262,144-row batch; one epoch of 32 minibatches of 8192): device time,
-    host time, the plain twin, the library call and the bound."""
+    host time, the plain twin, the library call and the bound; K4g and K3g
+    on the resident route, the per-layer route forced at the same shapes
+    and the library call in turns (K3g also its kernel and its image build
+    alone), and the resident kernels' ptxas; then the per-layer route at
+    ``per_layer_shapes`` (``time_per_layer_route``)."""
     import torch
-    from pyflyt_tpu_torch.ops import cuda_sgd
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_policy, cuda_sgd
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
 
-    bound = lambda b, f, rate=H100_BF16_FLOPS: (1e3 * max(b / H100_BYTES_PER_S, f / rate),  # noqa: E731
-                                               "bytes" if b / H100_BYTES_PER_S >= f / rate else "operations")
-    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    bound, nbytes = roofline, tensor_bytes
     out = {}
     seed = torch.tensor([5], dtype=torch.int64, device="cuda")
     c7 = hover7_env().consts
@@ -4546,20 +4759,47 @@ def time_general_kernels(tp, runner, obs, packed7) -> dict:
     net = runner.network
     o, a = net.obs_dim, net.action_dim
     pi, vf = trunk_sizes(net.pi_trunk), trunk_sizes(net.vf_trunk)
-    # ~8 launches a K4g call, ~16 a library chain: both stay under the ~1000 a stream holds
-    out["general_policy_value_forward"] = time_policy_forward(net, obs, lib_iters=20, iters=60)
+    w = net.kernel_weights()
+    obs = obs.contiguous()
+    images = per_layer_images(net)
+    check(cuda_general.forward_route(w) == "resident", "K4g at the slice's trunk: the resident route")
+    # K4g on each route (a resident call 1 launch, a per-layer one 8, the library chain ~16: every turn stays
+    # under the ~1000 a stream holds), in turns
+    k4 = time_in_turns({
+        "resident": (lambda: cuda_policy.policy_value_forward(obs, w), 60),
+        "per_layer": (lambda: cuda_general.forward_per_layer(obs, w, *images), 60),
+        "library": (library_forward(net, obs), 20)})
+    plain, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs, w), iters=20, device_timed=False)
+    b_ms, by = policy_bound(w, obs)
+    common = {"plain_ms": plain, "library_ms": k4["library"]["ms"], "bound_ms": b_ms, "bound_by": by,
+              "rows": obs.shape[0], "obs_dim": o}
+    out["general_resident_forward"] = {"ms": k4["resident"]["ms"], "host_ms": k4["resident"]["host_ms"], **common,
+                                       "per_layer_ms": k4["per_layer"]["ms"], "turns": k4}
 
     cfg = tp.config
     batch = cfg.batch_size
     rows = packed_rows(net, batch, seed=303)
     pl_ = pi_leaves(net)
-    run3 = lambda: cuda_sgd.logp_forward(rows, pl_, o, vf_sizes=vf)  # noqa: E731
-    ms, host = time_ms(run3, iters=20)
+    n_pi = len(pi)
+    lay = cuda_general.resident_layout(o, pi, a)
+    pack = lambda: cuda_general.pack_resident(pl_[: 2 * n_pi : 2], pl_[1 : 2 * n_pi : 2], pl_[2 * n_pi],  # noqa: E731
+                                              pl_[2 * n_pi + 1])
+    image = pack()
+    kernel = lambda: cuda_general.launch_resident_logp(rows, image, lay, pl_[-1], o)  # noqa: E731
+    check(cuda_general.logp_route(o, a, pi) == "resident", "K3g at the slice's trunk: the resident route")
+    k3 = time_in_turns({
+        "resident": (lambda: cuda_sgd.logp_forward(rows, pl_, o, vf_sizes=vf), 20),
+        "per_layer": (lambda: cuda_general.logp_per_layer(rows, pl_, o), 20),
+        "library": (library_logp(net, rows), 20),
+        "kernel": (kernel, 20), "pack": (pack, 20)})
     plain, _ = time_ms(lambda: cuda_sgd.logp_forward_plain(rows, pl_, o), iters=3, repeats=3, device_timed=False)
-    lib, _ = time_ms(library_logp(net, rows), iters=20)
     b_ms, by = bound(nbytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a, sizes=pi))
-    out["general_logp_forward"] = {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib,
-                                   "bound_ms": b_ms, "bound_by": by, "rows": batch}
+    common = {"plain_ms": plain, "library_ms": k3["library"]["ms"], "bound_ms": b_ms, "bound_by": by, "rows": batch}
+    out["general_resident_logp"] = {"ms": k3["resident"]["ms"], "host_ms": k3["resident"]["host_ms"], **common,
+                                    "kernel_ms": k3["kernel"]["ms"], "pack_ms": k3["pack"]["ms"],
+                                    "per_layer_ms": k3["per_layer"]["ms"], "turns": k3}
+    out["resident_ptxas"] = resident_ptxas()
+    out.update(time_per_layer_route(per_layer_shapes))
 
     mbs = packed_rows(net, batch, seed=304).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
     stats = adv_stats(mbs[:, :, o + a + 1])
@@ -5150,7 +5390,8 @@ def main(argv=None) -> int:
     results["hover7_train"], h7_tp, h7_runner = hover7_train(args.seed, card)
     print(json.dumps({"hover7_train": results["hover7_train"]}), flush=True)
     # 56. row 1 in mode 7, K4g, K3g and K2g against their bounds at the slice's shapes
-    gt = time_general_kernels(h7_tp, h7_runner, h7_obs, h7_ars.env_state.packed.contiguous())
+    gt = time_general_kernels(h7_tp, h7_runner, h7_obs, h7_ars.env_state.packed.contiguous(),
+                              results["traj_train"]["other_trunks"]["(1024,)"]["shapes"])
     results["general_kernel_times"] = gt
     print(json.dumps({"general_kernel_times": gt, "card": card}), flush=True)
     # 57. K3g and K2g at the training path's own shapes, on its trained 3 x 256 network: K3g against its twin
@@ -5174,13 +5415,33 @@ def main(argv=None) -> int:
         "max_abs_err": err_h7, "launches": serving["quadx_hover_step"], "launch": records["quadx_hover_step_mode7"],
         "main_path": f"hover7_serving, {HOVER7_ROLLOUT_STEPS} steps x {N_ENVS} envs"}
     gg, ge = results["general_grid"], results["general_epochs"]
+    wide_trunk = results["traj_train"]["other_trunks"]["(1024,)"]["launches_per_iteration"]
+    rptx = gt["resident_ptxas"]
     for name, src, line, launches_, err, extra in (
+        ("general_resident_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_policy.py:35",
+         serving["general_resident_forward"],
+         max(gg["by_route"]["resident"]["mean"], gg["by_route"]["resident"]["value"]),
+         {"main_path": f"hover7_serving, {HOVER7_ROLLOUT_STEPS} steps x {N_ENVS} envs, obs 21, 3 x 256",
+          "per_layer_ms": gt["general_resident_forward"]["per_layer_ms"],
+          "kernels_per_call": records["general_resident"]["k4g"],
+          "resident_ptxas": {k: v for k, v in rptx.items() if k.startswith("k4g")}}),
+        ("general_resident_logp", "policy_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:173",
+         training["general_resident_logp"], max(gg["by_route"]["resident"]["logp"], gm["k3g_logp_err_rows_262144"]),
+         {"main_path": f"hover7_train general_3x256, {gt['general_resident_logp']['rows']} rows",
+          **{f: gt["general_resident_logp"][f] for f in ("kernel_ms", "pack_ms", "per_layer_ms")},
+          "kernels_per_call": records["general_resident"]["k3g"],
+          "resident_ptxas": {k: v for k, v in rptx.items() if k.startswith("k3g")}}),
         ("general_policy_value_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_policy.py:35",
-         serving["general_policy_value_forward"], max(gg["max_mean_err"], gg["max_value_err"]),
-         {"main_path": f"hover7_serving, {HOVER7_ROLLOUT_STEPS} steps x {N_ENVS} envs, obs 21, 3 x 256"}),
+         wide_trunk["general_policy_value_forward"],
+         max(gg["by_route"]["per_layer"]["mean"], gg["by_route"]["per_layer"]["value"]),
+         {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
+                       f"{gt['general_policy_value_forward']['rows']} rows a step",
+          "kernels_per_call": records["general_resident"]["k4g_per_layer"]}),
         ("general_logp_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:173",
-         training["general_logp_forward"], max(gg["max_logp_err"], gm["k3g_logp_err_rows_262144"]),
-         {"main_path": f"hover7_train general_3x256, {gt['general_logp_forward']['rows']} rows"}),
+         wide_trunk["general_logp_forward"], gg["by_route"]["per_layer"]["logp"],
+         {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
+                       f"{gt['general_logp_forward']['rows']} rows an iteration",
+          "kernels_per_call": records["general_resident"]["k3g_per_layer"]}),
         ("fused_epoch_general", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
          training["fused_epoch_general"], max(ge["max_abs_err"], gm["k2g_epoch_2x8192"]["max_abs_err"]),
          {"main_path": "hover7_train general_3x256, 32 x 8192 rows an epoch",
@@ -5194,6 +5455,7 @@ def main(argv=None) -> int:
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, "host_ms": t["host_ms"],
             "ptxas": ptxas_usage(src), **extra,
         })
+        check(launches_ > 0, f"{name}: not launched on its main path")
     for k in kernels:
         k["launches_per_hover7_serving"] = serving[k["name"]]
         k["launches_per_hover7_train_iteration"] = training[k["name"]]
@@ -5229,12 +5491,22 @@ def time_policy_forward(net, obs, lib_iters: int = 50, iters: int = 200) -> dict
     ms, host = time_ms(lambda: cuda_policy.policy_value_forward(obs, w), iters=iters)
     plain, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs, w), iters=20, device_timed=False)
     lib, _ = time_ms(library_forward(net, obs), iters=lib_iters)  # 11 launches a call at 2 x 256
+    b_ms, by = policy_bound(w, obs)
+    return {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+            "rows": n, "obs_dim": obs.shape[1]}
+
+
+def policy_bound(w, obs) -> tuple[float, str]:
+    """The forward's bound on ``obs``: bf16 matmul operations against the
+    obs, the weights (bf16 matrices, f32 biases) and the outputs."""
+    from pyflyt_tpu_torch.ops import cuda_policy
+
+    n = obs.shape[0]
     w_bytes = sum(t.numel() * t.element_size() for t in (
         *w.pi_w, *w.pi_b, w.pi_head_w, w.pi_head_b, *w.vf_w, *w.vf_b, w.vf_head_w, w.vf_head_b))
     t_bytes = (obs.numel() * 4 + w_bytes + n * (w.act_dim + 1) * 4) / H100_BYTES_PER_S
     t_ops = cuda_policy.forward_flops(n, w) / H100_BF16_FLOPS
-    return {"ms": ms, "host_ms": host, "plain_ms": plain, "library_ms": lib, "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "rows": n, "obs_dim": obs.shape[1]}
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def library_forward(net, obs):

@@ -11,19 +11,29 @@
 //
 // What bounds it on an H100: at 8192 rows of obs 21 through two 3 x 256
 // trunks the forward is about 4.5 GFLOP of bf16 MMA (4.5 us at 989
-// TFLOP/s) against 1.9 MB of obs, f32 weights and outputs (0.6 us at 3.35
-// TB/s), so operations bound it; but each layer is a launch of
-// policy_general.cuh's GEMM, which writes its f32 activations to device
-// memory and reads them back for the next layer, so launches and that
-// traffic set the time.
+// TFLOP/s) against 1.9 MB of obs, weights and outputs (0.6 us at 3.35
+// TB/s); K3g over 262,144 rows of the actor about 72 GFLOP (0.073 ms)
+// against 29 MB (0.009 ms): operations bound both.
 //
-// Design: one GEMM launch a layer a trunk (policy_general.cuh), the tanh
-// layers' outputs in a workspace the wrapper sizes per call (two row
-// buffers of the widest layer, in turn), the heads written straight into
-// the outputs; K3g then one thread a row for the log-prob
-// (general::row_logp), so its actor forward is K2g's
-// (fused_epoch_general.cu), the same GEMM launches, bit for bit.
+// Two routes, chosen by the wrapper from the widths
+// (ops/cuda_general.py::resident_tile):
+//  - resident (general_resident_forward, general_resident_logp;
+//    policy_resident.cuh): one launch a call. A block takes a tile of rows
+//    of one trunk through every layer, the activations bf16 in shared
+//    memory, the weights a bf16 image streamed by bulk copies through a
+//    ring, K3g's log-prob in the same kernel. Every trunk whose widest
+//    width fits a block's shared memory takes it;
+//  - per layer (general_policy_value_forward, general_logp_forward), for
+//    wider or deeper trunks: one launch of policy_general.cuh's GEMM a
+//    layer a trunk on f32 weights, the tanh layers' outputs in a workspace
+//    the wrapper sizes per call (two row buffers of the widest layer, in
+//    turn), the heads written straight into the outputs; K3g then one
+//    thread a row for the log-prob (general::row_logp).
+// Both routes run each output's k16 steps in order from 0 on the same
+// mma.sync fragments as K2g's forward (fused_epoch_general.cu), so K3g's
+// log-probs are K2g's forward bit for bit on either.
 #include "policy_general.cuh"
+#include "policy_resident.cuh"
 
 // Must match ops/cuda_general.py::_ForwardArgsC.
 struct GeneralForwardArgs {
@@ -86,9 +96,10 @@ __global__ void __launch_bounds__(LOGP_THREADS) logp_kernel(const __grid_constan
 
 }  // namespace
 
-// K4g: the actor's trunk and head, then the critic's, one GEMM launch a
-// layer on `stream`. Returns the first CUDA error of a launch (0 = every
-// kernel launched), or cudaErrorInvalidValue outside the layouts.
+// K4g's per-layer route: the actor's trunk and head, then the critic's,
+// one GEMM launch a layer on `stream`. Returns the first CUDA error of a
+// launch (0 = every kernel launched), or cudaErrorInvalidValue outside the
+// layouts.
 extern "C" int general_policy_value_forward(const GeneralForwardArgs* args, void* stream) {
   const GeneralForwardArgs& p = *args;
   if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.pi_floats) ||
@@ -101,8 +112,8 @@ extern "C" int general_policy_value_forward(const GeneralForwardArgs* args, void
   return static_cast<int>(e);
 }
 
-// K3g: the actor's forward on the rows' obs columns, then one thread a row
-// for the log-prob of its stored action.
+// K3g's per-layer route: the actor's forward on the rows' obs columns,
+// then one thread a row for the log-prob of its stored action.
 extern "C" int general_logp_forward(const GeneralLogpArgs* args, void* stream) {
   const GeneralLogpArgs& p = *args;
   if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.obs_dim + p.act_dim > p.feat ||
@@ -113,4 +124,40 @@ extern "C" int general_logp_forward(const GeneralLogpArgs* args, void* stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   logp_kernel<<<(p.n + LOGP_THREADS - 1) / LOGP_THREADS, LOGP_THREADS, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// Whether the wrapper's resident launch is one the kernel takes: K4g the
+// actor (act_dim outputs) and the critic (1), K3g the actor on rows of ld
+// >= obs_dim + act_dim floats; the tile and shared memory in range.
+bool resident_ok(const ResidentArgs& p, bool logp) {
+  const int trunks = logp ? 1 : 2;
+  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.x == nullptr || (p.tile != 128 && p.tile != 64) ||
+      p.width <= 0 || p.width % resident::KC != 0 ||
+      resident::smem_bytes(p.tile, p.width, p.act_dim, logp) > resident::SMEM_LIMIT ||
+      p.ld < (logp ? p.obs_dim + p.act_dim : p.obs_dim) || (logp && p.log_std == nullptr))
+    return false;
+  for (int t = 0; t < trunks; ++t) {
+    if (p.image[t] == nullptr || p.out[t] == nullptr || (reinterpret_cast<uintptr_t>(p.image[t]) & 15) != 0 ||
+        !resident::trunk_ok(p.trunk[t], p.obs_dim, t == 0 ? p.act_dim : 1, p.width))
+      return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+// K4g's resident route: both trunks in one launch (blockIdx.y), each block
+// a tile of rows through every layer. Returns the launch's CUDA error (0 =
+// launched), or cudaErrorInvalidValue outside the layouts.
+extern "C" int general_resident_forward(const ResidentArgs* args, void* stream) {
+  if (!resident_ok(*args, false)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(resident::launch_any<false>(*args, static_cast<cudaStream_t>(stream)));
+}
+
+// K3g's resident route: the actor and the log-prob in one persistent launch.
+extern "C" int general_resident_logp(const ResidentArgs* args, void* stream) {
+  if (!resident_ok(*args, true)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(resident::launch_any<true>(*args, static_cast<cudaStream_t>(stream)));
 }

@@ -14,15 +14,29 @@ loss, clip and Adam in f32. The twins are the family-agnostic ones:
 ``cuda_policy.policy_value_forward_plain``, ``cuda_sgd.logp_forward_plain``
 and ``cuda_sgd.fused_epoch_plain`` take any trunk.
 
-Each layer of each trunk is one launch of ``csrc/policy_general.cuh``'s
-GEMM on f32 weights in device memory: a trunk reaches K4g as one flat f32
-vector (``pack_trunk``: ``W_0 (in, out)`` row-major, ``b_0``, ..., the head
-last, each at a multiple of 4 floats), K3g as the actor's leaves packed the
-same way on each call, K2g as its flat parameter vector
-(``cuda_sgd.flat_layout`` of ``leaf_specs``), which its Adam updates in
-place. Activations go through a device workspace the wrappers size per
-call from the shapes. K3g runs the same GEMM launches as K2g's actor
-forward, so a row's log-prob from K3g equals K2g's bit for bit.
+K4g and K3g have two routes, chosen from the widths (``resident_tile``):
+
+- resident (``csrc/policy_resident.cuh``): one launch a call, every layer
+  of a trunk over a tile of rows with the activations in shared memory
+  and the weights streamed from a bf16 image (``pack_resident``; K4g's is
+  built once with the ``PolicyWeights``, K3g's from the actor's leaves on
+  each call). It takes every trunk of at most ``RES_MAX_LAYERS`` layers
+  (the head included) whose widest input width, padded to ``RES_KC``,
+  fits a block's shared memory (``resident_smem``) beside the weight ring
+  and, for K3g, the staged means: 128 rows a block where that fits, else
+  64. At 4 actions that is a width of 288 at 128 rows and 608 at 64;
+- per layer (``csrc/policy_general.cuh``'s GEMM, one launch a layer a
+  trunk on f32 weights in device memory): every wider or deeper trunk.
+  A trunk reaches K4g as one flat f32 vector (``pack_trunk``: ``W_0 (in,
+  out)`` row-major, ``b_0``, ..., the head last, each at a multiple of 4
+  floats), K3g as the actor's leaves packed the same way on each call.
+  Activations go through a device workspace the wrapper sizes per call.
+
+K2g takes its flat parameter vector (``cuda_sgd.flat_layout`` of
+``leaf_specs``), which its Adam updates in place, and runs the per-layer
+GEMM. Both K3g routes run each output's k16 steps in order on the same
+fragments as K2g's forward, so a row's log-prob from K3g equals K2g's bit
+for bit. Each route has its own launch counter.
 
 The wrappers launch their kernel for CUDA tensors only; ``cuda_policy``
 and ``cuda_sgd`` call them after their CPU branch, where the plain twins
@@ -90,8 +104,8 @@ def _layout(obs_dim: int, sizes: tuple, outs: int) -> tuple[Trunk, int]:
 def pack_trunk(weights, biases, head_w: Tensor, head_b: Tensor) -> Tensor:
     """One trunk (flax layout: ``weights[i] (in, out)``, biases of any
     shape, ``head_w (in, outs)``) → its flat f32 vector as a uint8 tensor on
-    their device (K4g's image): the values as given, f32; the kernel rounds
-    the matrices to bf16 as it reads them."""
+    their device (the per-layer route's image): the values as given, f32;
+    the kernel rounds the matrices to bf16 as it reads them."""
     mats = [*weights, head_w]
     _, floats = layout(mats[0].shape[0], [w.shape[1] for w in weights], head_w.shape[1])
     leaves = [t for pair in zip(mats, [*biases, head_b]) for t in pair]
@@ -162,6 +176,236 @@ def _trunk_c(t: Trunk, w: tuple, b: tuple, out: tuple, keep: list) -> _TrunkC:
 
 
 # ---------------------------------------------------------------------------
+# The resident route's image and plan (csrc/policy_resident.cuh)
+# ---------------------------------------------------------------------------
+
+RES_NC = 256  # output units a chunk: a weight block's lines
+RES_KC = 32  # a block's depth; every width is padded to it
+RES_STAGES = 4  # weight blocks in flight
+RES_STAGE_BYTES = RES_NC * RES_KC * 2
+RES_WN = 64  # a warp's columns of a chunk; 16 warps a block at 128-row tiles
+RES_MAX_LAYERS = 16  # tanh layers and the head
+RES_ACT_PAD = 8  # bf16 past an activation row in shared memory
+RES_SMEM_LIMIT = 232_448  # the dynamic shared memory a block may opt into
+RES_TILES = (128, 64)  # rows a block, the first that fits
+
+
+def _pad(x: int) -> int:
+    return -(-int(x) // RES_KC) * RES_KC
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentLayout:
+    """One trunk's resident image: the real widths (the input, each tanh
+    layer's, the head's), each layer's padded input and output widths, and
+    the byte offsets of its first weight block and of its f32 bias."""
+
+    dims: tuple
+    k: tuple
+    n: tuple
+    w: tuple
+    b: tuple
+    bytes: int
+
+    @property
+    def layers(self) -> int:
+        return len(self.k)
+
+
+def resident_layout(obs_dim: int, sizes, outs: int) -> ResidentLayout:
+    """A trunk ``sizes`` on ``obs_dim`` inputs with a head of ``outs``
+    outputs as ``pack_resident`` lays it out: each layer's blocks from byte
+    ``w[l]`` (``2 k n`` bytes), in layer order, then the biases (``4 n``
+    bytes each)."""
+    return _resident_layout((int(obs_dim), *(int(s) for s in sizes), int(outs)))
+
+
+@functools.lru_cache(maxsize=64)
+def _resident_layout(dims: tuple) -> ResidentLayout:
+    k = tuple(_pad(d) for d in dims[:-1])
+    n = tuple(_pad(d) for d in dims[1:])
+    w, at = [], 0
+    for kl, nl in zip(k, n):
+        w.append(at)
+        at += 2 * kl * nl
+    b = []
+    for nl in n:
+        b.append(at)
+        at += 4 * nl
+    return ResidentLayout(dims, k, n, tuple(w), tuple(b), at)
+
+
+def swizzle(r, k):
+    """Byte offset of entry (line ``r``, input ``k`` < RES_KC) in a weight
+    block: 64 bytes a line, the 16-byte group ``k // 8`` at group ``(k //
+    8) ^ (r // 2) % 4``. Ints or integer tensors; csrc/policy_resident.cuh's
+    ``swizzle`` is the same formula."""
+    return r * RES_KC * 2 + ((((k >> 3) ^ (r >> 1)) & 3) << 4) + (k & 7) * 2
+
+
+def resident_offset(r, k, k_pad: int, n_pad: int):
+    """Byte offset of ``W^T`` entry (unit ``r``, input ``k``) from a layer's
+    first block (padded widths ``k_pad`` x ``n_pad``): chunk ``r // RES_NC``
+    after the chunks before it, its block ``k // RES_KC`` of ``min(RES_NC,
+    n_pad - chunk RES_NC)`` lines, the entry swizzled in it."""
+    c = r // RES_NC
+    rest = n_pad - c * RES_NC
+    lines = torch.clamp(rest, max=RES_NC) if isinstance(rest, Tensor) else min(rest, RES_NC)
+    return c * RES_NC * k_pad * 2 + (k // RES_KC) * lines * RES_KC * 2 + swizzle(r % RES_NC, k % RES_KC)
+
+
+def _matrix_slots(lay: ResidentLayout, l: int) -> Tensor:
+    """The bf16 slot of each entry of ``W_l (in, out)``, row-major."""
+    kk, rr = torch.meshgrid(torch.arange(lay.dims[l]), torch.arange(lay.dims[l + 1]), indexing="ij")
+    return ((lay.w[l] + resident_offset(rr, kk, lay.k[l], lay.n[l])) // 2).reshape(-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _resident_index(lay: ResidentLayout, device: str) -> Tensor:
+    """For each 16-bit word of the image, the word ``pack_resident`` copies
+    into it from ``[bf16(src) | src's f32 words | 0]``, where ``src`` is the
+    matrices ``W_l (in, out)`` row-major, then the biases, in layer order:
+    a matrix entry's bf16, a bias's two f32 halves, the zero word for the
+    padding."""
+    dims = lay.dims
+    n_mats = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    n_src = n_mats + sum(dims[1:])
+    g = torch.full((lay.bytes // 2,), 3 * n_src, dtype=torch.int64)
+    at = 0
+    for l in range(lay.layers):
+        size = dims[l] * dims[l + 1]
+        g[_matrix_slots(lay, l)] = at + torch.arange(size)
+        at += size
+    for l in range(lay.layers):
+        g[lay.b[l] // 2 : lay.b[l] // 2 + 2 * dims[l + 1]] = n_src + 2 * at + torch.arange(2 * dims[l + 1])
+        at += dims[l + 1]
+    return g.to(device)
+
+
+def pack_resident(weights, biases, head_w: Tensor, head_b: Tensor) -> Tensor:
+    """One trunk (``weights[i] (in, out)``, biases of any shape, ``head_w
+    (in, outs)``) → its resident image, a uint8 tensor on their device: the
+    matrices rounded to bf16 (nearest even, the values the per-layer GEMM
+    rounds them to as it reads them), the biases f32, the padding zero.
+    One gather (``_resident_index``)."""
+    mats = [*weights, head_w]
+    lay = resident_layout(mats[0].shape[0], [t.shape[1] for t in weights], head_w.shape[1])
+    src = torch.cat([t.detach().reshape(-1).float() for t in (*mats, *biases, head_b)])
+    words = torch.cat([src.to(torch.bfloat16).view(torch.int16), src.view(torch.int16),
+                       src.new_zeros(1, dtype=torch.int16)])
+    return words[_resident_index(lay, str(src.device))].view(torch.uint8)
+
+
+def unpack_resident(image: Tensor, lay: ResidentLayout) -> tuple[list[Tensor], list[Tensor]]:
+    """``pack_resident``'s inverse: the matrices bf16 ``(in, out)`` and the
+    biases f32 ``(out,)``, head last."""
+    half = image.view(torch.bfloat16)
+    mats = [half[_matrix_slots(lay, l).to(image.device)].reshape(lay.dims[l], lay.dims[l + 1])
+            for l in range(lay.layers)]
+    biases = [image[lay.b[l] : lay.b[l] + 4 * lay.dims[l + 1]].view(torch.float32).clone() for l in range(lay.layers)]
+    return mats, biases
+
+
+def resident_width(layouts) -> int:
+    """The activation buffers' width: the widest padded input of the trunks."""
+    return max(max(lay.k) for lay in layouts)
+
+
+def resident_smem(tile: int, width: int, act_dim: int, logp: bool = False) -> int:
+    """Dynamic shared memory of a resident launch (csrc's ``smem_bytes``):
+    the ring, two bf16 activation buffers of ``width`` + RES_ACT_PAD
+    columns, two f32 bias buffers (a layer's and the next one's) of the
+    widest padded output (``width`` or the head's), K3g's staged means
+    (``logp``, an odd stride) and the ring's full and empty barriers."""
+    bias = max(width, _pad(act_dim))
+    means = tile * (act_dim | 1) * 4 if logp else 0
+    return RES_STAGES * RES_STAGE_BYTES + 2 * tile * (width + RES_ACT_PAD) * 2 + 2 * bias * 4 + means + RES_STAGES * 16
+
+
+def resident_tile(layouts, act_dim: int, logp: bool = False) -> int | None:
+    """Rows a block of the resident route takes for trunks launched together
+    (K4g: actor and critic; K3g, ``logp``: the actor), or None for the
+    per-layer route: at most RES_MAX_LAYERS layers each, and the first of
+    RES_TILES whose ``resident_smem`` fits RES_SMEM_LIMIT."""
+    if any(lay.layers > RES_MAX_LAYERS or lay.bytes >= 2**31 for lay in layouts):
+        return None
+    width = resident_width(layouts)
+    return next((t for t in RES_TILES if resident_smem(t, width, act_dim, logp) <= RES_SMEM_LIMIT), None)
+
+
+def resident_layouts(w) -> tuple[ResidentLayout, ResidentLayout]:
+    """The (actor, critic) resident layouts of ``cuda_policy.PolicyWeights`` ``w``."""
+    return (resident_layout(w.obs_dim, [t.shape[1] for t in w.pi_w], w.act_dim),
+            resident_layout(w.obs_dim, [t.shape[1] for t in w.vf_w], 1))
+
+
+def forward_route(w) -> str:
+    """K4g's route for ``w``'s widths: ``"resident"`` or ``"per_layer"``."""
+    return "resident" if resident_tile(resident_layouts(w), w.act_dim) is not None else "per_layer"
+
+
+def trunk_images(w, leaves, n_pi: int) -> tuple[Tensor, Tensor]:
+    """K4g's (actor, critic) images for ``cuda_policy.prepare_weights``: the
+    resident route's bf16 images of ``w``'s weights, or the per-layer
+    route's f32 vectors of the ordered ``leaves`` as given."""
+    if forward_route(w) == "resident":
+        return (pack_resident(w.pi_w, w.pi_b, w.pi_head_w, w.pi_head_b),
+                pack_resident(w.vf_w, w.vf_b, w.vf_head_w, w.vf_head_b))
+    i_head, i_vf0 = 2 * n_pi, 2 * n_pi + 3
+    i_vf_head = i_vf0 + 2 * len(w.vf_w)
+    return (pack_trunk(leaves[:i_head:2], leaves[1:i_head:2], leaves[i_head], leaves[i_head + 1]),
+            pack_trunk(leaves[i_vf0:i_vf_head:2], leaves[i_vf0 + 1:i_vf_head:2], leaves[i_vf_head],
+                       leaves[i_vf_head + 1]))
+
+
+def image_sizes(w) -> list[tuple[int]]:
+    """The shapes of ``w``'s two images on K4g's route."""
+    if forward_route(w) == "resident":
+        return [(lay.bytes,) for lay in resident_layouts(w)]
+    return [(4 * floats,) for _, floats in weight_layouts(w)]
+
+
+class _ResidentTrunkC(ctypes.Structure):
+    """Mirror of ``struct ResidentTrunk`` in csrc/policy_resident.cuh."""
+
+    _fields_ = [("layers", ctypes.c_int)] + [(name, ctypes.c_int * RES_MAX_LAYERS) for name in ("k", "n", "w", "b")] + [
+        ("bytes", ctypes.c_int)]
+
+
+class _ResidentArgsC(ctypes.Structure):
+    """Mirror of ``struct ResidentArgs`` in csrc/policy_resident.cuh."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("image", ctypes.c_void_p * 2), ("out", ctypes.c_void_p * 2),
+                ("log_std", ctypes.c_void_p), ("trunk", _ResidentTrunkC * 2)] + [
+        (name, ctypes.c_int) for name in ("n", "ld", "obs_dim", "act_dim", "has_range")] + [
+        ("ls_lo", ctypes.c_float), ("ls_hi", ctypes.c_float)] + [
+        (name, ctypes.c_int) for name in ("tile", "width")]
+
+
+def _resident_trunk_c(lay: ResidentLayout) -> _ResidentTrunkC:
+    t = _ResidentTrunkC(layers=lay.layers, bytes=lay.bytes)
+    for name in ("k", "n", "w", "b"):
+        getattr(t, name)[: lay.layers] = getattr(lay, name)
+    return t
+
+
+def resident_args(x: Tensor, images, outs, lays, tile: int, obs_dim: int, act_dim: int, log_std=None,
+                  log_std_range=None) -> _ResidentArgsC:
+    """A resident launch's arguments: ``images``, ``outs`` and ``lays`` one
+    or two each (K3g, K4g)."""
+    ptr = lambda ts: [t.data_ptr() for t in ts] + [0] * (2 - len(ts))  # noqa: E731
+    has_range, lo, hi = cuda_sgd._range_args(log_std_range)
+    args = _ResidentArgsC(x=x.data_ptr(), log_std=0 if log_std is None else log_std.data_ptr(), n=x.shape[0],
+                          ld=x.shape[1], obs_dim=obs_dim, act_dim=act_dim, has_range=has_range, ls_lo=lo, ls_hi=hi,
+                          tile=tile, width=resident_width(lays))
+    args.image[:] = ptr(images)
+    args.out[:] = ptr(outs)
+    for i, lay in enumerate(lays):
+        args.trunk[i] = _resident_trunk_c(lay)
+    return args
+
+
+# ---------------------------------------------------------------------------
 # K4g: the actor-critic forward
 # ---------------------------------------------------------------------------
 
@@ -176,6 +420,7 @@ class _ForwardArgsC(ctypes.Structure):
 
 
 FORWARD_KERNEL = Kernel("policy_general.cu", "general_policy_value_forward", [ctypes.c_void_p, ctypes.c_void_p])
+RESIDENT_FORWARD_KERNEL = Kernel("policy_general.cu", "general_resident_forward", [ctypes.c_void_p, ctypes.c_void_p])
 
 
 def _launch(kernel: Kernel, args: ctypes.Structure, device) -> None:
@@ -189,7 +434,24 @@ def _launch(kernel: Kernel, args: ctypes.Structure, device) -> None:
 def forward(obs: Tensor, w) -> tuple[Tensor, Tensor]:
     """K4g on CUDA ``obs`` (n, obs_dim) f32 with ``cuda_policy.PolicyWeights``
     holding general images (``cuda_policy._check_kernel_shapes`` has
-    checked them): ``(mean (n, act), value (n,))``."""
+    checked them) on the route of its widths (``forward_route``): ``(mean
+    (n, act), value (n,))``."""
+    if forward_route(w) == "per_layer":
+        return forward_per_layer(obs, w, w.pi_image, w.vf_image)
+    n = obs.shape[0]
+    mean = torch.empty((n, w.act_dim), dtype=torch.float32, device=obs.device)
+    value = torch.empty((n,), dtype=torch.float32, device=obs.device)
+    if n == 0:
+        return mean, value
+    lays = resident_layouts(w)
+    args = resident_args(obs, (w.pi_image, w.vf_image), (mean, value), lays, resident_tile(lays, w.act_dim), w.obs_dim,
+                         w.act_dim)
+    _launch(RESIDENT_FORWARD_KERNEL, args, obs.device)
+    return mean, value
+
+
+def forward_per_layer(obs: Tensor, w, pi_image: Tensor, vf_image: Tensor) -> tuple[Tensor, Tensor]:
+    """K4g's per-layer route on the trunks' f32 vectors (``pack_trunk``)."""
     n = obs.shape[0]
     mean = torch.empty((n, w.act_dim), dtype=torch.float32, device=obs.device)
     value = torch.empty((n,), dtype=torch.float32, device=obs.device)
@@ -200,7 +462,7 @@ def forward(obs: Tensor, w) -> tuple[Tensor, Tensor]:
     ws = torch.empty((ws_floats,), dtype=torch.float32, device=obs.device)
     keep: list = []
     args = _ForwardArgsC(
-        obs.data_ptr(), w.pi_image.data_ptr(), w.vf_image.data_ptr(), ws.data_ptr(), mean.data_ptr(),
+        obs.data_ptr(), pi_image.data_ptr(), vf_image.data_ptr(), ws.data_ptr(), mean.data_ptr(),
         value.data_ptr(), _trunk_c(pi, pi.w, pi.b, pi_out, keep), _trunk_c(vf, vf.w, vf.b, vf_out, keep),
         pi_floats, vf_floats, ws_floats, n, w.obs_dim, w.act_dim,
     )
@@ -223,20 +485,47 @@ class _LogpArgsC(ctypes.Structure):
 
 
 LOGP_KERNEL = Kernel("policy_general.cu", "general_logp_forward", [ctypes.c_void_p, ctypes.c_void_p])
+RESIDENT_LOGP_KERNEL = Kernel("policy_general.cu", "general_resident_logp", [ctypes.c_void_p, ctypes.c_void_p])
+
+
+def logp_route(obs_dim: int, act_dim: int, sizes) -> str:
+    """K3g's route for the actor's widths: ``"resident"`` or ``"per_layer"``."""
+    return "resident" if resident_tile((resident_layout(obs_dim, sizes, act_dim),), act_dim, True) else "per_layer"
+
+
+def _actor(pi_leaves: list[Tensor]) -> tuple[list[Tensor], list[Tensor], Tensor, Tensor]:
+    """The actor's leaves ``[W_0, b_0, ..., W_head, b_head, log_std]`` as
+    (matrices, biases, head_w, head_b)."""
+    n_pi = (len(pi_leaves) - 3) // 2
+    return pi_leaves[:2 * n_pi:2], pi_leaves[1:2 * n_pi:2], pi_leaves[2 * n_pi], pi_leaves[2 * n_pi + 1]
 
 
 def logp(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None) -> Tensor:
-    """K3g on CUDA packed rows (``cuda_sgd.logp_forward`` has checked them):
-    the actor's leaves are packed into one f32 vector on each call."""
+    """K3g on CUDA packed rows (``cuda_sgd.logp_forward`` has checked them)
+    on the route of the actor's widths (``logp_route``): the actor's leaves
+    are packed into its image on each call."""
+    mats, biases, head_w, head_b = _actor(pi_leaves)
+    act_dim = head_w.shape[1]
+    sizes = [t.shape[1] for t in mats]
+    if logp_route(obs_dim, act_dim, sizes) == "per_layer":
+        return logp_per_layer(packed, pi_leaves, obs_dim, log_std_range)
+    image = pack_resident(mats, biases, head_w, head_b)
+    return launch_resident_logp(packed, image, resident_layout(obs_dim, sizes, act_dim), pi_leaves[-1], obs_dim,
+                                log_std_range)
+
+
+def logp_per_layer(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None) -> Tensor:
+    """K3g's per-layer route on the actor's f32 vector (``pack_trunk``),
+    packed from the leaves on each call."""
+    mats, biases, head_w, head_b = _actor(pi_leaves)
+    act_dim = head_w.shape[1]
+    sizes = [t.shape[1] for t in mats]
     n = packed.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=packed.device)
     if n == 0:
         return out
-    n_pi = (len(pi_leaves) - 3) // 2
-    act_dim = pi_leaves[-1].shape[-1]
-    pi, floats = layout(obs_dim, [pi_leaves[2 * i].shape[1] for i in range(n_pi)], act_dim)
-    base = pack_trunk(pi_leaves[:2 * n_pi:2], pi_leaves[1:2 * n_pi:2], pi_leaves[2 * n_pi],
-                      pi_leaves[2 * n_pi + 1]).view(torch.float32)
+    pi, floats = layout(obs_dim, sizes, act_dim)
+    base = pack_trunk(mats, biases, head_w, head_b).view(torch.float32)
     (pi_out,), ws_floats = forward_outputs(n, pi)
     ws = torch.empty((ws_floats,), dtype=torch.float32, device=packed.device)
     mean = torch.empty((n, act_dim), dtype=torch.float32, device=packed.device)
@@ -249,6 +538,26 @@ def logp(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=No
         has_range, lo, hi,
     )
     _launch(LOGP_KERNEL, args, packed.device)
+    return out
+
+
+def launch_resident_logp(packed: Tensor, image: Tensor, lay: ResidentLayout, log_std: Tensor, obs_dim: int,
+                         log_std_range=None) -> Tensor:
+    """K3g's resident launch on the actor's image (``pack_resident``), which
+    ``logp`` packs from the leaves on each call."""
+    act_dim = lay.dims[-1]
+    tile = resident_tile((lay,), act_dim, True)
+    if tile is None:
+        raise NotImplementedError(f"trunk {lay.dims} outside the resident route (logp_route)")
+    if image.dtype != torch.uint8 or tuple(image.shape) != (lay.bytes,) or image.data_ptr() % 16:
+        raise ValueError("the resident K3g reads a 16-byte aligned image of pack_resident's layout")
+    n = packed.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=packed.device)
+    if n == 0:
+        return out
+    log_std = log_std.detach().to(torch.float32).reshape(-1).contiguous()
+    args = resident_args(packed, (image,), (out,), (lay,), tile, obs_dim, act_dim, log_std, log_std_range)
+    _launch(RESIDENT_LOGP_KERNEL, args, packed.device)
     return out
 
 

@@ -195,10 +195,8 @@ def prepare_weights(leaves: list[Tensor], n_pi: int, n_vf: int) -> PolicyWeights
     if family == "wide":
         out.pi_image = pack_trunk(out.pi_w[0], out.pi_b[0], out.pi_w[1], out.pi_b[1], out.pi_head_w, out.pi_head_b)
         out.vf_image = pack_trunk(out.vf_w[0], out.vf_b[0], out.vf_w[1], out.vf_b[1], out.vf_head_w, out.vf_head_b)
-    elif family == "general":  # f32, as given: the kernel rounds the matrices as it reads them
-        out.pi_image = cuda_general.pack_trunk(leaves[:i_head:2], leaves[1:i_head:2], leaves[i_head], leaves[i_head + 1])
-        out.vf_image = cuda_general.pack_trunk(leaves[i_vf0:i_vf_head:2], leaves[i_vf0 + 1:i_vf_head:2],
-                                               leaves[i_vf_head], leaves[i_vf_head + 1])
+    elif family == "general":  # the images of K4g's route (cuda_general.forward_route)
+        out.pi_image, out.vf_image = cuda_general.trunk_images(out, leaves, n_pi)
     else:
         out.pi_image = cuda_narrow.pack_trunk(out.pi_w, out.pi_b, out.pi_head_w, out.pi_head_b)
         out.vf_image = cuda_narrow.pack_trunk(out.vf_w, out.vf_b, out.vf_head_w, out.vf_head_b)
@@ -250,7 +248,7 @@ def _check_kernel_shapes(obs: Tensor, w: PolicyWeights) -> str:
     if family == "wide":
         sizes = [(TRUNK_BYTES,)] * 2
     elif family == "general":
-        sizes = [(4 * floats,) for _, floats in cuda_general.weight_layouts(w)]
+        sizes = cuda_general.image_sizes(w)
     else:
         sizes = [(lay.bytes,) for lay in cuda_narrow.weight_layouts(w)]
     if any(t is None or t.dtype != torch.uint8 for t in images) or [tuple(t.shape) for t in images] != sizes:

@@ -183,8 +183,10 @@ def test_the_router_answers_wide_narrow_or_general(obs, act, pi, vf, want):
     assert cuda_policy._check_kernel_shapes(torch.zeros(2, obs), w) == want
     if want == "general":
         (pt, pf), (vt, vf_floats) = cuda_general.weight_layouts(w)
-        assert w.pi_image.numel() == 4 * pf and w.vf_image.numel() == 4 * vf_floats
-        assert pt.dims == (obs, *pi, act) and vt.dims == (obs, *vf, 1)
+        lays = cuda_general.resident_layouts(w)
+        assert cuda_general.forward_route(w) == "resident"  # every pair here fits a block
+        assert w.pi_image.numel() == lays[0].bytes and w.vf_image.numel() == lays[1].bytes
+        assert pt.dims == lays[0].dims == (obs, *pi, act) and vt.dims == lays[1].dims == (obs, *vf, 1)
         assert len(cuda_sgd.leaf_specs(net)) == 2 * (len(pi) + len(vf)) + 5
 
 
@@ -196,14 +198,26 @@ def test_the_router_refuses_a_non_positive_width():
 
 
 def test_the_general_images_and_epoch_layout():
-    """K4g's image is the trunk's leaves at ``layout``'s offsets (f32, each
-    at a multiple of 4 floats); K2g's trunks sit at ``leaf_specs``'
-    offsets; its workspace keeps every layer's outputs, two dz buffers of
-    the widest output, dvalue and d loss / d logp apart."""
+    """K4g's and K3g's resident image holds each matrix rounded to bf16 in
+    blocks of W^T at ``resident_layout``'s offsets (widths padded to 32,
+    16-byte aligned) and the f32 biases after them; the per-layer route's
+    image is the trunk's leaves at ``layout``'s offsets (f32, each at a
+    multiple of 4 floats); K2g's trunks sit at ``leaf_specs``' offsets; its
+    workspace keeps every layer's outputs, two dz buffers of the widest
+    output, dvalue and d loss / d logp apart."""
     rng = np.random.default_rng(0)
     sizes = (48, 20, 33)
     mats = [T(rng.normal(size=s).astype(np.float32)) for s in ((72, 48), (48, 20), (20, 33), (33, 10))]
     biases = [T(rng.normal(size=(1, s)).astype(np.float32)) for s in (48, 20, 33, 10)]
+    res = cuda_general.pack_resident(mats[:3], biases[:3], mats[3], biases[3])
+    rlay = cuda_general.resident_layout(72, sizes, 10)
+    assert rlay.k == (96, 64, 32, 64) and rlay.n == (64, 32, 64, 32) and res.numel() == rlay.bytes
+    assert rlay.w == (0, 2 * 96 * 64, 2 * (96 * 64 + 64 * 32), 2 * (96 * 64 + 64 * 32 + 32 * 64))
+    got_m, got_b = cuda_general.unpack_resident(res, rlay)
+    for l, (m, b) in enumerate(zip(mats, biases)):
+        assert rlay.w[l] % 16 == 0 and rlay.b[l] % 16 == 0
+        assert torch.equal(got_m[l], m.to(torch.bfloat16)) and torch.equal(got_b[l], b.reshape(-1))
+        assert not res[rlay.b[l] + 4 * b.numel() : rlay.b[l] + 4 * rlay.n[l]].any()
     image = cuda_general.pack_trunk(mats[:3], biases[:3], mats[3], biases[3]).view(torch.float32)
     lay, floats = cuda_general.layout(72, sizes, 10)
     assert image.numel() == floats and lay.dims == (72, 48, 20, 33, 10)
@@ -227,17 +241,25 @@ def test_the_general_images_and_epoch_layout():
     assert cuda_general.kernels_per_minibatch(3, 3) == 25 and cuda_general.kernels_per_minibatch(0, 0) == 7
 
 
-def _c_struct(source: str, name: str) -> list[tuple[str, str]]:
-    """(type, field) of ``struct <name>`` in a source, arrays and comments out."""
-    body = re.search(rf"struct {name} \{{(.*?)\n\}};", (cuda_build.CSRC / source).read_text(), re.S).group(1)
+def _c_struct(source: str, name: str) -> list[tuple[str, str, int]]:
+    """(type, field, count) of ``struct <name>`` in a source, comments out;
+    an array's count a number or a ``constexpr int`` of the source."""
+    text = (cuda_build.CSRC / source).read_text()
+    body = re.search(rf"struct {name} \{{(.*?)\n\}};", text, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     out = []
     for decl in body.split(";"):
         decl = decl.strip()
         if not decl:
             continue
-        typ, names = re.match(r"(.*?\W)(\w+(?:\s*,\s*\w+)*)$", decl).groups()
-        out += [(typ.strip().replace(" ", ""), n.strip()) for n in names.split(",")]
+        typ, names, count = re.match(r"(.*?\W)(\w+(?:\s*,\s*\w+)*)(?:\[([\w:]+)\])?$", decl).groups()
+        if count is None:
+            n = 1
+        elif count.isdigit():
+            n = int(count)
+        else:
+            n = int(re.search(rf"constexpr int {count.split('::')[-1]} = (\d+);", text).group(1))
+        out += [(typ.strip().replace(" ", ""), f.strip(), n) for f in names.split(",")]
     return out
 
 
@@ -246,15 +268,18 @@ def _c_struct(source: str, name: str) -> list[tuple[str, str]]:
     ("policy_general.cu", "GeneralForwardArgs", cuda_general._ForwardArgsC),
     ("policy_general.cu", "GeneralLogpArgs", cuda_general._LogpArgsC),
     ("fused_epoch_general.cu", "GeneralEpochArgs", cuda_general._EpochArgsC),
+    ("policy_resident.cuh", "ResidentTrunk", cuda_general._ResidentTrunkC),
+    ("policy_resident.cuh", "ResidentArgs", cuda_general._ResidentArgsC),
 ])
 def test_the_c_mirrors_are_the_sources_structs(source, struct, mirror):
     """Each ctypes mirror holds the C struct's fields in order, with the
-    C type's size."""
-    size = {"int": 4, "float": 4, "longlong": 8, "GeneralTrunk": ctypes.sizeof(cuda_general._TrunkC)}
+    C type's size (an array's: its count times it)."""
+    size = {"int": 4, "float": 4, "longlong": 8, "GeneralTrunk": ctypes.sizeof(cuda_general._TrunkC),
+            "ResidentTrunk": ctypes.sizeof(cuda_general._ResidentTrunkC)}
     fields = _c_struct(source, struct)
-    assert [n for _, n in fields] == [n for n, _ in mirror._fields_]
-    for (typ, _), (_, ctype) in zip(fields, mirror._fields_):
-        assert ctypes.sizeof(ctype) == (8 if "*" in typ else size[typ.replace("const", "")])
+    assert [n for _, n, _ in fields] == [n for n, _ in mirror._fields_]
+    for (typ, _, count), (_, ctype) in zip(fields, mirror._fields_):
+        assert ctypes.sizeof(ctype) == count * (8 if "*" in typ else size[typ.replace("const", "")])
 
 
 def test_the_host_constants_are_the_headers():

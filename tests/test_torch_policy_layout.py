@@ -161,10 +161,13 @@ def test_prepare_weights_packs_only_what_the_kernel_takes():
     assert cuda_policy._kernel_family(narrow) == "narrow" and torch.equal(narrow.pi_image, cuda_narrow.pack_trunk(
         narrow.pi_w, narrow.pi_b, narrow.pi_head_w, narrow.pi_head_b))
     for net in (ActorCritic(21, 4, feature_sizes=(256,), device="cpu"), ActorCritic(65, 4, device="cpu"),
-                ActorCritic(21, 9, device="cpu")):  # the general family's: its images are the f32 leaves
+                ActorCritic(21, 9, device="cpu"), ActorCritic(21, 4, feature_sizes=(1024,), device="cpu")):
+        # the general family's: the resident route's bf16 images, the per-layer route's f32 leaves
         w = net.kernel_weights()
         assert cuda_policy._kernel_family(w) == "general"
-        assert torch.equal(w.pi_image, cuda_general.pack_trunk(
+        pack = cuda_general.pack_resident if cuda_general.forward_route(w) == "resident" else cuda_general.pack_trunk
+        assert (cuda_general.forward_route(w) == "per_layer") == (net.pi_trunk.layers[0].out_features == 1024)
+        assert torch.equal(w.pi_image, pack(
             [lin.weight.T for lin in net.pi_trunk.layers], [lin.bias for lin in net.pi_trunk.layers],
             net.pi_head.weight.T, net.pi_head.bias))
         obs = torch.zeros(3, net.obs_dim)

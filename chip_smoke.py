@@ -200,9 +200,12 @@ Phases, each of which fails the script on a failed check:
      route; where a pair is resident, its K4g and K3g bit for bit the
      per-layer route's at 1000 and 8192 rows;
  53. ``general_epochs``: K2g (csrc/fused_epoch_general.cu) against its
-     twin at each pair, two calls bit-identical, and K3g's log-probs equal
-     to K2g's forward bit for bit (approx_kl exactly 0 on the first
-     minibatch when the stored log-probs are K3g's);
+     twin at each pair on the route of its widths (the resident epoch,
+     four kernels a minibatch, at every pair but (1024,), which keeps the
+     per-layer route), each launch counted on its route, two calls
+     bit-identical, and K3g's log-probs equal to K2g's forward bit for bit
+     (approx_kl exactly 0 on the first minibatch when the stored log-probs
+     are K3g's);
  54. ``hover7_serving``: 8192 PackedQuadXHoverEnv(QuadXHoverEnv(
      flight_mode=7)) envs, a 3 x 256 ActorCritic through K4g, cached
      auto-reset 64, 256 steps (one row-1 and one K4g launch a step), and
@@ -212,18 +215,18 @@ Phases, each of which fails the script on a failed check:
      (row 1, K4g, K3g, K2g), and one at the default 2 x 256 trunk (row 1,
      K4, K3, K2);
  56. ``general_kernel_times``: row 1 in mode 7, K4g, K3g and K2g at those
-     shapes against their bounds, their twins and their library calls; K4g
-     and K3g on the resident route, the per-layer route forced at the same
-     shapes and the library call in turns (K3g also its kernel and its
+     shapes against their bounds, their twins and their library calls; K4g,
+     K3g and K2g on the resident route, the per-layer route forced at the
+     same shapes and the library call in turns (K3g also its kernel and its
      image build alone), with the resident kernels' ptxas registers and
      spills; and the per-layer route where its main path runs it (the
      (1024,) trunk of ``traj_train``'s ``other_trunks``, at its rows);
  57. ``general_main_path_checks``: K3g over the training path's batch and
      K2g over two of its minibatches on its trained 3 x 256 network, and
      its 32 x 8192 epoch bit for bit as 32 chained one-minibatch calls;
-     then the ``kernels`` line for all nineteen kernels (rows 1, 2, 4, 5,
+     then the ``kernels`` line for all twenty kernels (rows 1, 2, 4, 5,
      6, 8, 9 and 10 with phase 2's launch records; the general family's
-     two routes of K4g and K3g each a kernel).
+     two routes of K4g, K3g and K2g each a kernel).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -1355,7 +1358,8 @@ def all_kernels():
             "general_policy_value_forward": cuda_general.FORWARD_KERNEL,
             "general_logp_forward": cuda_general.LOGP_KERNEL, "fused_epoch_general": cuda_general.EPOCH_KERNEL,
             "general_resident_forward": cuda_general.RESIDENT_FORWARD_KERNEL,
-            "general_resident_logp": cuda_general.RESIDENT_LOGP_KERNEL}
+            "general_resident_logp": cuda_general.RESIDENT_LOGP_KERNEL,
+            "general_resident_epoch": cuda_general.RESIDENT_EPOCH_KERNEL}
 
 
 def zero_launches() -> None:
@@ -2915,16 +2919,23 @@ def measure_launches() -> dict:
 
 def general_epoch_kernels() -> dict:
     """K2g's own CUDA kernels in one call of 4 minibatches of 8192 rows at
-    the slice's 3 x 256 trunk, counted by torch.profiler against
-    ``cuda_general.kernels_per_minibatch`` (in the launch records' child
-    process: a profile late in the long run has been seen to keep fewer
-    records than launches)."""
+    the slice's 3 x 256 trunk, on its route (resident) and on the per-layer
+    route forced at the same shapes, counted by torch.profiler against
+    ``cuda_general.kernels_per_minibatch`` and ``kernels_per_call`` (in the
+    launch records' child process: a profile late in the long run has been
+    seen to keep fewer records than launches)."""
     from pyflyt_tpu_torch.ops import cuda_general, cuda_sgd
 
     inputs = epoch_inputs(general_net(0, 21, 4, GENERAL_TRUNK, GENERAL_TRUNK), 4, N_ENVS, None)
-    per_mb = cuda_general.kernels_per_minibatch(len(GENERAL_TRUNK), len(GENERAL_TRUNK))
-    return {"cuda_kernels_per_minibatch": per_mb,
-            **epoch_kernel_count(lambda: cuda_sgd.fused_epoch(*inputs), 4, per_mb, cuda_general.KERNELS_PER_CALL)}
+    check(cuda_general.epoch_route(inputs[-1]) == "resident", "K2g at the slice's trunk: the resident route")
+    out = {}
+    for route, run in (("resident", lambda: cuda_sgd.fused_epoch(*inputs)),
+                       ("per_layer", lambda: cuda_general.launch_epoch(*inputs, route="per_layer"))):
+        per_mb = cuda_general.kernels_per_minibatch(len(GENERAL_TRUNK), len(GENERAL_TRUNK), route)
+        out[route] = {"cuda_kernels_per_minibatch": per_mb,
+                      **epoch_kernel_count(run, 4, per_mb, cuda_general.kernels_per_call(route))}
+    check(out["resident"]["cuda_kernels_per_minibatch"] <= 6, f"resident K2g: kernels a minibatch {out['resident']}")
+    return out
 
 
 def general_resident_kernels() -> dict:
@@ -3933,7 +3944,7 @@ def other_trunks(seed: int, card: str) -> dict:
     from pyflyt_tpu_torch.rl import PPO
 
     names = {"narrow": ("narrow_policy_value_forward", "narrow_logp_forward", "fused_epoch_narrow"),
-             "resident": ("general_resident_forward", "general_resident_logp", "fused_epoch_general"),
+             "resident": ("general_resident_forward", "general_resident_logp", "general_resident_epoch"),
              "per_layer": ("general_policy_value_forward", "general_logp_forward", "fused_epoch_general")}
     out = {}
     for sizes, kind in (((32, 32), "narrow"), ((128,), "narrow"), ((256,), "resident"), ((1024,), "per_layer")):
@@ -3944,7 +3955,8 @@ def other_trunks(seed: int, card: str) -> dict:
                                        f"trunk {sizes}", seed, card)
         out[str(sizes)] = {k: res[k] for k in ("wall_s", "samples_per_s", "launches_per_iteration")}
         out[str(sizes)]["shapes"] = {"obs_dim": runner.network.obs_dim, "act_dim": runner.network.action_dim,
-                                     "sizes": sizes, "forward_rows": cfg.num_envs, "logp_rows": cfg.batch_size}
+                                     "sizes": sizes, "forward_rows": cfg.num_envs, "logp_rows": cfg.batch_size,
+                                     "minibatches": cfg.num_minibatches}
     return out
 
 
@@ -4528,8 +4540,8 @@ def check_general_consistency(net, n_mb: int, mb: int) -> dict:
     check(same, f"general epoch {n_mb}x{mb}: two calls on the same inputs differ")
     kl0 = float(first[3][0, 4])
     check(kl0 == 0.0, f"general epoch {n_mb}x{mb}: K3g's log-probs are not K2g's forward (approx_kl {kl0})")
-    return {"n_mb": n_mb, "mb": mb, "pi": cfg.pi_sizes, "vf": cfg.vf_sizes, "bit_identical": same,
-            "first_minibatch_approx_kl": kl0}
+    return {"n_mb": n_mb, "mb": mb, "pi": cfg.pi_sizes, "vf": cfg.vf_sizes, "route": cuda_general.epoch_route(cfg),
+            "bit_identical": same, "first_minibatch_approx_kl": kl0}
 
 
 def check_general_chained(net, n_mb: int, mb: int, log_std_range) -> dict:
@@ -4555,25 +4567,49 @@ def check_general_chained(net, n_mb: int, mb: int, log_std_range) -> dict:
     return {"n_mb": n_mb, "mb": mb, "bit_identical": same}
 
 
-def check_general_epochs(seed: int) -> dict:
-    """K2g against its twin at every trunk pair, two minibatches of 8192
-    rows at obs 21 / act 4 and of 1000 rows at obs 72 / act 10 with a
-    clipping log_std range, the first moment at GENERAL_MU_REL; then
-    ``check_general_consistency`` at the slice's trunk, at 2 x 512 and at
-    the linear policy."""
+def epoch_route_of(obs: int, act: int, pi, vf) -> str:
+    """K2g's route at these widths (``cuda_general.epoch_route``)."""
+    from types import SimpleNamespace
+
     from pyflyt_tpu_torch.ops import cuda_general
 
-    launches0 = cuda_general.EPOCH_KERNEL.launches
+    return cuda_general.epoch_route(SimpleNamespace(obs_dim=obs, act_dim=act, pi_sizes=pi, vf_sizes=vf))
+
+
+def check_general_epochs(seed: int) -> dict:
+    """K2g against its twin at every trunk pair of the grid on the route of
+    its widths (resident at every GENERAL_PAIRS pair, per layer at
+    (1024,)), two minibatches of 8192 rows at obs 21 / act 4 and of 1000
+    rows at obs 72 / act 10 with a clipping log_std range, the first moment
+    at GENERAL_MU_REL, each launch counted on its route and each error on
+    the route that gave it; then ``check_general_consistency`` at the
+    slice's trunk, at 2 x 512 and at the linear policy (resident) and at
+    (1024,) (per layer)."""
+    from pyflyt_tpu_torch.ops import cuda_general
+
+    kernels = {"resident": cuda_general.RESIDENT_EPOCH_KERNEL, "per_layer": cuda_general.EPOCH_KERNEL}
+    start = {route: k.launches for route, k in kernels.items()}
+    want = dict.fromkeys(kernels, 0)
+    worst = dict.fromkeys(kernels, 0.0)
     checks = []
     shapes = [(pi, vf, 21, 4, N_ENVS, None) for pi, vf in GENERAL_PAIRS]
     shapes += [(pi, vf, 72, 10, N_RAGGED, EPOCH_RANGE) for pi, vf in GENERAL_PAIRS]
+    wide = GENERAL_GRID_PAIRS[-1]
+    shapes += [(*wide, 21, 4, N_ENVS, None), (*wide, 72, 10, N_RAGGED, EPOCH_RANGE)]
     for k, (pi, vf, o, a, mb, rng) in enumerate(shapes):
+        route = epoch_route_of(o, a, pi, vf)
+        check(route == ("per_layer" if (pi, vf) == wide else "resident"), f"general epochs: {pi} {vf} on {route}")
         c = check_epoch(general_net(seed + 2000 + k, o, a, pi, vf), 2, mb, rng, GENERAL_MU_REL)
-        checks.append({**c, "pi": pi, "vf": vf})
-    check(cuda_general.EPOCH_KERNEL.launches - launches0 == len(shapes), "general epochs: K2g not launched")
+        checks.append({**c, "pi": pi, "vf": vf, "route": route})
+        want[route] += 1
+        worst[route] = max(worst[route], c["max_abs_err"])
+    launches = {route: k.launches - start[route] for route, k in kernels.items()}
+    check(launches == want, f"general epochs: launches {launches}, expected {want}")
     consistency = [check_general_consistency(general_net(seed + 3000 + k, 21, 4, pi, vf), 4, N_ENVS)
-                   for k, (pi, vf) in enumerate(((GENERAL_TRUNK, GENERAL_TRUNK), ((512, 512), (512, 512)), ((), ())))]
-    return {"checks": checks, "consistency": consistency, "max_abs_err": max(c["max_abs_err"] for c in checks),
+                   for k, (pi, vf) in enumerate(((GENERAL_TRUNK, GENERAL_TRUNK), ((512, 512), (512, 512)), ((), ()),
+                                                 wide))]
+    return {"checks": checks, "consistency": consistency, "launches": launches, "by_route": worst,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
             "max_mu_rel_err": max(c["mu_rel_err"] for c in checks),
             "max_nu_rel_err": max(c["nu_rel_err"] for c in checks)}
 
@@ -4639,7 +4675,7 @@ def hover7_train(seed: int, card: str) -> tuple[dict, object, object]:
     tp = PPO(hover7_env(), cfg)
     general, runner = timed_iterations(tp, {"quadx_hover_step": cfg.rollout_steps,
                                             "general_resident_forward": cfg.rollout_steps,
-                                            "general_resident_logp": 1, "fused_epoch_general": cfg.num_epochs},
+                                            "general_resident_logp": 1, "general_resident_epoch": cfg.num_epochs},
                                        "mode-7 hover at 3 x 256", seed, card)
     wide_cfg = PPOConfig(num_envs=N_ENVS, cached_reset_refresh=64, fused_sgd=True, fused_rollout_forward=True)
     wide, _ = timed_iterations(PPO(hover7_env(), wide_cfg), {"quadx_hover_step": cfg.rollout_steps,
@@ -4659,6 +4695,48 @@ def time_in_turns(calls: dict) -> dict:
             rounds[name].append(time_ms(fn, iters=iters))
     return {name: {"ms_rounds": [r[0] for r in v], "ms": statistics.mean(r[0] for r in v),
                    "host_ms": statistics.mean(r[1] for r in v)} for name, v in rounds.items()}
+
+
+def epoch_turns(calls: dict, library, n_mb: int) -> dict:
+    """K2g's epoch on each route of ``calls`` (``{name: (fn, iters)}``,
+    ``time_ms``) and the library's ``n_mb`` minibatch updates (``library``:
+    one update; torch.profiler's summed kernel time, its chain of small
+    kernels enqueues slower than the card runs it), in turns: that order
+    with the library last, then reversed; per name both rounds and their
+    mean, the library's host wall beside."""
+    rounds = {name: [] for name in (*calls, "library")}
+    for order in (list(rounds), list(reversed(list(rounds)))):
+        for name in order:
+            if name == "library":
+                rounds[name].append((n_mb * profiled_device_ms(library, iters=8), n_mb * host_wall_ms(library, 8)))
+            else:
+                fn, iters = calls[name]
+                rounds[name].append(time_ms(fn, iters=iters, repeats=3))
+    return {name: {"ms_rounds": [r[0] for r in v], "ms": statistics.mean(r[0] for r in v),
+                   "host_ms": statistics.mean(r[1] for r in v)} for name, v in rounds.items()}
+
+
+def resident_epoch_ptxas(text: str | None = None) -> dict:
+    """Registers, stack frame and spills of each kernel of K2g's resident
+    route (``fused_epoch_general.cu``'s namespace ``rep``, fwd_bwd at both
+    tiles) from an ``-Xptxas -v`` report (``text``; by default this
+    checkout's build's)."""
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    if text is None:
+        text = cuda_build.library_path("fused_epoch_general.cu").with_suffix(".log").read_text()
+    out = {}
+    for m in re.finditer(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers", text):
+        k = re.search(r"3rep\d+(\w+?_kernel)(?:ILi(\d+))?", m.group(1))
+        if k:
+            out[k.group(1) + (f"_tile{k.group(2)}" if k.group(2) else "")] = {
+                "registers": int(m.group(5)), "stack_frame_bytes": int(m.group(2)),
+                "spill_store_bytes": int(m.group(3)), "spill_load_bytes": int(m.group(4))}
+    check(len(out) == 6, f"resident epoch ptxas report: {sorted(out)}")
+    return out
 
 
 def resident_ptxas() -> dict:
@@ -4727,6 +4805,21 @@ def time_per_layer_route(shapes: dict) -> dict:
         "ms": k3["per_layer"]["ms"], "host_ms": k3["per_layer"]["host_ms"], "plain_ms": plain,
         "library_ms": k3["library"]["ms"], "bound_ms": b_ms, "bound_by": by, "rows": batch, "obs_dim": o,
         "sizes": sizes, "turns": k3}
+    n_mb = shapes["minibatches"]
+    inputs = epoch_inputs(net, n_mb, batch // n_mb, None)
+    mbs, stats, t0, leaves, mu, nu, ecfg = inputs
+    check(cuda_general.epoch_route(ecfg) == "per_layer", f"trunk {sizes}: K2g not on the per-layer route")
+    k2 = epoch_turns({"per_layer": (lambda: cuda_sgd.fused_epoch(*inputs), 5)}, library_update(net, mbs[0], stats[0],
+                                                                                               ecfg), n_mb)
+    plain, _ = time_ms(lambda: cuda_sgd.fused_epoch_plain(*inputs), iters=1, repeats=2, device_timed=False)
+    state = tensor_bytes(leaves) + tensor_bytes(mu) + tensor_bytes(nu)
+    b_ms, by = roofline(tensor_bytes([mbs, stats, t0]) + 2 * state + n_mb * 5 * 4,
+                        cuda_sgd.epoch_flops(batch, o, a, pi_sizes=sizes, vf_sizes=sizes))
+    out["fused_epoch_general"] = {
+        "ms": k2["per_layer"]["ms"], "host_ms": k2["per_layer"]["host_ms"], "plain_ms": plain,
+        "library_ms": k2["library"]["ms"], "library_ms_source": "torch.profiler kernel time", "bound_ms": b_ms,
+        "bound_by": by, "minibatches": n_mb, "minibatch_size": batch // n_mb, "obs_dim": o, "sizes": sizes,
+        "turns": k2}
     return out
 
 
@@ -4807,21 +4900,23 @@ def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict) -> di
     opt = runner.opt_state
     t0 = opt.count.reshape(1)
     ecfg = tp.epoch_config(o)
-    run = lambda: cuda_sgd.fused_epoch(mbs, stats, t0, leaves, opt.mu, opt.nu, ecfg)  # noqa: E731
-    ms, host = time_ms(run, iters=1, repeats=3)  # 25 kernels a minibatch: 800 a call
-    plain, _ = time_ms(lambda: cuda_sgd.fused_epoch_plain(mbs, stats, t0, leaves, opt.mu, opt.nu, ecfg), iters=1,
-                       repeats=2, device_timed=False)
-    lib_fn = library_update(net, mbs[0], stats[0], cfg)
-    lib_mb = profiled_device_ms(lib_fn, iters=8)
-    lib_wall = host_wall_ms(lib_fn, iters=8)
+    check(cuda_general.epoch_route(ecfg) == "resident", "K2g at the slice's trunk: the resident route")
+    epoch = (mbs, stats, t0, leaves, opt.mu, opt.nu, ecfg)
+    # K2g on each route (a resident call 129 kernels, a per-layer one 800) and the library's 32 updates, in turns
+    k2 = epoch_turns({"resident": (lambda: cuda_sgd.fused_epoch(*epoch), 3),
+                      "per_layer": (lambda: cuda_general.launch_epoch(*epoch, route="per_layer"), 1)},
+                     library_update(net, mbs[0], stats[0], cfg), cfg.num_minibatches)
+    plain, _ = time_ms(lambda: cuda_sgd.fused_epoch_plain(*epoch), iters=1, repeats=2, device_timed=False)
     state = nbytes(leaves) + nbytes(opt.mu) + nbytes(opt.nu)
     b_ms, by = bound(nbytes([mbs, stats, t0]) + 2 * state + cfg.num_minibatches * 5 * 4,
                      cuda_sgd.epoch_flops(batch, o, a, pi_sizes=pi, vf_sizes=vf))
-    out["fused_epoch_general"] = {
-        "ms": ms, "host_ms": host, "ms_per_minibatch": ms / cfg.num_minibatches, "plain_ms": plain,
-        "library_ms": lib_mb * cfg.num_minibatches, "library_ms_per_minibatch": lib_mb,
-        "library_ms_source": "torch.profiler kernel time", "library_host_wall_ms_per_minibatch": lib_wall,
+    ms = k2["resident"]["ms"]
+    out["general_resident_epoch"] = {
+        "ms": ms, "host_ms": k2["resident"]["host_ms"], "ms_per_minibatch": ms / cfg.num_minibatches,
+        "plain_ms": plain, "library_ms": k2["library"]["ms"], "library_ms_source": "torch.profiler kernel time",
+        "library_host_wall_ms": k2["library"]["host_ms"], "per_layer_ms": k2["per_layer"]["ms"],
         "bound_ms": b_ms, "bound_by": by, "minibatches": cfg.num_minibatches, "minibatch_size": cfg.minibatch_size,
+        "turns": k2, "ptxas": resident_epoch_ptxas(),
     }
     return out
 
@@ -5442,11 +5537,18 @@ def main(argv=None) -> int:
          {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
                        f"{gt['general_logp_forward']['rows']} rows an iteration",
           "kernels_per_call": records["general_resident"]["k3g_per_layer"]}),
-        ("fused_epoch_general", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
-         training["fused_epoch_general"], max(ge["max_abs_err"], gm["k2g_epoch_2x8192"]["max_abs_err"]),
+        ("general_resident_epoch", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
+         training["general_resident_epoch"],
+         max(ge["by_route"]["resident"], gm["k2g_epoch_2x8192"]["max_abs_err"]),
          {"main_path": "hover7_train general_3x256, 32 x 8192 rows an epoch",
-          "ms_per_minibatch": gt["fused_epoch_general"]["ms_per_minibatch"],
-          "kernels_of_a_4_minibatch_call": records["fused_epoch_general"]}),
+          **{f: gt["general_resident_epoch"][f] for f in ("ms_per_minibatch", "per_layer_ms", "ptxas")},
+          "kernels_of_a_4_minibatch_call": records["fused_epoch_general"]["resident"],
+          "per_layer_kernels_of_a_4_minibatch_call": records["fused_epoch_general"]["per_layer"]}),
+        ("fused_epoch_general", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
+         wide_trunk["fused_epoch_general"], ge["by_route"]["per_layer"],
+         {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
+                       f"{gt['fused_epoch_general']['minibatches']} x {gt['fused_epoch_general']['minibatch_size']} "
+                       "rows an epoch"}),
     ):
         t = gt[name]
         kernels.append({

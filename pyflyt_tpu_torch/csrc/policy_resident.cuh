@@ -38,7 +38,10 @@
 // K3g's blocks are persistent (a block walks the tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ...) and stage the head's f32 means in shared
 // memory, where one thread a row sums its log-prob (general::row_logp) in
-// the action order.
+// the action order. The layer loop (`layer`: the ring, the fragments) and
+// the forward's epilogue are K2g's resident epoch's too
+// (fused_epoch_general.cu), whose walk streams a second, transposed image
+// after the forward's for its data gradient.
 //
 // What bounds it on an H100: at the 3 x 256 trunk (obs 21, act 4) K4g over
 // 8192 rows is 4.5 GFLOP of bf16 MMA (4.5 us at 989 TFLOP/s) and K3g over
@@ -194,34 +197,88 @@ struct Warps {
 
 // Warp 0's place in a trunk's weight blocks: layer, chunk, k step
 // and the block's byte offset; `next` walks them in image order, back to
-// the first block after the head's last (the next tile).
+// the first block after the head's last (the next tile), and says whether
+// it went back.
 struct Cursor {
   int l, c0, k0, off;
 
   __device__ __forceinline__ int bytes(const ResidentTrunk& T) const { return min(NC, T.n[l] - c0) * KC * 2; }
 
-  __device__ __forceinline__ void next(const ResidentTrunk& T) {
+  __device__ __forceinline__ bool next(const ResidentTrunk& T) {
     off += bytes(T);
-    if ((k0 += KC) < T.k[l]) return;
+    if ((k0 += KC) < T.k[l]) return false;
     k0 = 0;
-    if ((c0 += NC) < T.n[l]) return;
+    if ((c0 += NC) < T.n[l]) return false;
     c0 = 0;
     l = l + 1 < T.layers ? l + 1 : 0;
     off = T.w[l];
+    return l == 0;
   }
 };
 
-// Warp 0, converged: lane 0 copies the cursor's block into ring stage `s`;
-// every lane moves the cursor to the next block.
-__device__ __forceinline__ void issue(Cursor& cur, const ResidentTrunk& T, const uint8_t* img, uint32_t ring,
-                                      uint32_t bars, int s) {
-  if ((threadIdx.x & 31) == 0) {
-    const int bytes = cur.bytes(T);
-    const uint32_t bar = bars + 8 * s;
-    mbar_expect_tx(bar, bytes);
-    bulk_copy(ring + s * STAGE_BYTES, img + cur.off, bytes, bar);
+// Warp 0's walk over the weight blocks of SEGS images in turn, each in
+// image order (K4g and K3g: one trunk's; K2g: a trunk's forward image,
+// then its backward one), back to the first segment after the last. A
+// segment of no layers is passed over.
+template <int SEGS>
+struct Walk {
+  static_assert(SEGS == 1 || SEGS == 2, "one or two images");
+  const ResidentTrunk* T[SEGS];
+  const uint8_t* img[SEGS];
+  int seg;
+  Cursor cur;
+
+  __device__ __forceinline__ Walk(const ResidentTrunk* const (&t)[SEGS], const uint8_t* const (&im)[SEGS]) : seg(0) {
+#pragma unroll
+    for (int s = 0; s < SEGS; ++s) {
+      T[s] = t[s];
+      img[s] = im[s];
+    }
+    cur = Cursor{0, 0, 0, T[0]->w[0]};
   }
-  cur.next(T);
+
+  // x[seg] by a select, not an index (no local memory)
+  template <class X>
+  __device__ __forceinline__ X pick(const X (&x)[SEGS]) const {
+    if constexpr (SEGS == 1) {
+      return x[0];
+    } else {
+      return seg ? x[1] : x[0];
+    }
+  }
+
+  __device__ __forceinline__ int bytes() const { return cur.bytes(*pick(T)); }
+  __device__ __forceinline__ const uint8_t* src() const { return pick(img) + cur.off; }
+
+  __device__ __forceinline__ void next() {
+    const bool back = cur.next(*pick(T));
+    if constexpr (SEGS == 2) {
+      if (back) {
+        seg = seg == 0 && T[1]->layers > 0 ? 1 : 0;
+        cur = Cursor{0, 0, 0, pick(T)->w[0]};
+      }
+    }
+  }
+};
+
+// The ring of a block: its stages' shared memory, their full and empty
+// barriers, the consumers' step and warp 0's copies issued of `total`.
+struct Ring {
+  uint32_t base, full, empty;
+  int step, issued, total;
+};
+
+// Warp 0, converged: lane 0 copies the walk's block into ring stage `s`;
+// every lane moves the walk to the next block.
+template <class Wk>
+__device__ __forceinline__ void issue(Wk& walk, const Ring& rg, int s) {
+  if ((threadIdx.x & 31) == 0) {
+    const int bytes = walk.bytes();
+    const uint32_t bar = rg.full + 8 * s;
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(rg.base + s * STAGE_BYTES, walk.src(), bytes, bar);
+  }
+  walk.next();
 }
 
 // TILE rows of f32 x (row stride ld, row0 first, zero past n and `cols`)
@@ -274,10 +331,93 @@ __device__ __forceinline__ void product(float (&acc)[2][NT][4], uint32_t in, int
   }
 }
 
+// One layer over the tile: for each chunk of NC of T.n[l] outputs, the
+// warp's 32 x WN accumulators over T.k[l] inputs from the bf16 activations
+// at `in` (row stride lda), weight block by weight block from the ring
+// (warp 0 first copies the blocks up to STAGES - 1 steps ahead, each once
+// its stage is free), then epi(acc, c0, rows) with the chunk's first unit
+// c0 and its width `rows`. No block barrier: the caller's, before, makes
+// `in` whole.
+template <int TILE, class Wk, class Epi>
+__device__ __forceinline__ void layer(const ResidentTrunk& T, int l, uint32_t in, int lda, Ring& rg, Wk& walk,
+                                      Epi&& epi) {
+  using W = Warps<TILE>;
+  constexpr int NT = W::NT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp % W::MW) * 32, wn = (warp / W::MW) * WN;
+  for (int c0 = 0; c0 < T.n[l]; c0 += NC) {
+    const int rows = min(NC, T.n[l] - c0);
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+    for (int k0 = 0; k0 < T.k[l]; k0 += KC, ++rg.step) {
+      if (warp == 0) {  // the copies up to STAGES - 1 steps ahead, each once its stage is free
+        for (; rg.issued < rg.total && rg.issued < rg.step + STAGES; ++rg.issued) {
+          const int si = rg.issued % STAGES;
+          if (rg.issued >= STAGES)  // every warp released step issued - STAGES
+            mbar_wait(rg.empty + 8 * si, (rg.issued / STAGES - 1) & 1);
+          issue(walk, rg, si);
+        }
+      }
+      const int s = rg.step % STAGES;
+      mbar_wait(rg.full + 8 * s, (rg.step / STAGES) & 1);
+      const uint32_t blk = rg.base + s * STAGE_BYTES;
+      if (wn + WN <= rows)  // every column of the warp's is a unit of the chunk
+        product<NT, true>(acc, in, lda, wm, wn, k0, blk, rows);
+      else if (wn < rows)
+        product<NT, false>(acc, in, lda, wm, wn, k0, blk, rows);
+      __syncwarp();  // the warp is done with the stage
+      if (lane == 0) mbar_arrive(rg.empty + 8 * s);
+    }
+    epi(acc, c0, rows);
+  }
+}
+
+// The forward's epilogue of one chunk (`acc`, `c0`, `rows` as `layer`
+// gives them): fragment c of (mi, ni) is row wm + 16 mi + gr + 8 (c / 2),
+// column wn + 8 ni + 2 t4 + c % 2 of the chunk. A tanh layer stores
+// tanhf(acc + bias) rounded to bf16 into `out` (row stride lda) and, with
+// FAC (K2g), each f32 value into `fac` (row stride ldf); the head passes
+// each pair of acc + bias to head_fn(r, column, v0, v1).
+template <int TILE, bool FAC, int NT, class Head>
+__device__ __forceinline__ void forward_epilogue(const float (&acc)[2][NT][4], const float* bias, int c0, int rows,
+                                                 bool head, __nv_bfloat16* out, int lda, float* fac, int ldf,
+                                                 Head&& head_fn) {
+  using W = Warps<TILE>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp % W::MW) * 32, wn = (warp / W::MW) * WN;
+  const int gr = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+    const int col = wn + ni * 8 + 2 * t4;
+    if (col >= rows) continue;
+    const float2 bb = *reinterpret_cast<const float2*>(bias + c0 + col);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + mi * 16 + gr + 8 * h, cc = c0 + col;
+        const float v0 = acc[mi][ni][2 * h] + bb.x, v1 = acc[mi][ni][2 * h + 1] + bb.y;
+        if (!head) {
+          const float a0 = tanhf(v0), a1 = tanhf(v1);
+          *reinterpret_cast<__nv_bfloat162*>(out + r * lda + cc) = __floats2bfloat162_rn(a0, a1);
+          if constexpr (FAC) *reinterpret_cast<float2*>(fac + static_cast<long long>(r) * ldf + cc) = make_float2(a0, a1);
+        } else {
+          head_fn(r, cc, v0, v1);
+        }
+      }
+    }
+  }
+}
+
 template <int TILE, bool LOGP>
 __global__ void __launch_bounds__(Warps<TILE>::THREADS, 1) resident_kernel(const __grid_constant__ ResidentArgs p) {
   using W = Warps<TILE>;
-  constexpr int NT = W::NT, THREADS = W::THREADS;
+  constexpr int THREADS = W::THREADS;
   extern __shared__ __align__(128) uint8_t smem[];
   const int job = LOGP ? 0 : blockIdx.y;
   const ResidentTrunk& T = p.trunk[job];
@@ -289,10 +429,9 @@ __global__ void __launch_bounds__(Warps<TILE>::THREADS, 1) resident_kernel(const
   float* biases = reinterpret_cast<float*>(act1 + TILE * lda);  // layer l's at biases + (l % 2) nb
   float* means = biases + 2 * nb;                                // K3g
   const int ms = stage_stride(p.act_dim);
-  const uint32_t ring = general::smem_addr(smem);
-  const uint32_t full = general::smem_addr(means + (LOGP ? TILE * ms : 0)), empty = full + 8 * STAGES;
+  const uint32_t full = general::smem_addr(means + (LOGP ? TILE * ms : 0));
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   // block b walks the tiles b, b + gridDim.x, ... (rows past n: zeros, no store)
   const int tiles = (p.n + TILE - 1) / TILE;
   const int my_tiles = blockIdx.x < tiles ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
@@ -300,7 +439,7 @@ __global__ void __launch_bounds__(Warps<TILE>::THREADS, 1) resident_kernel(const
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, THREADS / 32);  // every warp
+      mbar_init(full + 8 * (STAGES + s), THREADS / 32);  // empty: every warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -308,13 +447,11 @@ __global__ void __launch_bounds__(Warps<TILE>::THREADS, 1) resident_kernel(const
 
   int per_tile = 0;
   for (int l = 0; l < T.layers; ++l) per_tile += (T.n[l] + NC - 1) / NC * (T.k[l] / KC);
-  const int total = my_tiles * per_tile;
-  Cursor cur{0, 0, 0, T.w[0]};  // warp 0's: the next block to copy
-  int issued = 0;
+  Ring rg{general::smem_addr(smem), full, full + 8 * STAGES, 0, 0, my_tiles * per_tile};
+  const ResidentTrunk* const trunks[1] = {&T};
+  const uint8_t* const images[1] = {img};
+  Walk<1> walk(trunks, images);  // warp 0's: the next block to copy
 
-  const int wm = (warp % W::MW) * 32, wn = (warp / W::MW) * WN;
-  const int gr = lane >> 2, t4 = lane & 3;
-  int step = 0;
   for (int g = 0; g < my_tiles; ++g) {
     const int row0 = (blockIdx.x + g * gridDim.x) * TILE;
     load_rows<TILE>(act0, lda, p.x, p.ld, p.n, p.obs_dim, T.k[0], row0);
@@ -323,67 +460,24 @@ __global__ void __launch_bounds__(Warps<TILE>::THREADS, 1) resident_kernel(const
       for (int i = tid; i < T.n[l]; i += THREADS) bias[i] = reinterpret_cast<const float*>(img + T.b[l])[i];
       __syncthreads();  // the layer's input and bias are written; every warp is done reading what it writes
       const bool head = l == T.layers - 1;
-      const uint32_t in = general::smem_addr(l % 2 ? act1 : act0);
       __nv_bfloat16* out = l % 2 ? act0 : act1;
-      for (int c0 = 0; c0 < T.n[l]; c0 += NC) {
-        const int rows = min(NC, T.n[l] - c0);
-        float acc[2][NT][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
-        for (int k0 = 0; k0 < T.k[l]; k0 += KC, ++step) {
-          if (warp == 0) {  // the copies up to STAGES - 1 steps ahead, each once its stage is free
-            for (; issued < total && issued < step + STAGES; ++issued) {
-              const int si = issued % STAGES;
-              if (issued >= STAGES)  // every warp released step issued - STAGES
-                mbar_wait(empty + 8 * si, (issued / STAGES - 1) & 1);
-              issue(cur, T, img, ring, full, si);
+      layer<TILE>(T, l, general::smem_addr(l % 2 ? act1 : act0), lda, rg, walk, [&](const auto& acc, int c0, int rows) {
+        forward_epilogue<TILE, false>(acc, bias, c0, rows, head, out, lda, nullptr, 0,
+                                      [&](int r, int cc, float v0, float v1) {
+          if constexpr (LOGP) {
+            if (cc < p.act_dim) means[r * ms + cc] = v0;
+            if (cc + 1 < p.act_dim) means[r * ms + cc + 1] = v1;
+          } else if (row0 + r < p.n) {
+            const long long row = row0 + r;
+            if (job == 0) {
+              if (cc < p.act_dim) p.out[0][row * p.act_dim + cc] = v0;
+              if (cc + 1 < p.act_dim) p.out[0][row * p.act_dim + cc + 1] = v1;
+            } else if (cc == 0) {
+              p.out[1][row] = v0;
             }
           }
-          const int s = step % STAGES;
-          mbar_wait(full + 8 * s, (step / STAGES) & 1);
-          const uint32_t blk = ring + s * STAGE_BYTES;
-          if (wn + WN <= rows)  // every column of the warp's is a unit of the chunk
-            product<NT, true>(acc, in, lda, wm, wn, k0, blk, rows);
-          else if (wn < rows)
-            product<NT, false>(acc, in, lda, wm, wn, k0, blk, rows);
-          __syncwarp();  // the warp is done with the stage
-          if (lane == 0) mbar_arrive(empty + 8 * s);
-        }
-        // the epilogue: fragment c of (mi, ni) is row wm + 16 mi + gr + 8 (c / 2),
-        // column wn + 8 ni + 2 t4 + c % 2 of the chunk
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) {
-          const int col = wn + ni * 8 + 2 * t4;
-          if (col >= rows) continue;
-          const float2 bb = *reinterpret_cast<const float2*>(bias + c0 + col);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = wm + mi * 16 + gr + 8 * h, cc = c0 + col;
-              const float v0 = acc[mi][ni][2 * h] + bb.x, v1 = acc[mi][ni][2 * h + 1] + bb.y;
-              if (!head) {
-                *reinterpret_cast<__nv_bfloat162*>(out + r * lda + cc) = __floats2bfloat162_rn(tanhf(v0), tanhf(v1));
-              } else if constexpr (LOGP) {
-                if (cc < p.act_dim) means[r * ms + cc] = v0;
-                if (cc + 1 < p.act_dim) means[r * ms + cc + 1] = v1;
-              } else if (row0 + r < p.n) {
-                const long long row = row0 + r;
-                if (job == 0) {
-                  if (cc < p.act_dim) p.out[0][row * p.act_dim + cc] = v0;
-                  if (cc + 1 < p.act_dim) p.out[0][row * p.act_dim + cc + 1] = v1;
-                } else if (cc == 0) {
-                  p.out[1][row] = v0;
-                }
-              }
-            }
-          }
-        }
-      }
+        });
+      });
     }
     __syncthreads();  // the head's means are staged; every warp is done with the tile's buffers
     if constexpr (LOGP) {

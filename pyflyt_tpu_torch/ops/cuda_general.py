@@ -33,10 +33,24 @@ K4g and K3g have two routes, chosen from the widths (``resident_tile``):
   Activations go through a device workspace the wrapper sizes per call.
 
 K2g takes its flat parameter vector (``cuda_sgd.flat_layout`` of
-``leaf_specs``), which its Adam updates in place, and runs the per-layer
-GEMM. Both K3g routes run each output's k16 steps in order on the same
-fragments as K2g's forward, so a row's log-prob from K3g equals K2g's bit
-for bit. Each route has its own launch counter.
+``leaf_specs``), which its Adam updates in place, on two routes chosen from
+the widths (``epoch_route``):
+
+- resident (``csrc/fused_epoch_general.cu``'s ``rep::`` kernels on
+  ``csrc/policy_resident.cuh``): an image kernel a call, then four kernels
+  a minibatch: a tile of rows of one trunk through the resident forward,
+  the loss and the data gradient back through the layers (the weights
+  from a forward and a backward image, ``epoch_layouts``), the weight
+  gradient from the bf16 tiles it wrote, a fixed-order reduce, and Adam,
+  which writes the next minibatch's images. It takes every trunk pair
+  whose widest width fits a block (``epoch_tile``): at 4 actions a width
+  of 288 at 128 rows a block and 576 at 64;
+- per layer: one launch of ``csrc/policy_general.cuh``'s GEMM a layer and
+  pass, past that.
+
+Every route runs each output's forward k16 steps in order on the same
+fragments, so a row's log-prob from K3g equals K2g's forward bit for bit
+on either. Each route has its own launch counter.
 
 The wrappers launch their kernel for CUDA tensors only; ``cuda_policy``
 and ``cuda_sgd`` call them after their CPU branch, where the plain twins
@@ -62,14 +76,19 @@ CHUNK = 512  # rows a weight-gradient partial of K2g sums (a multiple of BK)
 _THREADS = 256  # K2g's loss, reduce and Adam blocks; K3g's log-prob block
 
 
-def kernels_per_minibatch(pi_depth: int, vf_depth: int) -> int:
-    """CUDA kernels K2g enqueues a minibatch: a forward GEMM a layer (the
-    heads included), the loss, a weight-gradient GEMM a layer, a
-    data-gradient GEMM a layer but the first, the reduce and Adam."""
-    return 3 * (pi_depth + vf_depth) + 7
+def kernels_per_minibatch(pi_depth: int, vf_depth: int, route: str = "per_layer") -> int:
+    """CUDA kernels K2g enqueues a minibatch. Per layer: a forward GEMM a
+    layer (the heads included), the loss, a weight-gradient GEMM a layer, a
+    data-gradient GEMM a layer but the first, the reduce and Adam.
+    Resident: the forward and backward, the weight gradient, the reduce and
+    Adam, whatever the depths."""
+    return 4 if route == "resident" else 3 * (pi_depth + vf_depth) + 7
 
 
-KERNELS_PER_CALL = 0  # and nothing once a call
+def kernels_per_call(route: str) -> int:
+    """CUDA kernels K2g enqueues once a call beside its minibatches': the
+    resident route's first images, none per layer."""
+    return 1 if route == "resident" else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -600,9 +619,16 @@ def leaf_trunks(cfg) -> tuple[Trunk, Trunk, int]:
     return pi, vf, offsets[2 * n_pi + 2]
 
 
-def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg):
-    """K2g's launch, after ``cuda_sgd.fused_epoch``'s checks: ``(leaves, mu,
-    nu, metrics)``."""
+def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg, route: str | None = None):
+    """K2g's launch, after ``cuda_sgd.fused_epoch``'s checks, on the route of
+    the widths (``epoch_route``) or on ``route`` when given (a timing of the
+    per-layer route at widths the resident one takes): ``(leaves, mu, nu,
+    metrics)``."""
+    route = epoch_route(cfg) if route is None else route
+    if route == "resident":
+        return launch_resident_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg)
+    if route != "per_layer":
+        raise ValueError(f"unknown K2g route {route!r}")
     dev = mbs.device
     n_mb, mb_size, feat = mbs.shape
     net = dict(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes)
@@ -636,3 +662,233 @@ def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg):
     _launch(EPOCH_KERNEL, args, dev)
     return (cuda_sgd._from_flat(params, shapes, offsets), cuda_sgd._from_flat(m1, shapes, offsets),
             cuda_sgd._from_flat(m2, shapes, offsets), metrics)
+
+
+# ---------------------------------------------------------------------------
+# K2g's resident route (csrc/fused_epoch_general.cu, namespace rep)
+# ---------------------------------------------------------------------------
+
+EPOCH_WG_BM = 128  # a weight-gradient block's units (rows of W_l) and outputs
+EPOCH_WG_BK = 32  # rows a stage; a chunk of rows is a multiple of it
+EPOCH_WG_WAVES = 2  # weight-gradient blocks about twice the card's SMs (the rows split to get there)
+EPOCH_MAX_LOSS_SUMS = 256  # a 64-row block's threads: the loss's sums a tile, 2 + 2 act_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochTrunkLayout:
+    """One trunk on the resident epoch: its forward image (``W_0 .. W_L``,
+    the head last, as K4g's) and its backward image (``W_L^T .. W_1^T`` laid
+    out as a trunk of their own from the head's outputs to the first tanh
+    layer's, zero biases; None for a linear trunk)."""
+
+    fwd: ResidentLayout
+    bwd: ResidentLayout | None
+
+    @property
+    def depth(self) -> int:
+        return self.fwd.layers - 1
+
+
+def epoch_trunk_layout(obs_dim: int, sizes, outs: int) -> EpochTrunkLayout:
+    dims = (int(obs_dim), *(int(s) for s in sizes), int(outs))
+    bwd = _resident_layout(dims[:0:-1]) if len(dims) > 2 else None
+    return EpochTrunkLayout(_resident_layout(dims), bwd)
+
+
+def epoch_layouts(obs_dim: int, act_dim: int, pi_sizes, vf_sizes) -> tuple[EpochTrunkLayout, EpochTrunkLayout]:
+    """The (actor, critic) images of the resident epoch."""
+    return epoch_trunk_layout(obs_dim, pi_sizes, act_dim), epoch_trunk_layout(obs_dim, vf_sizes, 1)
+
+
+def epoch_width(lays) -> int:
+    """The activation buffers' width: the widest padded input of the four
+    images and the heads' padded outputs (the data gradient's first input)."""
+    widths = [w for lay in lays for w in (*lay.fwd.k, lay.fwd.n[-1], *(lay.bwd.k if lay.bwd else ()))]
+    return max(widths)
+
+
+def epoch_smem(tile: int, width: int, act_dim: int) -> int:
+    """Dynamic shared memory of a resident fwd_bwd block (csrc's
+    ``rep::smem_bytes``): ``resident_smem``'s ring, activation and bias
+    buffers and barriers, the staged head outputs (then their dz), and the
+    per-warp sums (the loss's, then the data gradient's column sums)."""
+    sums = tile // 32 * max(width, 2 + 2 * act_dim) * 4
+    return resident_smem(tile, width, act_dim, logp=True) + sums
+
+
+def epoch_tile(lays, act_dim: int) -> int | None:
+    """Rows a fwd_bwd block of the resident epoch takes, or None for the
+    per-layer route: both trunks of at most RES_MAX_LAYERS layers, at most
+    EPOCH_MAX_LOSS_SUMS loss sums a tile, and the first of RES_TILES whose
+    ``epoch_smem`` fits RES_SMEM_LIMIT."""
+    images = [im for lay in lays for im in (lay.fwd, lay.bwd) if im is not None]
+    if any(im.layers > RES_MAX_LAYERS or im.bytes >= 2**31 for im in images):
+        return None
+    if 2 + 2 * act_dim > EPOCH_MAX_LOSS_SUMS:
+        return None
+    width = epoch_width(lays)
+    return next((t for t in RES_TILES if epoch_smem(t, width, act_dim) <= RES_SMEM_LIMIT), None)
+
+
+def epoch_route(cfg) -> str:
+    """K2g's route for an ``EpochConfig``'s widths: ``"resident"`` or
+    ``"per_layer"``."""
+    lays = epoch_layouts(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
+    return "resident" if epoch_tile(lays, cfg.act_dim) is not None else "per_layer"
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentWorkspace:
+    """The resident epoch's buffers for minibatches of ``mb`` rows in
+    ``tiles`` tiles of ``tile`` rows (``rows`` = tiles x tile): per trunk
+    and layer the offsets of its bf16 input tiles (``act``, rows x
+    fwd.k[l], in ``acts`` elements), its bf16 dz tiles (``dz``, rows x
+    fwd.n[l]), a tanh layer's f32 outputs (``fac``, rows x fwd.n[l]; the
+    head's 0, unused) and its column sums' first column in a colsum row
+    (``cs``); the weight gradient's row chunks."""
+
+    tile: int
+    tiles: int
+    rows: int
+    act: tuple
+    dz: tuple
+    fac: tuple
+    cs: tuple
+    acts: int
+    dzs: int
+    factor: int
+    cs_width: int
+    splits: int
+    split_rows: int
+
+
+def wgrad_jobs(lays) -> int:
+    """The weight gradient's blocks a row chunk: each layer's outputs in
+    EPOCH_WG_BM x EPOCH_WG_BM tiles (csrc's ``rep::wgrad_jobs``)."""
+    up = lambda x: -(-x // EPOCH_WG_BM)  # noqa: E731
+    return sum(up(k) * up(n) for lay in lays for k, n in zip(lay.fwd.k, lay.fwd.n))
+
+
+def resident_workspace(mb: int, tile: int, lays, sms: int) -> ResidentWorkspace:
+    """The buffers' layout for ``mb`` rows a minibatch on a card of ``sms``
+    SMs: the weight gradient's rows split into chunks of a multiple of
+    EPOCH_WG_BK rows, enough for about EPOCH_WG_WAVES blocks an SM."""
+    tiles = -(-int(mb) // tile)
+    rows = tiles * tile
+    act, dz, fac, cs = [], [], [], []
+    a_at = d_at = f_at = 0
+    cs_width = 0
+    for lay in lays:
+        ta, td, tf, tc = [], [], [], []
+        c_at = 0
+        for l in range(lay.fwd.layers):
+            ta.append(a_at)
+            a_at += rows * lay.fwd.k[l]
+            td.append(d_at)
+            d_at += rows * lay.fwd.n[l]
+            if l < lay.depth:
+                tf.append(f_at)
+                f_at += rows * lay.fwd.n[l]
+            else:
+                tf.append(0)
+            tc.append(c_at)
+            c_at += lay.fwd.n[l]
+        cs_width = max(cs_width, c_at)
+        act.append(tuple(ta))
+        dz.append(tuple(td))
+        fac.append(tuple(tf))
+        cs.append(tuple(tc))
+    jobs = wgrad_jobs(lays)
+    splits = max(1, min(rows // EPOCH_WG_BK, -(-EPOCH_WG_WAVES * int(sms) // jobs)))
+    split_rows = -(-(-(-rows // splits)) // EPOCH_WG_BK) * EPOCH_WG_BK
+    splits = -(-rows // split_rows)
+    return ResidentWorkspace(tile, tiles, rows, tuple(act), tuple(dz), tuple(fac), tuple(cs), max(a_at, 8),
+                             max(d_at, 8), max(f_at, 2), cs_width, splits, split_rows)
+
+
+class _EpochTrunkC(ctypes.Structure):
+    """Mirror of ``struct EpochTrunk`` in csrc/fused_epoch_general.cu."""
+
+    _fields_ = [("dims", ctypes.c_int * (RES_MAX_LAYERS + 1))] + [
+        (name, ctypes.c_int * RES_MAX_LAYERS) for name in ("w_off", "b_off")] + [
+        (name, ctypes.c_longlong * RES_MAX_LAYERS) for name in ("act", "dz", "fac")] + [
+        ("cs", ctypes.c_int * RES_MAX_LAYERS), ("fwd", _ResidentTrunkC), ("bwd", _ResidentTrunkC)]
+
+
+class _ResidentEpochArgsC(ctypes.Structure):
+    """Mirror of ``struct ResidentEpochArgs`` in csrc/fused_epoch_general.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics")] + [
+        ("image", ctypes.c_void_p * 4)] + [
+        (name, ctypes.c_void_p) for name in ("acts", "dzs", "factor", "colsum", "part", "slab", "grad",
+                                             "block_sq")] + [
+        ("trunk", _EpochTrunkC * 2)] + [
+        (name, ctypes.c_int) for name in ("ls_off", "P", "n_mb", "mb", "feat", "obs_dim", "act_dim", "tile", "width",
+                                          "cs_width", "splits", "split_rows")] + [
+        (name, ctypes.c_float) for name in ("lr", "clip_eps", "ent_coef", "vf_coef", "max_grad_norm")] + [
+        ("has_range", ctypes.c_int), ("ls_lo", ctypes.c_float), ("ls_hi", ctypes.c_float)]
+
+
+RESIDENT_EPOCH_KERNEL = Kernel("fused_epoch_general.cu", "fused_epoch_general_resident",
+                               [ctypes.c_void_p, ctypes.c_void_p])
+
+
+def _epoch_trunk_c(lay: EpochTrunkLayout, t: Trunk, ws: ResidentWorkspace, i: int) -> _EpochTrunkC:
+    c = _EpochTrunkC(fwd=_resident_trunk_c(lay.fwd))
+    if lay.bwd is not None:
+        c.bwd = _resident_trunk_c(lay.bwd)
+    c.dims[: len(t.dims)] = t.dims
+    for name, values in (("w_off", t.w), ("b_off", t.b), ("act", ws.act[i]), ("dz", ws.dz[i]), ("fac", ws.fac[i]),
+                         ("cs", ws.cs[i])):
+        getattr(c, name)[: len(values)] = values
+    return c
+
+
+def resident_epoch_args(bufs: dict, cfg, n_mb: int, mb: int, feat: int, P: int, ls_off: int, trunks,
+                        lays, ws: ResidentWorkspace) -> _ResidentEpochArgsC:
+    """The resident epoch's launch arguments on the tensors of ``bufs``."""
+    has_range, lo, hi = cuda_sgd._range_args(cfg.log_std_range)
+    args = _ResidentEpochArgsC(
+        ls_off=ls_off, P=P, n_mb=n_mb, mb=mb, feat=feat, obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, tile=ws.tile,
+        width=epoch_width(lays), cs_width=ws.cs_width, splits=ws.splits, split_rows=ws.split_rows,
+        lr=cfg.learning_rate, clip_eps=cfg.clip_eps, ent_coef=cfg.entropy_coef, vf_coef=cfg.value_coef,
+        max_grad_norm=cfg.max_grad_norm, has_range=has_range, ls_lo=lo, ls_hi=hi)
+    for name in ("mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics", "acts", "dzs", "factor", "colsum",
+                 "part", "slab", "grad", "block_sq"):
+        setattr(args, name, bufs[name].data_ptr())
+    args.image[:] = [im.data_ptr() for im in bufs["images"]]
+    for i in range(2):
+        args.trunk[i] = _epoch_trunk_c(lays[i], trunks[i], ws, i)
+    return args
+
+
+def launch_resident_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg):
+    """K2g's resident launch (``launch_epoch`` on ``epoch_route``'s
+    ``"resident"``): ``(leaves, mu, nu, metrics)``."""
+    lays = epoch_layouts(cfg.obs_dim, cfg.act_dim, cfg.pi_sizes, cfg.vf_sizes)
+    tile = epoch_tile(lays, cfg.act_dim)
+    if tile is None:
+        raise NotImplementedError(f"trunks {cfg.pi_sizes} / {cfg.vf_sizes} outside K2g's resident route (epoch_route)")
+    dev = mbs.device
+    n_mb, mb_size, feat = mbs.shape
+    net = dict(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, pi_sizes=cfg.pi_sizes, vf_sizes=cfg.vf_sizes)
+    shapes = [s for _, s in cuda_sgd.leaf_specs(net)]
+    offsets, P = cuda_sgd.flat_layout(shapes)
+    params, m1, m2 = (cuda_sgd._to_flat(g, offsets, P) for g in (leaves, mu, nu))
+    pi, vf, ls_off = leaf_trunks(cfg)
+    ws = resident_workspace(mb_size, tile, lays, torch.cuda.get_device_properties(dev).multi_processor_count)
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
+    bufs = dict(
+        mbs=mbs.contiguous(), adv_stats=adv_stats.to(torch.float32).contiguous(),
+        t0=t0.to(torch.int32).reshape(1).contiguous(), params=params, mu=m1, nu=m2,
+        metrics=empty(n_mb, len(cuda_sgd.METRICS)),
+        images=[torch.zeros((im.bytes if im is not None else 16,), dtype=torch.uint8, device=dev)
+                for lay in lays for im in (lay.fwd, lay.bwd)],
+        acts=empty(ws.acts, dtype=torch.bfloat16), dzs=empty(ws.dzs, dtype=torch.bfloat16), factor=empty(ws.factor),
+        colsum=empty(2, ws.tiles, ws.cs_width), part=empty(ws.tiles, 3 + cfg.act_dim), slab=empty(ws.splits, P),
+        grad=empty(P), block_sq=empty(-(-P // _THREADS)),
+    )
+    args = resident_epoch_args(bufs, cfg, n_mb, mb_size, feat, P, ls_off, (pi, vf), lays, ws)
+    _launch(RESIDENT_EPOCH_KERNEL, args, dev)
+    return (cuda_sgd._from_flat(params, shapes, offsets), cuda_sgd._from_flat(m1, shapes, offsets),
+            cuda_sgd._from_flat(m2, shapes, offsets), bufs["metrics"])

@@ -347,10 +347,11 @@ def sass_diff(cuda_build, lib_a: str, lib_b: str, match=()) -> int:
 def sass_against(cuda_build, before: str, after: str, match) -> int:
     """``--sass``: both sources built with the port's flags (each with its
     own directory on the include path) under
-    ``build/fixedwing_lane_probe/sass``; prints ``function_diffs`` of the
+    ``build/fixedwing_lane_probe/sass/<source>`` (so that several sources
+    compare at once); prints ``function_diffs`` of the
     functions ``match`` names as one JSON line; 1 if one differs or is
     missing, or none matched."""
-    work = os.path.join(HERE, "build", "fixedwing_lane_probe", "sass")
+    work = os.path.join(HERE, "build", "fixedwing_lane_probe", "sass", os.path.basename(after).replace(".", "_"))
     os.makedirs(work, exist_ok=True)
     libs = []
     for tag, source in (("before", before), ("after", after)):

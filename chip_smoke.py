@@ -192,11 +192,12 @@ Phases, each of which fails the script on a failed check:
      tests/test_packed_hover.py's setpoints, half the fleet climbing out of
      a 1.5 m dome, lane by lane; its noise and a noisy repeat;
  52. ``general_grid``: the general family's K4g and K3g
-     (csrc/policy_general.cu) against their twins over 9 trunk pairs (a
+     (csrc/policy_general.cu) against their twins over 10 trunk pairs (a
      linear policy, six 48-wide layers, 160-72, a 2 x 256 actor beside a
      32-32 critic, (256,), 3 x 256, 2 x 512, 2 x 256 + 64 on the resident
-     route, (1024,) past it on the per-layer route) x (obs 21, act 4),
-     (obs 72, act 10) x 1, 1000 and 8192 rows, each launch counted on its
+     route, (1024,) past a block's width on the cluster route, (4128,)
+     past a cluster's on the per-layer route) x (obs 21, act 4), (obs
+     72, act 10) x 1, 1000 and 8192 rows, each launch counted on its
      route; where a pair is resident, its K4g and K3g bit for bit the
      per-layer route's at 1000 and 8192 rows;
  53. ``general_epochs``: K2g (csrc/fused_epoch_general.cu) against its
@@ -209,24 +210,39 @@ Phases, each of which fails the script on a failed check:
  54. ``hover7_serving``: 8192 PackedQuadXHoverEnv(QuadXHoverEnv(
      flight_mode=7)) envs, a 3 x 256 ActorCritic through K4g, cached
      auto-reset 64, 256 steps (one row-1 and one K4g launch a step), and
-     single steps' latency;
+     single steps' latency; then 64 steps at the hovering CLI's 2 x 1024
+     (``--num_of_layers 2 --layer_size 1024``: one row-1 and one cluster
+     K4g launch a step);
  55. ``hover7_train``: one timed PPO iteration (after a warm-up) of the
      hover fused_sgd recipe (8192 x 32, 15 x 32) on that env and trunk
      (row 1, K4g, K3g, K2g), and one at the default 2 x 256 trunk (row 1,
-     K4, K3, K2);
+     K4, K3, K2) and one at 2 x 1024 (row 1, K4g and K3g on the cluster
+     route, K2g per layer);
  56. ``general_kernel_times``: row 1 in mode 7, K4g, K3g and K2g at those
      shapes against their bounds, their twins and their library calls; K4g,
      K3g and K2g on the resident route, the per-layer route forced at the
      same shapes and the library call in turns (K3g also its kernel and its
      image build alone), with the resident kernels' ptxas registers and
-     spills; and the per-layer route where its main path runs it (the
-     (1024,) trunk of ``traj_train``'s ``other_trunks``, at its rows);
+     spills; the cluster route, the per-layer route forced and the
+     library call in turns at the (1024,) trunk of ``traj_train``'s
+     ``other_trunks`` (its rows; K2g per layer) and at the 2 x 1024
+     training path's shapes (8192 and 262,144 rows), with the cluster
+     kernels' ptxas;
  57. ``general_main_path_checks``: K3g over the training path's batch and
      K2g over two of its minibatches on its trained 3 x 256 network, and
      its 32 x 8192 epoch bit for bit as 32 chained one-minibatch calls;
-     then the ``kernels`` line for all twenty kernels (rows 1, 2, 4, 5,
-     6, 8, 9 and 10 with phase 2's launch records; the general family's
-     two routes of K4g, K3g and K2g each a kernel).
+     then the ``kernels`` line for all twenty-two kernels (rows 1, 2, 4,
+     5, 6, 8, 9 and 10 with phase 2's launch records; the general
+     family's routes of K4g and K3g (resident, cluster, per layer) and of
+     K2g (resident, per layer) each a kernel);
+ 58. ``general_cluster``: K4g and K3g on the cluster route
+     (csrc/policy_cluster.cuh) against their twins over 6 trunk pairs
+     ((640,), (1000,), (1024,), 2 x 1024, (2048,), (1024,) beside a 32-32
+     critic) x (obs 21, act 4), (obs 72, act 10), and (1024,) at obs 21,
+     act 40 (a head too wide to relay) x 1000, 4093 and 8192 rows, each
+     bit for bit the per-layer route forced, each launch counted; K3g's log-probs K2g's per-layer forward (approx_kl exactly
+     0) at (1024,) and 2 x 1024. Its results print before the
+     ``kernels`` line, which lists the cluster route's entries.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -1359,7 +1375,9 @@ def all_kernels():
             "general_logp_forward": cuda_general.LOGP_KERNEL, "fused_epoch_general": cuda_general.EPOCH_KERNEL,
             "general_resident_forward": cuda_general.RESIDENT_FORWARD_KERNEL,
             "general_resident_logp": cuda_general.RESIDENT_LOGP_KERNEL,
-            "general_resident_epoch": cuda_general.RESIDENT_EPOCH_KERNEL}
+            "general_resident_epoch": cuda_general.RESIDENT_EPOCH_KERNEL,
+            "general_cluster_forward": cuda_general.CLUSTER_FORWARD_KERNEL,
+            "general_cluster_logp": cuda_general.CLUSTER_LOGP_KERNEL}
 
 
 def zero_launches() -> None:
@@ -2941,10 +2959,11 @@ def general_epoch_kernels() -> dict:
 def general_resident_kernels() -> dict:
     """The CUDA kernels of one K4g call (8192 rows) and one K3g call
     (262,144 rows) at the slice's 3 x 256 trunk on the resident route, and
-    of each on the per-layer route at the (1024,) trunk where its main path
-    runs it (256 and 4096 rows), counted by torch.profiler (in the launch
-    records' child process): the resident K4g one kernel and nothing else,
-    the resident K3g one kernel of its own beside its image build's, the
+    of each on the cluster route and on the per-layer route (forced) at the
+    (1024,) trunk of ``other_trunks`` (256 and 4096 rows), counted by
+    torch.profiler (in the launch records' child process): the resident
+    and the cluster K4g one kernel and nothing else, the resident and the
+    cluster K3g one kernel of its own beside its image build's, the
     per-layer K4g a GEMM a layer a trunk, the per-layer K3g a GEMM a layer
     beside its log-prob kernel and its image build's."""
     import torch
@@ -2970,16 +2989,23 @@ def general_resident_kernels() -> dict:
         counts = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         return {"own": sum(c for k, c in counts if own in k), "other": sum(c for k, c in counts if own not in k)}
 
+    wide_images = per_layer_images(wide_net)
     out = {"k4g": count(lambda: cuda_policy.policy_value_forward(obs, w), "resident_kernel"),
            "k3g": count(lambda: cuda_sgd.logp_forward(rows, pi_leaves(net), 21, vf_sizes=GENERAL_TRUNK),
                         "resident_kernel"),
-           "k4g_per_layer": count(lambda: cuda_policy.policy_value_forward(wide_obs, wide_w), "GemmArgs"),
-           "k3g_per_layer": count(lambda: cuda_sgd.logp_forward(wide_rows, pi_leaves(wide_net), 21,
-                                                                vf_sizes=(1024,)), "GemmArgs")}
+           "k4g_cluster": count(lambda: cuda_policy.policy_value_forward(wide_obs, wide_w), "cluster_kernel"),
+           "k3g_cluster": count(lambda: cuda_sgd.logp_forward(wide_rows, pi_leaves(wide_net), 21, vf_sizes=(1024,)),
+                                "cluster_kernel"),
+           "k4g_per_layer": count(lambda: cuda_general.forward_per_layer(wide_obs, wide_w, *wide_images), "GemmArgs"),
+           "k3g_per_layer": count(lambda: cuda_general.logp_per_layer(wide_rows, pi_leaves(wide_net), 21),
+                                  "GemmArgs")}
     check(out["k4g"] == {"own": 1, "other": 0}, f"resident K4g: CUDA kernels a call {out['k4g']}")
     check(out["k3g"]["own"] == 1, f"resident K3g: CUDA kernels a call {out['k3g']}")
-    check(cuda_general.forward_route(wide_w) == "per_layer" and out["k4g_per_layer"] == {"own": 4, "other": 0},
-          f"per-layer K4g: CUDA kernels a call {out['k4g_per_layer']}")
+    check(cuda_general.forward_route(wide_w) == "cluster" and out["k4g_cluster"] == {"own": 1, "other": 0},
+          f"cluster K4g: CUDA kernels a call {out['k4g_cluster']}")
+    check(cuda_general.logp_route(21, 4, (1024,)) == "cluster" and out["k3g_cluster"]["own"] == 1,
+          f"cluster K3g: CUDA kernels a call {out['k3g_cluster']}")
+    check(out["k4g_per_layer"] == {"own": 4, "other": 0}, f"per-layer K4g: CUDA kernels a call {out['k4g_per_layer']}")
     check(out["k3g_per_layer"]["own"] == 2, f"per-layer K3g: CUDA kernels a call {out['k3g_per_layer']}")
     return out
 
@@ -3938,16 +3964,19 @@ def traj_train(seed: int, card: str) -> dict:
 
 def other_trunks(seed: int, card: str) -> dict:
     """The fused PPO path on the mesh curves' (32, 32) and on (128,) (the
-    narrow family's), on (256,) (the general family's resident route) and
-    on (1024,) (its per-layer route), 256 r4 slow envs x 16 steps, 2 epochs
-    x 4 minibatches."""
+    narrow family's), on (256,) (the general family's resident route), on
+    (1024,) (K4g and K3g on its cluster route, K2g per layer) and on
+    (4128,) (past a cluster of 8: every kernel per layer), 256 r4 slow envs
+    x 16 steps, 2 epochs x 4 minibatches."""
     from pyflyt_tpu_torch.rl import PPO
 
     names = {"narrow": ("narrow_policy_value_forward", "narrow_logp_forward", "fused_epoch_narrow"),
              "resident": ("general_resident_forward", "general_resident_logp", "general_resident_epoch"),
+             "cluster": ("general_cluster_forward", "general_cluster_logp", "fused_epoch_general"),
              "per_layer": ("general_policy_value_forward", "general_logp_forward", "fused_epoch_general")}
     out = {}
-    for sizes, kind in (((32, 32), "narrow"), ((128,), "narrow"), ((256,), "resident"), ((1024,), "per_layer")):
+    for sizes, kind in (((32, 32), "narrow"), ((128,), "narrow"), ((256,), "resident"), ((1024,), "cluster"),
+                        (GENERAL_PAST, "per_layer")):
         cfg = traj_r4_config(num_envs=256, rollout_steps=16, num_epochs=2, num_minibatches=4, pi_sizes=sizes,
                              vf_sizes=sizes, fused_rollout_forward=True, fused_sgd=True)
         fwd, logp, epoch = names[kind]
@@ -4330,8 +4359,25 @@ GENERAL_TRUNK = (256, 256, 256)  # the hovering CLI's --num_of_layers 3 --layer_
 GENERAL_PAIRS = (((), ()), ((48,) * 6, (48,) * 6), ((160, 72), (160, 72)), ((256, 256), (32, 32)),
                  ((256,), (256,)), (GENERAL_TRUNK, GENERAL_TRUNK), ((512, 512), (512, 512)),
                  ((256, 256, 64), (256, 256, 64)))
-# the grid's pairs: those and one past the resident route's envelope (the per-layer route)
-GENERAL_GRID_PAIRS = GENERAL_PAIRS + (((1024,), (1024,)),)
+# the per-layer route's trunk for K4g and K3g: one layer past what a cluster of 8 holds
+GENERAL_PAST = (4128,)
+# the grid's pairs: those, one past a block's width (K4g and K3g on the
+# cluster route, K2g per layer) and one past a cluster's (every kernel per layer)
+GENERAL_WIDE = ((1024,), (1024,))
+GENERAL_GRID_PAIRS = GENERAL_PAIRS + (GENERAL_WIDE, (GENERAL_PAST, GENERAL_PAST))
+# the cluster route's pairs (phase 58): 640 (three chunks), 1000 (padded),
+# 1024 units and the hovering CLI's --num_of_layers 2 --layer_size 1024 (2
+# or 4 blocks a cluster by the rows), 2048 (4 or 8), a wide actor beside a
+# narrow critic, and two layers of 1504 (C = 4) and of 3040 units (C = 8):
+# an odd count of 32-deep k steps and two chunks a rank, so that a middle
+# rank's peer blocks lie at both ends of each chunk's k range, an odd
+# number of them
+HOVER7_WIDE = (1024, 1024)
+CLUSTER_PAIRS = (((640,), (640,)), ((1000,), (1000,)), ((1024,), (1024,)), (HOVER7_WIDE, HOVER7_WIDE),
+                 ((2048,), (2048,)), ((1024,), (32, 32)), ((1504, 1504), (1504, 1504)),
+                 ((3040, 3040), (3040, 3040)))
+CLUSTER_ROWS = (N_RAGGED, HOVER_MIDWARP, N_ENVS)
+HOVER7_WIDE_STEPS = 64  # the 2 x 1024 serving rollout's timed steps
 GENERAL_WIDTHS = ((21, 4), (72, 10))
 # K2g's first moment against the twin's, of each leaf's largest (K2 and K2n
 # are held at EPOCH_MU_REL at 2 x 256 and narrow trunks): about twice what
@@ -4451,9 +4497,10 @@ def per_layer_images(net):
 
 
 def check_routes_equal(net, n: int) -> bool:
-    """K4g's and K3g's resident route against the per-layer route on the
-    same inputs: the mean, value and log-probs equal bit for bit (both run
-    each output's k16 steps in order on the same mma.sync fragments)."""
+    """K4g's and K3g's route (resident or cluster) against the per-layer
+    route forced on the same inputs: the mean, value and log-probs equal
+    bit for bit (every route runs each output's k16 steps in order on the
+    same mma.sync fragments)."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy
 
@@ -4469,21 +4516,25 @@ def check_routes_equal(net, n: int) -> bool:
     return bool(torch.equal(mr, mp) and torch.equal(vr, vp) and torch.equal(lr, lp))
 
 
+K4G_ROUTES = {"resident": "general_resident_forward", "cluster": "general_cluster_forward",
+              "per_layer": "general_policy_value_forward"}
+K3G_ROUTES = {"resident": "general_resident_logp", "cluster": "general_cluster_logp",
+              "per_layer": "general_logp_forward"}
+
+
 def check_general_grid(seed: int) -> dict:
     """K4g over every trunk pair x (obs, act) x rows of the grid at
     ``policy_atol``, and K3g (the pair's family) at the same rows, with and
     without a log_std range, at ``logp_atol``; each launch counted on the
-    route of the pair's widths (the resident one but past its envelope),
-    each error counted on the route that gave it. Where both trunks take
+    route of the pair's widths (the resident one, the cluster one at
+    (1024,), the per-layer one at (4128,)), each error counted on
+    the route that gave it. Where both trunks take
     the resident route, it is also held bit for bit against the per-layer
     route at 1000 and 8192 rows."""
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy
 
-    routes = {"general_resident_forward": cuda_general.RESIDENT_FORWARD_KERNEL,
-              "general_policy_value_forward": cuda_general.FORWARD_KERNEL,
-              "general_resident_logp": cuda_general.RESIDENT_LOGP_KERNEL,
-              "general_logp_forward": cuda_general.LOGP_KERNEL}
-    worst = {route: {"mean": 0.0, "value": 0.0, "logp": 0.0} for route in ("resident", "per_layer")}
+    routes = {name: all_kernels()[name] for name in (*K4G_ROUTES.values(), *K3G_ROUTES.values())}
+    worst = {route: {"mean": 0.0, "value": 0.0, "logp": 0.0} for route in K4G_ROUTES}
     start = {k: v.launches for k, v in routes.items()}
     want = dict.fromkeys(routes, 0)
     cases, equal = 0, []
@@ -4499,20 +4550,20 @@ def check_general_grid(seed: int) -> dict:
                 e_m, e_v = check_policy(net, n, atol)
                 worst[fwd]["mean"], worst[fwd]["value"] = max(worst[fwd]["mean"], e_m), max(worst[fwd]["value"], e_v)
                 worst[lp]["logp"] = max(worst[lp]["logp"], check_logp(net, n, atol=logp_atol))
-                want["general_resident_forward" if fwd == "resident" else "general_policy_value_forward"] += 1
-                want["general_resident_logp" if lp == "resident" else "general_logp_forward"] += 2
+                want[K4G_ROUTES[fwd]] += 1
+                want[K3G_ROUTES[lp]] += 2
                 cases += 1
             if fwd == lp == "resident":
                 for n in (N_RAGGED, N_ENVS):
                     same = check_routes_equal(net, n)
                     check(same, f"general grid: {pi} {vf} obs {o} act {a} n={n}: resident != per-layer route")
                     equal.append(same)
-                    for name in routes:
+                    for name in (K4G_ROUTES["resident"], K4G_ROUTES["per_layer"], K3G_ROUTES["resident"],
+                                 K3G_ROUTES["per_layer"]):
                         want[name] += 1
     launches = {k: v.launches - start[k] for k, v in routes.items()}
     check(launches == want, f"general grid: launches {launches}, expected {want}")
-    check(want["general_policy_value_forward"] > 0 and want["general_resident_forward"] > 0,
-          "general grid: both routes")
+    check(all(want[name] > 0 for name in K4G_ROUTES.values()), "general grid: every route")
     return {"cases": cases, "pairs": GENERAL_GRID_PAIRS, "widths": GENERAL_WIDTHS, "rows": GENERAL_ROWS,
             **{f"max_{k}_err": max(v[k] for v in worst.values()) for k in ("mean", "value", "logp")},
             "by_route": worst, "launches": launches, "routes_bit_equal_cases": len(equal)}
@@ -4594,7 +4645,7 @@ def check_general_epochs(seed: int) -> dict:
     checks = []
     shapes = [(pi, vf, 21, 4, N_ENVS, None) for pi, vf in GENERAL_PAIRS]
     shapes += [(pi, vf, 72, 10, N_RAGGED, EPOCH_RANGE) for pi, vf in GENERAL_PAIRS]
-    wide = GENERAL_GRID_PAIRS[-1]
+    wide = GENERAL_WIDE
     shapes += [(*wide, 21, 4, N_ENVS, None), (*wide, 72, 10, N_RAGGED, EPOCH_RANGE)]
     for k, (pi, vf, o, a, mb, rng) in enumerate(shapes):
         route = epoch_route_of(o, a, pi, vf)
@@ -4667,7 +4718,9 @@ def hover7_train(seed: int, card: str) -> tuple[dict, object, object]:
     rollout forward) on 8192 mode-7 hover envs at the 3 x 256 trunk (row 1
     a step, K4g a step, K3g once, K2g an epoch), a warm-up and a timed,
     split iteration; then one iteration at the default 2 x 256 trunk (row
-    1, K4, K3, K2: mode 7 drives the wide family too)."""
+    1, K4, K3, K2: mode 7 drives the wide family too) and one at the
+    hovering CLI's 2 x 1024 (row 1, K4g and K3g on the cluster route, K2g
+    per layer)."""
     from pyflyt_tpu_torch.rl import PPO, PPOConfig
 
     cfg = PPOConfig(num_envs=N_ENVS, cached_reset_refresh=64, fused_sgd=True, fused_rollout_forward=True,
@@ -4682,7 +4735,104 @@ def hover7_train(seed: int, card: str) -> tuple[dict, object, object]:
                                                             "policy_value_forward": cfg.rollout_steps,
                                                             "logp_forward": 1, "fused_epoch": cfg.num_epochs},
                                "mode-7 hover at 2 x 256", seed, card, warm_up=False)
-    return {"general_3x256": general, "wide_2x256": wide}, tp, runner
+    big_cfg = PPOConfig(num_envs=N_ENVS, cached_reset_refresh=64, fused_sgd=True, fused_rollout_forward=True,
+                        feature_sizes=HOVER7_WIDE)
+    big_tp = PPO(hover7_env(), big_cfg)
+    big, big_runner = timed_iterations(big_tp, {"quadx_hover_step": cfg.rollout_steps,
+                                                "general_cluster_forward": cfg.rollout_steps,
+                                                "general_cluster_logp": 1, "fused_epoch_general": cfg.num_epochs},
+                                       "mode-7 hover at 2 x 1024", seed, card, warm_up=False)
+    return {"general_3x256": general, "wide_2x256": wide, "general_2x1024": big}, tp, runner, big_tp, big_runner
+
+
+def hover7_serving_wide(seed: int, card: str) -> dict:
+    """The serving path at the hovering CLI's widest trunk (``--num_of_layers
+    2 --layer_size 1024``): a seeded 2 x 1024 ActorCritic acting, sampled,
+    through K4g on its cluster route in 8192 mode-7 hover envs (cached
+    auto-reset 64) for HOVER7_WIDE_STEPS steps after 8: one row-1 and one
+    K4g launch a step, nothing else."""
+    import torch
+    from pyflyt_tpu_torch.envs.packed_hover import packed_autoreset_init
+    from pyflyt_tpu_torch.ops import cuda_general
+    from pyflyt_tpu_torch.rl import ppo
+    from pyflyt_tpu_torch.rl.networks import ActorCritic
+
+    env = hover7_env()
+    net = ActorCritic(env.obs_size, 4, feature_sizes=HOVER7_WIDE, device="cuda",
+                      generator=torch.Generator().manual_seed(seed))
+    check(cuda_general.forward_route(net.kernel_weights()) == "cluster", "2 x 1024 serving: not the cluster route")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ars, obs = packed_autoreset_init(env, N_ENVS, gen)
+    ars, obs, _ = ppo.rollout(net, env, ars, obs, 8, gen, refresh=64)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ars, obs, traj = ppo.rollout(net, env, ars, obs, HOVER7_WIDE_STEPS, gen, refresh=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "quadx_hover_step": HOVER7_WIDE_STEPS,
+            "general_cluster_forward": HOVER7_WIDE_STEPS}
+    check(launches == want, f"2 x 1024 serving launches {launches}, expected {want}")
+    check(bool(torch.isfinite(traj.reward).all() and torch.isfinite(traj.value).all()
+               and torch.isfinite(traj.log_prob).all()), "2 x 1024 serving: non-finite outputs")
+    zero_launches()
+    return {"card": card, "num_envs": N_ENVS, "steps": HOVER7_WIDE_STEPS, "sizes": HOVER7_WIDE, "wall_s": wall,
+            "env_steps_per_s": N_ENVS * HOVER7_WIDE_STEPS / wall, "ms_per_step": 1e3 * wall / HOVER7_WIDE_STEPS,
+            "launches": launches}
+
+
+def check_general_cluster(seed: int) -> dict:
+    """The cluster route (phase 58): K4g against its twin at ``policy_atol``
+    and K3g (with and without a log_std range) at ``logp_atol`` over
+    CLUSTER_PAIRS x GENERAL_WIDTHS x CLUSTER_ROWS, and at (1024,) with 40
+    actions (a head too wide to relay: rank 0's, the peers' blocks
+    staged), each launch counted on the cluster route; at every shape both
+    bit for bit the per-layer route forced (``check_routes_equal``); and
+    K3g's log-probs K2g's per-layer forward (approx_kl exactly 0) at (1024,)
+    and 2 x 1024."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_policy
+
+    names = (K4G_ROUTES["cluster"], K3G_ROUTES["cluster"], K4G_ROUTES["per_layer"], K3G_ROUTES["per_layer"])
+    kernels = {name: all_kernels()[name] for name in names}
+    start = {k: v.launches for k, v in kernels.items()}
+    want = dict.fromkeys(names, 0)
+    worst = {"mean": 0.0, "value": 0.0, "logp": 0.0}
+    cases = equal = 0
+    plans = {}
+    shapes = [(k, pi, vf, o, a) for k, (pi, vf) in enumerate(CLUSTER_PAIRS) for o, a in GENERAL_WIDTHS]
+    shapes.append((len(CLUSTER_PAIRS), *GENERAL_WIDE, 21, 40))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, pi, vf, o, a in shapes:
+        net = general_net(seed + 58 * k + o + a, o, a, pi, vf)
+        w = net.kernel_weights()
+        check(cuda_policy._kernel_family(w) == "general" and cuda_general.forward_route(w) == "cluster"
+              and cuda_general.logp_route(o, a, pi) == "cluster", f"cluster pairs: {pi} {vf} not on the route")
+        plans[f"{pi} {vf} obs {o} act {a}"] = {n: {
+            "k4g": cuda_general.cluster_plan(cuda_general.resident_layouts(w), a, rows=n, sms=sms),
+            "k3g": cuda_general.cluster_plan((cuda_general.resident_layout(o, pi, a),), a, True, rows=n, sms=sms)}
+            for n in CLUSTER_ROWS}
+        atol = policy_atol(net)
+        for n in CLUSTER_ROWS:
+            e_m, e_v = check_policy(net, n, atol)
+            worst["mean"], worst["value"] = max(worst["mean"], e_m), max(worst["value"], e_v)
+            worst["logp"] = max(worst["logp"], check_logp(net, n, atol=logp_atol))
+            same = check_routes_equal(net, n)
+            check(same, f"cluster route: {pi} {vf} obs {o} act {a} n={n}: not the per-layer route's bits")
+            equal += same
+            cases += 1
+            want[names[0]] += 2
+            want[names[1]] += 3
+            want[names[2]] += 1
+            want[names[3]] += 1
+    launches = {k: v.launches - start[k] for k, v in kernels.items()}
+    check(launches == want, f"cluster route: launches {launches}, expected {want}")
+    consistency = [check_general_consistency(general_net(seed + 5800 + k, 21, 4, sizes, sizes), 2, 4096)
+                   for k, sizes in enumerate(((1024,), HOVER7_WIDE))]
+    return {"cases": cases, "shapes": [sh[1:] for sh in shapes], "rows": CLUSTER_ROWS, "plans": plans,
+            **{f"max_{k}_err": v for k, v in worst.items()}, "bit_equal_to_per_layer_cases": equal,
+            "launches": launches, "consistency": consistency}
 
 
 def time_in_turns(calls: dict) -> dict:
@@ -4771,40 +4921,94 @@ def tensor_bytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def time_per_layer_route(shapes: dict) -> dict:
-    """K4g's and K3g's per-layer route where the main path runs it:
-    ``other_trunks``' (1024,) iteration (``shapes``: its network's widths,
-    here with random weights from a seed), K4g over a rollout step's rows
-    and K3g over the iteration's batch; each route call and its library
-    call in turns, the twin, and the bound at those shapes."""
-    import torch
+def cluster_ptxas() -> dict:
+    """Registers, stack frame and spills of each cluster instantiation (K4g
+    and K3g, 64-row tiles) from policy_general.cu's ``-Xptxas -v`` report."""
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    text = cuda_build.library_path("policy_general.cu").with_suffix(".log").read_text()
+    out = {}
+    for m in re.finditer(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers", text):
+        t = re.search(r"cluster_kernelILi(\d+)ELb([01])E", m.group(1))
+        if t:
+            out[f"{'k3g' if t.group(2) == '1' else 'k4g'}_tile{t.group(1)}"] = {
+                "registers": int(m.group(5)), "stack_frame_bytes": int(m.group(2)),
+                "spill_store_bytes": int(m.group(3)), "spill_load_bytes": int(m.group(4))}
+    check(len(out) == 2, f"cluster ptxas report: {sorted(out)}")
+    return out
+
+
+def time_wide_routes(net, obs, rows, k4_iters: int = 60, k3_iters: int = 20) -> dict:
+    """K4g on ``obs`` and K3g on ``rows`` at a trunk past a block's width
+    (``net``): each on the cluster route, on the per-layer route forced
+    and as the library call, in turns (K3g also the cluster kernel and its
+    image build alone); the twins; the bounds."""
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy, cuda_sgd
 
-    o, a, sizes = shapes["obs_dim"], shapes["act_dim"], tuple(shapes["sizes"])
-    net = general_net(41, o, a, sizes, sizes)
+    o, a = net.obs_dim, net.action_dim
+    pi, vf = trunk_sizes(net.pi_trunk), trunk_sizes(net.vf_trunk)
     w = net.kernel_weights()
-    check(cuda_general.forward_route(w) == "per_layer" and cuda_general.logp_route(o, a, sizes) == "per_layer",
-          f"trunk {sizes}: not the per-layer route")
-    obs = torch.randn((shapes["forward_rows"], o), generator=torch.Generator().manual_seed(43)).cuda()
-    k4 = time_in_turns({"per_layer": (lambda: cuda_policy.policy_value_forward(obs, w), 60),
+    check(cuda_general.forward_route(w) == "cluster" and cuda_general.logp_route(o, a, pi) == "cluster",
+          f"trunk {pi}: not the cluster route")
+    images = per_layer_images(net)
+    k4 = time_in_turns({"cluster": (lambda: cuda_policy.policy_value_forward(obs, w), k4_iters),
+                        "per_layer": (lambda: cuda_general.forward_per_layer(obs, w, *images), k4_iters),
                         "library": (library_forward(net, obs), 20)})
     plain, _ = time_ms(lambda: cuda_policy.policy_value_forward_plain(obs, w), iters=20, device_timed=False)
     b_ms, by = policy_bound(w, obs)
-    out = {"general_policy_value_forward": {
-        "ms": k4["per_layer"]["ms"], "host_ms": k4["per_layer"]["host_ms"], "plain_ms": plain,
+    out = {"general_cluster_forward": {
+        "ms": k4["cluster"]["ms"], "host_ms": k4["cluster"]["host_ms"], "plain_ms": plain,
         "library_ms": k4["library"]["ms"], "bound_ms": b_ms, "bound_by": by, "rows": obs.shape[0], "obs_dim": o,
-        "sizes": sizes, "turns": k4}}
-    batch = shapes["logp_rows"]
-    rows = packed_rows(net, batch, seed=306)
+        "sizes": pi, "per_layer_ms": k4["per_layer"]["ms"], "per_layer_host_ms": k4["per_layer"]["host_ms"],
+        "turns": k4}}
+    batch = rows.shape[0]
     pl_ = pi_leaves(net)
-    k3 = time_in_turns({"per_layer": (lambda: cuda_sgd.logp_forward(rows, pl_, o, vf_sizes=sizes), 20),
-                        "library": (library_logp(net, rows), 20)})
+    n_pi = len(pi)
+    lay = cuda_general.resident_layout(o, pi, a)
+    pack = lambda: cuda_general.pack_resident(pl_[: 2 * n_pi : 2], pl_[1 : 2 * n_pi : 2], pl_[2 * n_pi],  # noqa: E731
+                                              pl_[2 * n_pi + 1])
+    image = pack()
+    k3 = time_in_turns({
+        "cluster": (lambda: cuda_sgd.logp_forward(rows, pl_, o, vf_sizes=vf), k3_iters),
+        "per_layer": (lambda: cuda_general.logp_per_layer(rows, pl_, o), k3_iters),
+        "library": (library_logp(net, rows), k3_iters),
+        "kernel": (lambda: cuda_general.launch_cluster_logp(rows, image, lay, pl_[-1], o), k3_iters),
+        "pack": (pack, 20)})
     plain, _ = time_ms(lambda: cuda_sgd.logp_forward_plain(rows, pl_, o), iters=3, repeats=3, device_timed=False)
-    b_ms, by = roofline(tensor_bytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a, sizes=sizes))
-    out["general_logp_forward"] = {
-        "ms": k3["per_layer"]["ms"], "host_ms": k3["per_layer"]["host_ms"], "plain_ms": plain,
+    b_ms, by = roofline(tensor_bytes([rows, *pl_]) + batch * 4, cuda_sgd.logp_flops(batch, o, a, sizes=pi))
+    out["general_cluster_logp"] = {
+        "ms": k3["cluster"]["ms"], "host_ms": k3["cluster"]["host_ms"], "plain_ms": plain,
         "library_ms": k3["library"]["ms"], "bound_ms": b_ms, "bound_by": by, "rows": batch, "obs_dim": o,
-        "sizes": sizes, "turns": k3}
+        "sizes": pi, "kernel_ms": k3["kernel"]["ms"], "pack_ms": k3["pack"]["ms"],
+        "per_layer_ms": k3["per_layer"]["ms"], "per_layer_host_ms": k3["per_layer"]["host_ms"], "turns": k3}
+    return out
+
+
+def time_1024_routes(shapes: dict) -> dict:
+    """``other_trunks``' (1024,) iteration (``shapes``: its network's
+    widths, here with random weights from a seed): K4g over a rollout
+    step's rows and K3g over the iteration's batch on the cluster route,
+    the per-layer route forced and the library call (``time_wide_routes``;
+    the per-layer times also under the per-layer kernels' names), and K2g
+    on its per-layer route against its library call, the twin and the
+    bound."""
+    import torch
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_sgd
+
+    o, a, sizes = shapes["obs_dim"], shapes["act_dim"], tuple(shapes["sizes"])
+    net = general_net(41, o, a, sizes, sizes)
+    obs = torch.randn((shapes["forward_rows"], o), generator=torch.Generator().manual_seed(43)).cuda()
+    batch = shapes["logp_rows"]
+    out = time_wide_routes(net, obs, packed_rows(net, batch, seed=306))
+    for name, per_layer in (("general_cluster_forward", "general_policy_value_forward"),
+                            ("general_cluster_logp", "general_logp_forward")):
+        t = out[name]
+        out[per_layer] = {"ms": t["per_layer_ms"], "host_ms": t["per_layer_host_ms"], "cluster_ms": t["ms"],
+                          **{k: t[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by", "rows", "obs_dim",
+                                               "sizes")}}
     n_mb = shapes["minibatches"]
     inputs = epoch_inputs(net, n_mb, batch // n_mb, None)
     mbs, stats, t0, leaves, mu, nu, ecfg = inputs
@@ -4820,18 +5024,22 @@ def time_per_layer_route(shapes: dict) -> dict:
         "library_ms": k2["library"]["ms"], "library_ms_source": "torch.profiler kernel time", "bound_ms": b_ms,
         "bound_by": by, "minibatches": n_mb, "minibatch_size": batch // n_mb, "obs_dim": o, "sizes": sizes,
         "turns": k2}
+    out["cluster_ptxas"] = cluster_ptxas()
     return out
 
 
-def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict) -> dict:
+def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict, big_tp, big_runner) -> dict:
     """Row 1 in mode 7 on the serving rollout's state, and K4g, K3g and
     K2g at the slice's shapes (the trained 3 x 256 network; 8192 rows; the
     262,144-row batch; one epoch of 32 minibatches of 8192): device time,
     host time, the plain twin, the library call and the bound; K4g and K3g
     on the resident route, the per-layer route forced at the same shapes
     and the library call in turns (K3g also its kernel and its image build
-    alone), and the resident kernels' ptxas; then the per-layer route at
-    ``per_layer_shapes`` (``time_per_layer_route``)."""
+    alone), and the resident kernels' ptxas; then the cluster route, the
+    per-layer route forced and the library call at ``per_layer_shapes``
+    (``time_1024_routes``, with K2g per layer) and at the 2 x 1024
+    training path's shapes (``big_runner``'s trained network: K4g over 8192
+    rows, K3g over its 262,144-row batch)."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy, cuda_sgd
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
@@ -4892,7 +5100,11 @@ def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict) -> di
                                     "kernel_ms": k3["kernel"]["ms"], "pack_ms": k3["pack"]["ms"],
                                     "per_layer_ms": k3["per_layer"]["ms"], "turns": k3}
     out["resident_ptxas"] = resident_ptxas()
-    out.update(time_per_layer_route(per_layer_shapes))
+    out.update(time_1024_routes(per_layer_shapes))
+    big_net = big_runner.network
+    big_rows = packed_rows(big_net, big_tp.config.batch_size, seed=308)
+    out["cluster_2x1024"] = time_wide_routes(big_net, obs, big_rows, k4_iters=20, k3_iters=8)
+    del big_rows
 
     mbs = packed_rows(net, batch, seed=304).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
     stats = adv_stats(mbs[:, :, o + a + 1])
@@ -5480,13 +5692,15 @@ def main(argv=None) -> int:
     print(json.dumps({"general_epochs": results["general_epochs"]}), flush=True)
     # 54. the slice's serving path: row 1 in mode 7 and K4g at 3 x 256
     results["hover7_serving"], h7_ars, h7_obs, _ = hover7_serving(args.seed, card)
+    results["hover7_serving"]["wide_2x1024"] = hover7_serving_wide(args.seed, card)
     print(json.dumps({"hover7_serving": results["hover7_serving"]}), flush=True)
-    # 55. the slice's training path at 3 x 256 (row 1, K4g, K3g, K2g) and at 2 x 256 (the wide family)
-    results["hover7_train"], h7_tp, h7_runner = hover7_train(args.seed, card)
+    # 55. the slice's training path at 3 x 256 (row 1, K4g, K3g, K2g), at 2 x 256 (the wide family) and at
+    # 2 x 1024 (K4g and K3g on the cluster route, K2g per layer)
+    results["hover7_train"], h7_tp, h7_runner, h7_big_tp, h7_big_runner = hover7_train(args.seed, card)
     print(json.dumps({"hover7_train": results["hover7_train"]}), flush=True)
     # 56. row 1 in mode 7, K4g, K3g and K2g against their bounds at the slice's shapes
     gt = time_general_kernels(h7_tp, h7_runner, h7_obs, h7_ars.env_state.packed.contiguous(),
-                              results["traj_train"]["other_trunks"]["(1024,)"]["shapes"])
+                              results["traj_train"]["other_trunks"]["(1024,)"]["shapes"], h7_big_tp, h7_big_runner)
     results["general_kernel_times"] = gt
     print(json.dumps({"general_kernel_times": gt, "card": card}), flush=True)
     # 57. K3g and K2g at the training path's own shapes, on its trained 3 x 256 network: K3g against its twin
@@ -5502,6 +5716,9 @@ def main(argv=None) -> int:
                                                              h7_cfg.log_std_range)}
     results["general_main_path_checks"] = gm
     print(json.dumps({"general_main_path_checks": gm}), flush=True)
+    # 58. K4g and K3g on the cluster route against their twins and bit for bit the per-layer route's
+    results["general_cluster"] = check_general_cluster(args.seed)
+    print(json.dumps({"general_cluster": results["general_cluster"]}), flush=True)
     serving = results["hover7_serving"]["launches"]
     training = results["hover7_train"]["general_3x256"]["launches_per_iteration"]
     by_name["quadx_hover_step"]["mode7"] = {
@@ -5509,9 +5726,12 @@ def main(argv=None) -> int:
                                                          "host_ms")},
         "max_abs_err": err_h7, "launches": serving["quadx_hover_step"], "launch": records["quadx_hover_step_mode7"],
         "main_path": f"hover7_serving, {HOVER7_ROLLOUT_STEPS} steps x {N_ENVS} envs"}
-    gg, ge = results["general_grid"], results["general_epochs"]
+    gg, ge, gc = results["general_grid"], results["general_epochs"], results["general_cluster"]
     wide_trunk = results["traj_train"]["other_trunks"]["(1024,)"]["launches_per_iteration"]
-    rptx = gt["resident_ptxas"]
+    past_trunk = results["traj_train"]["other_trunks"][str(GENERAL_PAST)]["launches_per_iteration"]
+    big = results["hover7_train"]["general_2x1024"]["launches_per_iteration"]
+    big_serving = results["hover7_serving"]["wide_2x1024"]["launches"]
+    rptx, cptx = gt["resident_ptxas"], gt["cluster_ptxas"]
     for name, src, line, launches_, err, extra in (
         ("general_resident_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_policy.py:35",
          serving["general_resident_forward"],
@@ -5526,16 +5746,37 @@ def main(argv=None) -> int:
           **{f: gt["general_resident_logp"][f] for f in ("kernel_ms", "pack_ms", "per_layer_ms")},
           "kernels_per_call": records["general_resident"]["k3g"],
           "resident_ptxas": {k: v for k, v in rptx.items() if k.startswith("k3g")}}),
+        ("general_cluster_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_policy.py:35",
+         big_serving["general_cluster_forward"], max(gg["by_route"]["cluster"]["mean"],
+                                                     gg["by_route"]["cluster"]["value"], gc["max_mean_err"],
+                                                     gc["max_value_err"]),
+         {"main_path": f"hover7_serving wide_2x1024, {HOVER7_WIDE_STEPS} steps x {N_ENVS} envs, obs 21, 2 x 1024",
+          "per_layer_ms": gt["cluster_2x1024"]["general_cluster_forward"]["per_layer_ms"],
+          "at_1024": {k: gt["general_cluster_forward"][k]
+                      for k in ("ms", "per_layer_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "rows")},
+          "launches_per_other_trunks_1024_iteration": wide_trunk["general_cluster_forward"],
+          "kernels_per_call": records["general_resident"]["k4g_cluster"],
+          "cluster_ptxas": {k: v for k, v in cptx.items() if k.startswith("k4g")}}),
+        ("general_cluster_logp", "policy_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:173",
+         big["general_cluster_logp"], max(gg["by_route"]["cluster"]["logp"], gc["max_logp_err"]),
+         {"main_path": f"hover7_train general_2x1024, {gt['cluster_2x1024']['general_cluster_logp']['rows']} rows",
+          **{f: gt["cluster_2x1024"]["general_cluster_logp"][f] for f in ("kernel_ms", "pack_ms", "per_layer_ms")},
+          "at_1024": {k: gt["general_cluster_logp"][k]
+                      for k in ("ms", "kernel_ms", "pack_ms", "per_layer_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "rows")},
+          "launches_per_other_trunks_1024_iteration": wide_trunk["general_cluster_logp"],
+          "kernels_per_call": records["general_resident"]["k3g_cluster"],
+          "cluster_ptxas": {k: v for k, v in cptx.items() if k.startswith("k3g")}}),
         ("general_policy_value_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_policy.py:35",
-         wide_trunk["general_policy_value_forward"],
+         past_trunk["general_policy_value_forward"],
          max(gg["by_route"]["per_layer"]["mean"], gg["by_route"]["per_layer"]["value"]),
-         {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
-                       f"{gt['general_policy_value_forward']['rows']} rows a step",
+         {"main_path": "traj_train other_trunks (4128,), past a cluster of 8; ms forced at (1024,), "
+                       f"{gt['general_policy_value_forward']['rows']} rows",
           "kernels_per_call": records["general_resident"]["k4g_per_layer"]}),
         ("general_logp_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:173",
-         wide_trunk["general_logp_forward"], gg["by_route"]["per_layer"]["logp"],
-         {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
-                       f"{gt['general_logp_forward']['rows']} rows an iteration",
+         past_trunk["general_logp_forward"], gg["by_route"]["per_layer"]["logp"],
+         {"main_path": "traj_train other_trunks (4128,), past a cluster of 8; ms forced at (1024,), "
+                       f"{gt['general_logp_forward']['rows']} rows",
           "kernels_per_call": records["general_resident"]["k3g_per_layer"]}),
         ("general_resident_epoch", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
          training["general_resident_epoch"],
@@ -5550,7 +5791,7 @@ def main(argv=None) -> int:
                        f"{gt['fused_epoch_general']['minibatches']} x {gt['fused_epoch_general']['minibatch_size']} "
                        "rows an epoch"}),
     ):
-        t = gt[name]
+        t = gt["cluster_2x1024"][name] if name in gt["cluster_2x1024"] else gt[name]  # the main path's shapes
         kernels.append({
             "name": name, "route": "cuda", "source": f"pyflyt_tpu_torch/csrc/{src}", "replaces": line,
             "launches": launches_, "max_abs_err": err,
@@ -5563,6 +5804,8 @@ def main(argv=None) -> int:
         k["launches_per_hover7_train_iteration"] = training[k["name"]]
         k["launches_per_hover7_wide_iteration"] = results["hover7_train"]["wide_2x256"]["launches_per_iteration"][
             k["name"]]
+        k["launches_per_hover7_2x1024_iteration"] = big[k["name"]]
+        k["launches_per_hover7_2x1024_serving"] = big_serving[k["name"]]
     for k in kernels:
         k["launches_per_gates_eval_use_kernel"] = results["gates_eval"]["use_kernel"]["launches"][k["name"]]
     results["kernels"] = kernels

@@ -15,23 +15,29 @@
 // TB/s); K3g over 262,144 rows of the actor about 72 GFLOP (0.073 ms)
 // against 29 MB (0.009 ms): operations bound both.
 //
-// Two routes, chosen by the wrapper from the widths
-// (ops/cuda_general.py::resident_tile):
+// Three routes, chosen by the wrapper from the widths
+// (ops/cuda_general.py::resident_tile, cluster_plan):
 //  - resident (general_resident_forward, general_resident_logp;
 //    policy_resident.cuh): one launch a call. A block takes a tile of rows
 //    of one trunk through every layer, the activations bf16 in shared
 //    memory, the weights a bf16 image streamed by bulk copies through a
 //    ring, K3g's log-prob in the same kernel. Every trunk whose widest
 //    width fits a block's shared memory takes it;
+//  - cluster (general_cluster_forward, general_cluster_logp;
+//    policy_cluster.cuh): the same, one launch a call, with a tile shared
+//    by a cluster of 2, 4 or 8 blocks, each holding its share of every
+//    layer's output; every wider trunk whose share fits a block;
 //  - per layer (general_policy_value_forward, general_logp_forward), for
-//    wider or deeper trunks: one launch of policy_general.cuh's GEMM a
+//    the rest (deeper than 16 layers, or wider than a cluster of 8 holds):
+//    one launch of policy_general.cuh's GEMM a
 //    layer a trunk on f32 weights, the tanh layers' outputs in a workspace
 //    the wrapper sizes per call (two row buffers of the widest layer, in
 //    turn), the heads written straight into the outputs; K3g then one
 //    thread a row for the log-prob (general::row_logp).
-// Both routes run each output's k16 steps in order from 0 on the same
+// Every route runs each output's k16 steps in order from 0 on the same
 // mma.sync fragments as K2g's forward (fused_epoch_general.cu), so K3g's
-// log-probs are K2g's forward bit for bit on either.
+// log-probs are K2g's forward bit for bit on any.
+#include "policy_cluster.cuh"
 #include "policy_general.cuh"
 #include "policy_resident.cuh"
 
@@ -161,3 +167,42 @@ extern "C" int general_resident_logp(const ResidentArgs* args, void* stream) {
   if (!resident_ok(*args, true)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(resident::launch_any<true>(*args, static_cast<cudaStream_t>(stream)));
 }
+
+namespace {
+
+// Whether the wrapper's cluster launch is one the kernel takes: as
+// resident_ok, with `width` the columns a block holds (the obs and rank 0's
+// share of each tanh layer at clusters of C), C one of 2, 4 and 8 and the
+// cluster kernel's shared memory in range.
+bool cluster_ok(const ResidentArgs& p, int C, bool logp) {
+  const int trunks = logp ? 1 : 2;
+  if ((C != 2 && C != 4 && C != cluster::MAX_CLUSTER) || p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 ||
+      p.x == nullptr || p.tile != cluster::TILE_ROWS || p.width <= 0 || p.width % resident::KC != 0 ||
+      cluster::smem_bytes(p.tile, p.width, p.act_dim, logp) > resident::SMEM_LIMIT ||
+      p.ld < (logp ? p.obs_dim + p.act_dim : p.obs_dim) || (logp && p.log_std == nullptr))
+    return false;
+  for (int t = 0; t < trunks; ++t) {
+    if (p.image[t] == nullptr || p.out[t] == nullptr || (reinterpret_cast<uintptr_t>(p.image[t]) & 15) != 0 ||
+        !cluster::trunk_ok(p.trunk[t], p.obs_dim, t == 0 ? p.act_dim : 1, p.width, C))
+      return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+// K4g's cluster route: both trunks in one launch (blockIdx.y), each cluster
+// of C blocks a tile of rows through every layer. Returns the launch's CUDA
+// error (0 = launched), or cudaErrorInvalidValue outside the layouts.
+extern "C" int general_cluster_forward(const ResidentArgs* args, int C, void* stream) {
+  if (!cluster_ok(*args, C, false)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cluster::launch<cluster::TILE_ROWS, false>(*args, C, static_cast<cudaStream_t>(stream)));
+}
+
+// K3g's cluster route: the actor and the log-prob in one launch of
+// persistent clusters.
+extern "C" int general_cluster_logp(const ResidentArgs* args, int C, void* stream) {
+  if (!cluster_ok(*args, C, true)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cluster::launch<cluster::TILE_ROWS, true>(*args, C, static_cast<cudaStream_t>(stream)));
+}
+

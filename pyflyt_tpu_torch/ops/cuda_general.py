@@ -14,7 +14,8 @@ loss, clip and Adam in f32. The twins are the family-agnostic ones:
 ``cuda_policy.policy_value_forward_plain``, ``cuda_sgd.logp_forward_plain``
 and ``cuda_sgd.fused_epoch_plain`` take any trunk.
 
-K4g and K3g have two routes, chosen from the widths (``resident_tile``):
+K4g and K3g have three routes, chosen from the widths (``resident_tile``,
+then ``cluster_plan``):
 
 - resident (``csrc/policy_resident.cuh``): one launch a call, every layer
   of a trunk over a tile of rows with the activations in shared memory
@@ -25,8 +26,16 @@ K4g and K3g have two routes, chosen from the widths (``resident_tile``):
   fits a block's shared memory (``resident_smem``) beside the weight ring
   and, for K3g, the staged means: 128 rows a block where that fits, else
   64. At 4 actions that is a width of 288 at 128 rows and 608 at 64;
+- cluster (``csrc/policy_cluster.cuh``): the same launch and image with a
+  64-row tile shared by a thread-block cluster of C blocks, rank c holding
+  the c-th run of ceil(chunks / C) of each tanh layer's output chunks
+  (``cluster_width`` columns a block) and reading its peers' through
+  distributed shared memory. It takes every wider trunk of at most ``RES_MAX_LAYERS`` layers
+  whose share fits a block at C = 2, 4 or 8 (``cluster_plan``: at 4
+  actions from 640 units, C = 2 to 1024, 4 to 2048, 8 to 4096);
 - per layer (``csrc/policy_general.cuh``'s GEMM, one launch a layer a
-  trunk on f32 weights in device memory): every wider or deeper trunk.
+  trunk on f32 weights in device memory): every deeper trunk, and every
+  trunk past 4096 units at 4 actions.
   A trunk reaches K4g as one flat f32 vector (``pack_trunk``: ``W_0 (in,
   out)`` row-major, ``b_0``, ..., the head last, each at a multiple of 4
   floats), K3g as the actor's leaves packed the same way on each call.
@@ -50,7 +59,7 @@ the widths (``epoch_route``):
 
 Every route runs each output's forward k16 steps in order on the same
 fragments, so a row's log-prob from K3g equals K2g's forward bit for bit
-on either. Each route has its own launch counter.
+on any. Each route has its own launch counter.
 
 The wrappers launch their kernel for CUDA tensors only; ``cuda_policy``
 and ``cuda_sgd`` call them after their CPU branch, where the plain twins
@@ -280,12 +289,12 @@ def _matrix_slots(lay: ResidentLayout, l: int) -> Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _resident_index(lay: ResidentLayout, device: str) -> Tensor:
+def _resident_index(lay: ResidentLayout, device: str, transposed: tuple = ()) -> Tensor:
     """For each 16-bit word of the image, the word ``pack_resident`` copies
     into it from ``[bf16(src) | src's f32 words | 0]``, where ``src`` is the
-    matrices ``W_l (in, out)`` row-major, then the biases, in layer order:
-    a matrix entry's bf16, a bias's two f32 halves, the zero word for the
-    padding."""
+    matrices ``W_l (in, out)`` row-major (``W_l^T`` row-major where
+    ``transposed[l]``), then the biases, in layer order: a matrix entry's
+    bf16, a bias's two f32 halves, the zero word for the padding."""
     dims = lay.dims
     n_mats = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     n_src = n_mats + sum(dims[1:])
@@ -293,7 +302,10 @@ def _resident_index(lay: ResidentLayout, device: str) -> Tensor:
     at = 0
     for l in range(lay.layers):
         size = dims[l] * dims[l + 1]
-        g[_matrix_slots(lay, l)] = at + torch.arange(size)
+        order = torch.arange(size)
+        if l < len(transposed) and transposed[l]:  # entry (k, r) at r in + k
+            order = order.reshape(dims[l + 1], dims[l]).T.reshape(-1)
+        g[_matrix_slots(lay, l)] = at + order
         at += size
     for l in range(lay.layers):
         g[lay.b[l] // 2 : lay.b[l] // 2 + 2 * dims[l + 1]] = n_src + 2 * at + torch.arange(2 * dims[l + 1])
@@ -306,13 +318,22 @@ def pack_resident(weights, biases, head_w: Tensor, head_b: Tensor) -> Tensor:
     (in, outs)``) → its resident image, a uint8 tensor on their device: the
     matrices rounded to bf16 (nearest even, the values the per-layer GEMM
     rounds them to as it reads them), the biases f32, the padding zero.
-    One gather (``_resident_index``)."""
-    mats = [*weights, head_w]
+    One gather (``_resident_index``); a matrix given as the transpose of a
+    contiguous tensor (``nn.Linear.weight.T``) is read in that order, with
+    no copy."""
+    mats = [t.detach() for t in (*weights, head_w)]
     lay = resident_layout(mats[0].shape[0], [t.shape[1] for t in weights], head_w.shape[1])
-    src = torch.cat([t.detach().reshape(-1).float() for t in (*mats, *biases, head_b)])
-    words = torch.cat([src.to(torch.bfloat16).view(torch.int16), src.view(torch.int16),
-                       src.new_zeros(1, dtype=torch.int16)])
-    return words[_resident_index(lay, str(src.device))].view(torch.uint8)
+    transposed = tuple(not t.is_contiguous() and t.T.is_contiguous() for t in mats)
+    flat = [(t.T if tr else t).reshape(-1) for t, tr in zip(mats, transposed)]
+    src = torch.cat([t.float() for t in (*flat, *(b.detach().reshape(-1) for b in (*biases, head_b)))])
+    words = torch.cat([src.to(torch.bfloat16).view(torch.int16), src.view(torch.int16), _zero_word(str(src.device))])
+    return words[_resident_index(lay, str(src.device), transposed if any(transposed) else ())].view(torch.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _zero_word(device: str) -> Tensor:
+    """The image's padding word, made once a device (a fill kernel fewer a pack)."""
+    return torch.zeros(1, dtype=torch.int16, device=device)
 
 
 def unpack_resident(image: Tensor, lay: ResidentLayout) -> tuple[list[Tensor], list[Tensor]]:
@@ -352,6 +373,71 @@ def resident_tile(layouts, act_dim: int, logp: bool = False) -> int | None:
     return next((t for t in RES_TILES if resident_smem(t, width, act_dim, logp) <= RES_SMEM_LIMIT), None)
 
 
+RES_CLUSTERS = (2, 4, 8)  # blocks a cluster
+CLUSTER_TILE = 64  # rows a cluster's tile
+
+
+def cluster_width(layouts, cluster: int) -> int:
+    """The columns of a cluster block's activation buffers: each trunk's
+    whole padded input and rank 0's share of each tanh layer's output, the
+    largest (a run of ceil(chunks / C) chunks of RES_NC units)."""
+    share = lambda n: -(-(-(-n // RES_NC)) // cluster) * RES_NC  # noqa: E731
+    return max(max(lay.k[0], *(share(n) for n in lay.n[:-1])) for lay in layouts)
+
+
+def cluster_smem(tile: int, width: int, act_dim: int, logp: bool = False) -> int:
+    """Dynamic shared memory of a cluster launch (csrc's
+    ``cluster::smem_bytes``): ``resident_smem``'s ring, biases, means and
+    barriers, two activation buffers of ``width`` columns in k blocks (no
+    row padding) and two stages of a peer's k block (``tile`` x RES_KC
+    bf16)."""
+    bias = max(width, _pad(act_dim))
+    means = tile * (act_dim | 1) * 4 if logp else 0
+    return (RES_STAGES * RES_STAGE_BYTES + 2 * tile * width * 2 + 2 * tile * RES_KC * 2 + 2 * bias * 4 + means
+            + RES_STAGES * 16)
+
+
+def cluster_plan(layouts, act_dim: int, logp: bool = False, rows: int | None = None,
+                 sms: int | None = None) -> tuple[int, int] | None:
+    """(rows a tile, blocks a cluster) of the cluster route for trunks
+    launched together, or None: at most RES_MAX_LAYERS layers each and a
+    ``cluster_smem`` at ``cluster_width`` within RES_SMEM_LIMIT at some C of
+    RES_CLUSTERS, at CLUSTER_TILE rows. The smallest such C (the fewest
+    peer loads; the route's envelope), unless ``rows`` on a card of ``sms``
+    SMs give one block a tile for every SM or fewer at a larger C: then the
+    largest such C up to the widest tanh layer's chunks (the fewest chunks a
+    rank, so the shortest tile)."""
+    if any(lay.layers > RES_MAX_LAYERS or lay.bytes >= 2**31 for lay in layouts):
+        return None
+    fits = [c for c in RES_CLUSTERS
+            if cluster_smem(CLUSTER_TILE, cluster_width(layouts, c), act_dim, logp) <= RES_SMEM_LIMIT]
+    if not fits:
+        return None
+    if rows is not None and sms is not None:
+        chunks = max([-(-n // RES_NC) for lay in layouts for n in lay.n[:-1]], default=1)
+        clusters = -(-int(rows) // CLUSTER_TILE) * len(layouts)
+        one_round = [c for c in fits if c <= chunks and clusters * c <= sms]
+        if one_round:
+            return CLUSTER_TILE, max(one_round)
+    return CLUSTER_TILE, fits[0]
+
+
+def _sms(device: torch.device) -> int | None:
+    """The SMs of a CUDA ``device`` (None for another device)."""
+    return _cuda_sms(device.index) if device.type == "cuda" else None
+
+
+@functools.lru_cache(maxsize=8)
+def _cuda_sms(index: int | None) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _route(layouts, act_dim: int, logp: bool) -> str:
+    if resident_tile(layouts, act_dim, logp) is not None:
+        return "resident"
+    return "cluster" if cluster_plan(layouts, act_dim, logp) is not None else "per_layer"
+
+
 def resident_layouts(w) -> tuple[ResidentLayout, ResidentLayout]:
     """The (actor, critic) resident layouts of ``cuda_policy.PolicyWeights`` ``w``."""
     return (resident_layout(w.obs_dim, [t.shape[1] for t in w.pi_w], w.act_dim),
@@ -359,15 +445,16 @@ def resident_layouts(w) -> tuple[ResidentLayout, ResidentLayout]:
 
 
 def forward_route(w) -> str:
-    """K4g's route for ``w``'s widths: ``"resident"`` or ``"per_layer"``."""
-    return "resident" if resident_tile(resident_layouts(w), w.act_dim) is not None else "per_layer"
+    """K4g's route for ``w``'s widths: ``"resident"``, ``"cluster"`` or
+    ``"per_layer"``."""
+    return _route(resident_layouts(w), w.act_dim, False)
 
 
 def trunk_images(w, leaves, n_pi: int) -> tuple[Tensor, Tensor]:
     """K4g's (actor, critic) images for ``cuda_policy.prepare_weights``: the
-    resident route's bf16 images of ``w``'s weights, or the per-layer
-    route's f32 vectors of the ordered ``leaves`` as given."""
-    if forward_route(w) == "resident":
+    resident and cluster routes' bf16 images of ``w``'s weights, or the
+    per-layer route's f32 vectors of the ordered ``leaves`` as given."""
+    if forward_route(w) != "per_layer":
         return (pack_resident(w.pi_w, w.pi_b, w.pi_head_w, w.pi_head_b),
                 pack_resident(w.vf_w, w.vf_b, w.vf_head_w, w.vf_head_b))
     i_head, i_vf0 = 2 * n_pi, 2 * n_pi + 3
@@ -379,7 +466,7 @@ def trunk_images(w, leaves, n_pi: int) -> tuple[Tensor, Tensor]:
 
 def image_sizes(w) -> list[tuple[int]]:
     """The shapes of ``w``'s two images on K4g's route."""
-    if forward_route(w) == "resident":
+    if forward_route(w) != "per_layer":
         return [(lay.bytes,) for lay in resident_layouts(w)]
     return [(4 * floats,) for _, floats in weight_layouts(w)]
 
@@ -409,14 +496,15 @@ def _resident_trunk_c(lay: ResidentLayout) -> _ResidentTrunkC:
 
 
 def resident_args(x: Tensor, images, outs, lays, tile: int, obs_dim: int, act_dim: int, log_std=None,
-                  log_std_range=None) -> _ResidentArgsC:
-    """A resident launch's arguments: ``images``, ``outs`` and ``lays`` one
-    or two each (K3g, K4g)."""
+                  log_std_range=None, width: int | None = None) -> _ResidentArgsC:
+    """A resident (or, with ``width`` the ``cluster_width``, a cluster)
+    launch's arguments: ``images``, ``outs`` and ``lays`` one or two each
+    (K3g, K4g)."""
     ptr = lambda ts: [t.data_ptr() for t in ts] + [0] * (2 - len(ts))  # noqa: E731
     has_range, lo, hi = cuda_sgd._range_args(log_std_range)
     args = _ResidentArgsC(x=x.data_ptr(), log_std=0 if log_std is None else log_std.data_ptr(), n=x.shape[0],
                           ld=x.shape[1], obs_dim=obs_dim, act_dim=act_dim, has_range=has_range, ls_lo=lo, ls_hi=hi,
-                          tile=tile, width=resident_width(lays))
+                          tile=tile, width=resident_width(lays) if width is None else width)
     args.image[:] = ptr(images)
     args.out[:] = ptr(outs)
     for i, lay in enumerate(lays):
@@ -440,12 +528,14 @@ class _ForwardArgsC(ctypes.Structure):
 
 FORWARD_KERNEL = Kernel("policy_general.cu", "general_policy_value_forward", [ctypes.c_void_p, ctypes.c_void_p])
 RESIDENT_FORWARD_KERNEL = Kernel("policy_general.cu", "general_resident_forward", [ctypes.c_void_p, ctypes.c_void_p])
+CLUSTER_FORWARD_KERNEL = Kernel("policy_general.cu", "general_cluster_forward",
+                                [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
-def _launch(kernel: Kernel, args: ctypes.Structure, device) -> None:
+def _launch(kernel: Kernel, args: ctypes.Structure, device, *extra) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = kernel.fn()(ctypes.addressof(args), stream)
+        rc = kernel.fn()(ctypes.addressof(args), *extra, stream)
     kernel.check(rc)
     kernel.launches += 1
 
@@ -455,7 +545,8 @@ def forward(obs: Tensor, w) -> tuple[Tensor, Tensor]:
     holding general images (``cuda_policy._check_kernel_shapes`` has
     checked them) on the route of its widths (``forward_route``): ``(mean
     (n, act), value (n,))``."""
-    if forward_route(w) == "per_layer":
+    route = forward_route(w)
+    if route == "per_layer":
         return forward_per_layer(obs, w, w.pi_image, w.vf_image)
     n = obs.shape[0]
     mean = torch.empty((n, w.act_dim), dtype=torch.float32, device=obs.device)
@@ -463,6 +554,12 @@ def forward(obs: Tensor, w) -> tuple[Tensor, Tensor]:
     if n == 0:
         return mean, value
     lays = resident_layouts(w)
+    if route == "cluster":
+        tile, c = cluster_plan(lays, w.act_dim, rows=n, sms=_sms(obs.device))
+        args = resident_args(obs, (w.pi_image, w.vf_image), (mean, value), lays, tile, w.obs_dim, w.act_dim,
+                             width=cluster_width(lays, c))
+        _launch(CLUSTER_FORWARD_KERNEL, args, obs.device, c)
+        return mean, value
     args = resident_args(obs, (w.pi_image, w.vf_image), (mean, value), lays, resident_tile(lays, w.act_dim), w.obs_dim,
                          w.act_dim)
     _launch(RESIDENT_FORWARD_KERNEL, args, obs.device)
@@ -505,11 +602,14 @@ class _LogpArgsC(ctypes.Structure):
 
 LOGP_KERNEL = Kernel("policy_general.cu", "general_logp_forward", [ctypes.c_void_p, ctypes.c_void_p])
 RESIDENT_LOGP_KERNEL = Kernel("policy_general.cu", "general_resident_logp", [ctypes.c_void_p, ctypes.c_void_p])
+CLUSTER_LOGP_KERNEL = Kernel("policy_general.cu", "general_cluster_logp",
+                             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def logp_route(obs_dim: int, act_dim: int, sizes) -> str:
-    """K3g's route for the actor's widths: ``"resident"`` or ``"per_layer"``."""
-    return "resident" if resident_tile((resident_layout(obs_dim, sizes, act_dim),), act_dim, True) else "per_layer"
+    """K3g's route for the actor's widths: ``"resident"``, ``"cluster"`` or
+    ``"per_layer"``."""
+    return _route((resident_layout(obs_dim, sizes, act_dim),), act_dim, True)
 
 
 def _actor(pi_leaves: list[Tensor]) -> tuple[list[Tensor], list[Tensor], Tensor, Tensor]:
@@ -526,11 +626,12 @@ def logp(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=No
     mats, biases, head_w, head_b = _actor(pi_leaves)
     act_dim = head_w.shape[1]
     sizes = [t.shape[1] for t in mats]
-    if logp_route(obs_dim, act_dim, sizes) == "per_layer":
+    route = logp_route(obs_dim, act_dim, sizes)
+    if route == "per_layer":
         return logp_per_layer(packed, pi_leaves, obs_dim, log_std_range)
     image = pack_resident(mats, biases, head_w, head_b)
-    return launch_resident_logp(packed, image, resident_layout(obs_dim, sizes, act_dim), pi_leaves[-1], obs_dim,
-                                log_std_range)
+    launch = launch_resident_logp if route == "resident" else launch_cluster_logp
+    return launch(packed, image, resident_layout(obs_dim, sizes, act_dim), pi_leaves[-1], obs_dim, log_std_range)
 
 
 def logp_per_layer(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None) -> Tensor:
@@ -564,19 +665,36 @@ def launch_resident_logp(packed: Tensor, image: Tensor, lay: ResidentLayout, log
                          log_std_range=None) -> Tensor:
     """K3g's resident launch on the actor's image (``pack_resident``), which
     ``logp`` packs from the leaves on each call."""
-    act_dim = lay.dims[-1]
-    tile = resident_tile((lay,), act_dim, True)
+    tile = resident_tile((lay,), lay.dims[-1], True)
     if tile is None:
         raise NotImplementedError(f"trunk {lay.dims} outside the resident route (logp_route)")
+    return _launch_logp(RESIDENT_LOGP_KERNEL, packed, image, lay, log_std, obs_dim, log_std_range, tile)
+
+
+def launch_cluster_logp(packed: Tensor, image: Tensor, lay: ResidentLayout, log_std: Tensor, obs_dim: int,
+                        log_std_range=None) -> Tensor:
+    """K3g's cluster launch on the actor's image (``pack_resident``, as the
+    resident route's)."""
+    plan = cluster_plan((lay,), lay.dims[-1], True, rows=packed.shape[0], sms=_sms(packed.device))
+    if resident_tile((lay,), lay.dims[-1], True) is not None or plan is None:
+        raise NotImplementedError(f"trunk {lay.dims} outside the cluster route (logp_route)")
+    tile, c = plan
+    return _launch_logp(CLUSTER_LOGP_KERNEL, packed, image, lay, log_std, obs_dim, log_std_range, tile,
+                        cluster_width((lay,), c), c)
+
+
+def _launch_logp(kernel: Kernel, packed: Tensor, image: Tensor, lay: ResidentLayout, log_std: Tensor, obs_dim: int,
+                 log_std_range, tile: int, width: int | None = None, *extra) -> Tensor:
     if image.dtype != torch.uint8 or tuple(image.shape) != (lay.bytes,) or image.data_ptr() % 16:
-        raise ValueError("the resident K3g reads a 16-byte aligned image of pack_resident's layout")
+        raise ValueError("K3g reads a 16-byte aligned image of pack_resident's layout")
     n = packed.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=packed.device)
     if n == 0:
         return out
     log_std = log_std.detach().to(torch.float32).reshape(-1).contiguous()
-    args = resident_args(packed, (image,), (out,), (lay,), tile, obs_dim, act_dim, log_std, log_std_range)
-    _launch(RESIDENT_LOGP_KERNEL, args, packed.device)
+    args = resident_args(packed, (image,), (out,), (lay,), tile, obs_dim, lay.dims[-1], log_std, log_std_range,
+                         width)
+    _launch(kernel, args, packed.device, *extra)
     return out
 
 

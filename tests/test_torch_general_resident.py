@@ -80,12 +80,12 @@ def test_the_image_is_the_weights_in_bf16(pi, vf, obs, act):
 def test_the_route_at_its_boundaries(width, act, k4g_tile, k3g_tile):
     """One tanh layer of ``width`` units (obs 21): 128 rows a block while
     the two activation buffers and the bias buffers fit beside the ring,
-    then 64, then the per-layer route; K3g's staged means (a row of act
+    then 64, then the cluster route; K3g's staged means (a row of act
     floats) push a wide head to 64 rows."""
     lays = (cuda_general.resident_layout(21, (width,), act), cuda_general.resident_layout(21, (width,), 1))
     assert cuda_general.resident_tile(lays, act) == k4g_tile
     assert cuda_general.resident_tile(lays[:1], act, True) == k3g_tile
-    assert cuda_general.logp_route(21, act, (width,)) == ("resident" if k3g_tile else "per_layer")
+    assert cuda_general.logp_route(21, act, (width,)) == ("resident" if k3g_tile else "cluster")
     for tile in cuda_general.RES_TILES:
         fits = cuda_general.resident_smem(tile, width, act) <= cuda_general.RES_SMEM_LIMIT
         assert fits == (k4g_tile is not None and tile <= k4g_tile)
@@ -93,20 +93,20 @@ def test_the_route_at_its_boundaries(width, act, k4g_tile, k3g_tile):
 
 def test_the_route_by_depth_and_through_the_weights():
     """At most RES_MAX_LAYERS layers (the head included) a trunk; the
-    ``PolicyWeights`` of a resident network carry its bf16 images, of a
-    per-layer one its f32 vectors, and ``_check_kernel_shapes`` holds each
-    to its route's size."""
+    ``PolicyWeights`` of a resident (or cluster) network carry its bf16
+    images, of a per-layer one its f32 vectors, and ``_check_kernel_shapes``
+    holds each to its route's size."""
     deep = (64,) * (cuda_general.RES_MAX_LAYERS - 1)
     assert cuda_general.logp_route(21, 4, deep) == "resident"
     assert cuda_general.logp_route(21, 4, deep + (64,)) == "per_layer"
-    for sizes, route in (((256, 256, 256), "resident"), ((1024,), "per_layer"), ((), "resident"),
+    for sizes, route in (((256, 256, 256), "resident"), ((1024,), "cluster"), ((), "resident"),
                          (deep + (64,), "per_layer")):
         net = ActorCritic(21, 4, feature_sizes=(), pi_sizes=sizes, vf_sizes=sizes, device="cpu",
                           generator=torch.Generator().manual_seed(len(sizes)))
         w = net.kernel_weights()
         assert cuda_policy._check_kernel_shapes(torch.zeros(2, 21), w) == "general"
         assert cuda_general.forward_route(w) == route
-        if route == "resident":
+        if route != "per_layer":
             assert torch.equal(w.pi_image, cuda_general.pack_resident(w.pi_w, w.pi_b, w.pi_head_w, w.pi_head_b))
             assert torch.equal(w.vf_image, cuda_general.pack_resident(w.vf_w, w.vf_b, w.vf_head_w, w.vf_head_b))
         else:

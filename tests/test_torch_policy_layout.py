@@ -162,11 +162,11 @@ def test_prepare_weights_packs_only_what_the_kernel_takes():
         narrow.pi_w, narrow.pi_b, narrow.pi_head_w, narrow.pi_head_b))
     for net in (ActorCritic(21, 4, feature_sizes=(256,), device="cpu"), ActorCritic(65, 4, device="cpu"),
                 ActorCritic(21, 9, device="cpu"), ActorCritic(21, 4, feature_sizes=(1024,), device="cpu")):
-        # the general family's: the resident route's bf16 images, the per-layer route's f32 leaves
+        # the general family's: the resident and cluster routes' bf16 images, the per-layer route's f32 leaves
         w = net.kernel_weights()
         assert cuda_policy._kernel_family(w) == "general"
-        pack = cuda_general.pack_resident if cuda_general.forward_route(w) == "resident" else cuda_general.pack_trunk
-        assert (cuda_general.forward_route(w) == "per_layer") == (net.pi_trunk.layers[0].out_features == 1024)
+        pack = cuda_general.pack_trunk if cuda_general.forward_route(w) == "per_layer" else cuda_general.pack_resident
+        assert (cuda_general.forward_route(w) == "cluster") == (net.pi_trunk.layers[0].out_features == 1024)
         assert torch.equal(w.pi_image, pack(
             [lin.weight.T for lin in net.pi_trunk.layers], [lin.bias for lin in net.pi_trunk.layers],
             net.pi_head.weight.T, net.pi_head.bias))

@@ -1,0 +1,100 @@
+// A probe for the general family's resident and cluster routes
+// (tools/cluster_probe.py builds this file with nvcc and binds it with
+// ctypes; sm_90a). wgmma_bits: does a chain of wgmma k16 steps, taken in
+// order on one accumulator, give the bits of a chain of mma.sync m16n8k16
+// steps on the same bf16 fragments? Each block (one warpgroup) takes one
+// trial: A (64 x K) and B (K x 8) bf16; the warpgroup runs wgmma.m64n8k16
+// with A from registers and B from a 128-byte-swizzled K-major image in
+// shared memory, k16 step by k16 step, and each warp runs mma.sync on its
+// 16 rows with the same fragments, both from zero. Both results go out f32.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_K = 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void fence_regs(float (&d)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// a: (trials, 64, k) bf16 row-major; b: (trials, 8, k) bf16 (B^T, k contiguous);
+// d_wg, d_mma: (trials, 64, 8) f32
+__global__ void __launch_bounds__(128) wgmma_bits_kernel(const uint16_t* a, const uint16_t* b, float* d_wg,
+                                                         float* d_mma, int k) {
+  __shared__ __align__(1024) uint8_t sb[MAX_K / 64 * 1024];
+  const int t = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t4 = lane & 3;
+  const uint16_t* A = a + static_cast<long long>(t) * 64 * k;
+  const uint16_t* B = b + static_cast<long long>(t) * 8 * k;
+  // B^T (8 x k) into 128-byte-swizzled atoms of 8 rows x 64 k: entry (n, kk)
+  // of atom kk / 64 at n * 128 + ((kk % 64 / 8) ^ n) * 16 + (kk % 8) * 2
+  for (int i = tid; i < 8 * k; i += 128) {
+    const int n = i / k, kk = i % k;
+    *reinterpret_cast<uint16_t*>(sb + (kk / 64) * 1024 + n * 128 + (((kk % 64) / 8) ^ n) * 16 + (kk % 8) * 2) =
+        B[n * k + kk];
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  float dw[4] = {0.f, 0.f, 0.f, 0.f}, dm[4] = {0.f, 0.f, 0.f, 0.f};
+  const int r0 = 16 * warp + gr;
+  for (int s = 0; s < k / 16; ++s) {
+    const int k0 = 16 * s + 2 * t4;
+    uint32_t af[4];
+    af[0] = *reinterpret_cast<const uint32_t*>(A + r0 * k + k0);
+    af[1] = *reinterpret_cast<const uint32_t*>(A + (r0 + 8) * k + k0);
+    af[2] = *reinterpret_cast<const uint32_t*>(A + r0 * k + k0 + 8);
+    af[3] = *reinterpret_cast<const uint32_t*>(A + (r0 + 8) * k + k0 + 8);
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(B + gr * k + k0);
+    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(B + gr * k + k0 + 8);
+    mma(dm, af, b0, b1);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    fence_regs(dw);
+    wgmma_m64n8k16_rs(dw, af, sw128_desc(sb + (s / 4) * 1024 + 32 * (s % 4)));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_regs(dw);
+  }
+  float* W = d_wg + static_cast<long long>(t) * 64 * 8;
+  float* M = d_mma + static_cast<long long>(t) * 64 * 8;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int r = r0 + 8 * (c / 2), col = 2 * t4 + c % 2;
+    W[r * 8 + col] = dw[c];
+    M[r * 8 + col] = dm[c];
+  }
+}
+
+}  // namespace
+
+extern "C" int wgmma_bits(const uint16_t* a, const uint16_t* b, float* d_wg, float* d_mma, int trials, int k,
+                          void* stream) {
+  if (trials <= 0 || k <= 0 || k % 64 != 0 || k > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  wgmma_bits_kernel<<<trials, 128, 0, static_cast<cudaStream_t>(stream)>>>(a, b, d_wg, d_mma, k);
+  return static_cast<int>(cudaGetLastError());
+}

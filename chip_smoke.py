@@ -202,11 +202,13 @@ Phases, each of which fails the script on a failed check:
      per-layer route's at 1000 and 8192 rows;
  53. ``general_epochs``: K2g (csrc/fused_epoch_general.cu) against its
      twin at each pair on the route of its widths (the resident epoch,
-     four kernels a minibatch, at every pair but (1024,), which keeps the
-     per-layer route), each launch counted on its route, two calls
-     bit-identical, and K3g's log-probs equal to K2g's forward bit for bit
-     (approx_kl exactly 0 on the first minibatch when the stored log-probs
-     are K3g's);
+     four kernels a minibatch, at every pair but (1024,) and the hovering
+     CLI's 2 x 1024, which keep the per-layer route: the TMA-fed wgmma GEMM
+     of csrc/policy_general.cuh a layer and pass), each launch counted on
+     its route, two calls bit-identical, and K3g's log-probs equal to K2g's
+     forward bit for bit (approx_kl exactly 0 on the first minibatch when
+     the stored log-probs are K3g's) at the resident pairs, (1024,), 2 x
+     1024 and (4128,);
  54. ``hover7_serving``: 8192 PackedQuadXHoverEnv(QuadXHoverEnv(
      flight_mode=7)) envs, a 3 x 256 ActorCritic through K4g, cached
      auto-reset 64, 256 steps (one row-1 and one K4g launch a step), and
@@ -226,11 +228,15 @@ Phases, each of which fails the script on a failed check:
      spills; the cluster route, the per-layer route forced and the
      library call in turns at the (1024,) trunk of ``traj_train``'s
      ``other_trunks`` (its rows; K2g per layer) and at the 2 x 1024
-     training path's shapes (8192 and 262,144 rows), with the cluster
-     kernels' ptxas;
+     training path's shapes (8192 and 262,144 rows; K2g per layer over an
+     epoch of 32 x 8192 on the trained network, in turns with the
+     library's 32 updates), with the cluster kernels' and the per-layer
+     GEMM's ptxas (no spills);
  57. ``general_main_path_checks``: K3g over the training path's batch and
      K2g over two of its minibatches on its trained 3 x 256 network, and
      its 32 x 8192 epoch bit for bit as 32 chained one-minibatch calls;
+     at 2 x 1024, on that path's trained network, a 4 x 8192 epoch bit for
+     bit as 4 chained calls and on repeat (approx_kl 0);
      then the ``kernels`` line for all twenty-two kernels (rows 1, 2, 4,
      5, 6, 8, 9 and 10 with phase 2's launch records; the general
      family's routes of K4g and K3g (resident, cluster, per layer) and of
@@ -1005,7 +1011,8 @@ def time_sgd_kernels(tp, runner, label: str = "sgd_times") -> dict:
 def epoch_kernel_count(run, n_mb: int, per_mb: int | None = None, per_call: int | None = None) -> dict:
     """The CUDA kernels of one K2 (or K2n, K2g) call (torch.profiler): its
     own (they take ``EpochArgs``, ``NarrowEpochArgs``, ``GeneralEpochArgs``
-    or K2g's GEMM's ``GemmArgs``), checked against
+    or K2g's GEMM's ``GemmArgs``, or round its obs, ``round_rows_kernel``),
+    checked against
     ``per_mb`` (K2's ``KERNELS_PER_MINIBATCH``) per minibatch plus
     ``per_call`` (``KERNELS_PER_CALL``), and any other device operations
     the call queued."""
@@ -1021,7 +1028,7 @@ def epoch_kernel_count(run, n_mb: int, per_mb: int | None = None, per_call: int 
         run()
         torch.cuda.synchronize()
     counts = [(evt.key, evt.count) for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
-    mine = lambda k: "EpochArgs" in k or "GemmArgs" in k  # noqa: E731
+    mine = lambda k: "EpochArgs" in k or "GemmArgs" in k or "round_rows_kernel" in k  # noqa: E731
     own = sum(c for k, c in counts if mine(k))
     per_mb = cuda_sgd.KERNELS_PER_MINIBATCH if per_mb is None else per_mb
     per_call = cuda_sgd.KERNELS_PER_CALL if per_call is None else per_call
@@ -2964,8 +2971,9 @@ def general_resident_kernels() -> dict:
     torch.profiler (in the launch records' child process): the resident
     and the cluster K4g one kernel and nothing else, the resident and the
     cluster K3g one kernel of its own beside its image build's, the
-    per-layer K4g a GEMM a layer a trunk, the per-layer K3g a GEMM a layer
-    beside its log-prob kernel and its image build's."""
+    per-layer K4g the obs rounded to bf16 and a GEMM a layer a trunk, the
+    per-layer K3g the rounded obs and a GEMM a layer beside its log-prob
+    kernel and its image build's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2996,17 +3004,17 @@ def general_resident_kernels() -> dict:
            "k4g_cluster": count(lambda: cuda_policy.policy_value_forward(wide_obs, wide_w), "cluster_kernel"),
            "k3g_cluster": count(lambda: cuda_sgd.logp_forward(wide_rows, pi_leaves(wide_net), 21, vf_sizes=(1024,)),
                                 "cluster_kernel"),
-           "k4g_per_layer": count(lambda: cuda_general.forward_per_layer(wide_obs, wide_w, *wide_images), "GemmArgs"),
+           "k4g_per_layer": count(lambda: cuda_general.forward_per_layer(wide_obs, wide_w, *wide_images), "general::"),
            "k3g_per_layer": count(lambda: cuda_general.logp_per_layer(wide_rows, pi_leaves(wide_net), 21),
-                                  "GemmArgs")}
+                                  "general::")}
     check(out["k4g"] == {"own": 1, "other": 0}, f"resident K4g: CUDA kernels a call {out['k4g']}")
     check(out["k3g"]["own"] == 1, f"resident K3g: CUDA kernels a call {out['k3g']}")
     check(cuda_general.forward_route(wide_w) == "cluster" and out["k4g_cluster"] == {"own": 1, "other": 0},
           f"cluster K4g: CUDA kernels a call {out['k4g_cluster']}")
     check(cuda_general.logp_route(21, 4, (1024,)) == "cluster" and out["k3g_cluster"]["own"] == 1,
           f"cluster K3g: CUDA kernels a call {out['k3g_cluster']}")
-    check(out["k4g_per_layer"] == {"own": 4, "other": 0}, f"per-layer K4g: CUDA kernels a call {out['k4g_per_layer']}")
-    check(out["k3g_per_layer"]["own"] == 2, f"per-layer K3g: CUDA kernels a call {out['k3g_per_layer']}")
+    check(out["k4g_per_layer"] == {"own": 5, "other": 0}, f"per-layer K4g: CUDA kernels a call {out['k4g_per_layer']}")
+    check(out["k3g_per_layer"]["own"] == 3, f"per-layer K3g: CUDA kernels a call {out['k3g_per_layer']}")
     return out
 
 
@@ -4484,7 +4492,7 @@ def general_net(seed: int, obs: int, act: int, pi, vf, **kw):
 
 
 def per_layer_images(net):
-    """The per-layer route's f32 vectors (``cuda_general.pack_trunk``) of
+    """The per-layer route's images (``cuda_general.pack_trunk``) of
     ``net``'s actor and critic."""
     from pyflyt_tpu_torch.ops import cuda_general
 
@@ -4500,7 +4508,7 @@ def check_routes_equal(net, n: int) -> bool:
     """K4g's and K3g's route (resident or cluster) against the per-layer
     route forced on the same inputs: the mean, value and log-probs equal
     bit for bit (every route runs each output's k16 steps in order on the
-    same mma.sync fragments)."""
+    same bf16 inputs, and wgmma's chain gives mma.sync's bits)."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy
 
@@ -4631,11 +4639,13 @@ def check_general_epochs(seed: int) -> dict:
     """K2g against its twin at every trunk pair of the grid on the route of
     its widths (resident at every GENERAL_PAIRS pair, per layer at
     (1024,)), two minibatches of 8192 rows at obs 21 / act 4 and of 1000
-    rows at obs 72 / act 10 with a clipping log_std range, the first moment
-    at GENERAL_MU_REL, each launch counted on its route and each error on
-    the route that gave it; then ``check_general_consistency`` at the
-    slice's trunk, at 2 x 512 and at the linear policy (resident) and at
-    (1024,) (per layer)."""
+    rows at obs 72 / act 10 with a clipping log_std range, and at the
+    hovering CLI's 2 x 1024 (per layer) two of 8192 at obs 21 / act 4, the
+    first moment at GENERAL_MU_REL, each launch counted on its route and
+    each error on the route that gave it; then ``check_general_consistency``
+    at the slice's trunk, at 2 x 512 and at the linear policy (resident)
+    and at (1024,), 2 x 1024 and (4128,) (per layer; K3g's log-probs from
+    the cluster route at the first two, the per-layer one at the last)."""
     from pyflyt_tpu_torch.ops import cuda_general
 
     kernels = {"resident": cuda_general.RESIDENT_EPOCH_KERNEL, "per_layer": cuda_general.EPOCH_KERNEL}
@@ -4645,11 +4655,12 @@ def check_general_epochs(seed: int) -> dict:
     checks = []
     shapes = [(pi, vf, 21, 4, N_ENVS, None) for pi, vf in GENERAL_PAIRS]
     shapes += [(pi, vf, 72, 10, N_RAGGED, EPOCH_RANGE) for pi, vf in GENERAL_PAIRS]
-    wide = GENERAL_WIDE
-    shapes += [(*wide, 21, 4, N_ENVS, None), (*wide, 72, 10, N_RAGGED, EPOCH_RANGE)]
+    wide, hover7 = GENERAL_WIDE, (HOVER7_WIDE, HOVER7_WIDE)
+    shapes += [(*wide, 21, 4, N_ENVS, None), (*wide, 72, 10, N_RAGGED, EPOCH_RANGE), (*hover7, 21, 4, N_ENVS, None)]
     for k, (pi, vf, o, a, mb, rng) in enumerate(shapes):
         route = epoch_route_of(o, a, pi, vf)
-        check(route == ("per_layer" if (pi, vf) == wide else "resident"), f"general epochs: {pi} {vf} on {route}")
+        check(route == ("per_layer" if (pi, vf) in (wide, hover7) else "resident"),
+              f"general epochs: {pi} {vf} on {route}")
         c = check_epoch(general_net(seed + 2000 + k, o, a, pi, vf), 2, mb, rng, GENERAL_MU_REL)
         checks.append({**c, "pi": pi, "vf": vf, "route": route})
         want[route] += 1
@@ -4658,7 +4669,7 @@ def check_general_epochs(seed: int) -> dict:
     check(launches == want, f"general epochs: launches {launches}, expected {want}")
     consistency = [check_general_consistency(general_net(seed + 3000 + k, 21, 4, pi, vf), 4, N_ENVS)
                    for k, (pi, vf) in enumerate(((GENERAL_TRUNK, GENERAL_TRUNK), ((512, 512), (512, 512)), ((), ()),
-                                                 wide))]
+                                                 wide, hover7, (GENERAL_PAST, GENERAL_PAST)))]
     return {"checks": checks, "consistency": consistency, "launches": launches, "by_route": worst,
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "max_mu_rel_err": max(c["mu_rel_err"] for c in checks),
@@ -5028,6 +5039,60 @@ def time_1024_routes(shapes: dict) -> dict:
     return out
 
 
+def gemm_ptxas() -> dict:
+    """Registers, stack frame and spills of each instantiation of the
+    per-layer GEMM (``csrc/policy_general.cuh``) in the two sources that
+    build it."""
+    import re
+
+    from pyflyt_tpu_torch.ops import cuda_build
+
+    out = {}
+    for source in ("policy_general.cu", "fused_epoch_general.cu"):
+        log = cuda_build.library_path(source).with_suffix(".log")
+        text = log.read_text() if log.exists() else ""
+        for m in re.finditer(r"Function properties for \S*gemm_kernelILi(\d)ELi(\d)ELi(\d)E\S*\n\s*(\d+) bytes stack "
+                             r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
+            epi, ta, tb, stack, st, ld, regs = (int(v) for v in m.groups())
+            out[f"{source}:epi{epi}_ta{ta}_tb{tb}"] = {"registers": regs, "stack_frame_bytes": stack,
+                                                       "spill_store_bytes": st, "spill_load_bytes": ld}
+    check(bool(out) and all(v["spill_store_bytes"] == 0 for v in out.values()), f"the per-layer GEMM's ptxas: {out}")
+    return out
+
+
+def time_wide_epoch(big_tp, big_runner) -> dict:
+    """K2g on its per-layer route at the 2 x 1024 training path's shapes:
+    one epoch of 32 minibatches of 8192 rows of packed rows on
+    ``big_runner``'s trained network and Adam state, in turns with the
+    library's 32 updates (bf16 autograd + ``Adam(fused=True)``, profiler
+    kernel time), the plain twin and the bound."""
+    from pyflyt_tpu_torch.ops import cuda_general, cuda_sgd
+
+    net, cfg = big_runner.network, big_tp.config
+    o, a = net.obs_dim, net.action_dim
+    pi, vf = trunk_sizes(net.pi_trunk), trunk_sizes(net.vf_trunk)
+    mbs = packed_rows(net, cfg.batch_size, seed=309).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
+    stats = adv_stats(mbs[:, :, o + a + 1])
+    leaves = [t.detach() for t in cuda_sgd.params_to_leaves(net)]
+    opt = big_runner.opt_state
+    ecfg = big_tp.epoch_config(o)
+    check(cuda_general.epoch_route(ecfg) == "per_layer", "K2g at 2 x 1024: the per-layer route")
+    epoch = (mbs, stats, opt.count.reshape(1), leaves, opt.mu, opt.nu, ecfg)
+    # one call 2 + 25 x 32 kernels: under the ~1000 a stream holds
+    k2 = epoch_turns({"per_layer": (lambda: cuda_sgd.fused_epoch(*epoch), 1)},
+                     library_update(net, mbs[0], stats[0], cfg), cfg.num_minibatches)
+    plain, _ = time_ms(lambda: cuda_sgd.fused_epoch_plain(*epoch), iters=1, repeats=2, device_timed=False)
+    state = tensor_bytes(leaves) + tensor_bytes(opt.mu) + tensor_bytes(opt.nu)
+    b_ms, by = roofline(tensor_bytes(epoch[:3]) + 2 * state + cfg.num_minibatches * 5 * 4,
+                        cuda_sgd.epoch_flops(cfg.batch_size, o, a, pi_sizes=pi, vf_sizes=vf))
+    ms = k2["per_layer"]["ms"]
+    return {"ms": ms, "host_ms": k2["per_layer"]["host_ms"], "ms_per_minibatch": ms / cfg.num_minibatches,
+            "plain_ms": plain, "library_ms": k2["library"]["ms"], "library_ms_source": "torch.profiler kernel time",
+            "library_host_wall_ms": k2["library"]["host_ms"], "bound_ms": b_ms, "bound_by": by,
+            "minibatches": cfg.num_minibatches, "minibatch_size": cfg.minibatch_size, "sizes": pi, "obs_dim": o,
+            "turns": k2}
+
+
 def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict, big_tp, big_runner) -> dict:
     """Row 1 in mode 7 on the serving rollout's state, and K4g, K3g and
     K2g at the slice's shapes (the trained 3 x 256 network; 8192 rows; the
@@ -5039,7 +5104,8 @@ def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict, big_t
     per-layer route forced and the library call at ``per_layer_shapes``
     (``time_1024_routes``, with K2g per layer) and at the 2 x 1024
     training path's shapes (``big_runner``'s trained network: K4g over 8192
-    rows, K3g over its 262,144-row batch)."""
+    rows, K3g over its 262,144-row batch, K2g per layer over its epoch of
+    32 x 8192, ``time_wide_epoch``), and the per-layer GEMM's ptxas."""
     import torch
     from pyflyt_tpu_torch.ops import cuda_general, cuda_policy, cuda_sgd
     from pyflyt_tpu_torch.ops import cuda_quadx as cq
@@ -5105,6 +5171,8 @@ def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict, big_t
     big_rows = packed_rows(big_net, big_tp.config.batch_size, seed=308)
     out["cluster_2x1024"] = time_wide_routes(big_net, obs, big_rows, k4_iters=20, k3_iters=8)
     del big_rows
+    out["fused_epoch_general_2x1024"] = time_wide_epoch(big_tp, big_runner)
+    out["gemm_ptxas"] = gemm_ptxas()
 
     mbs = packed_rows(net, batch, seed=304).reshape(cfg.num_minibatches, cfg.minibatch_size, -1)
     stats = adv_stats(mbs[:, :, o + a + 1])
@@ -5703,7 +5771,8 @@ def main(argv=None) -> int:
                               results["traj_train"]["other_trunks"]["(1024,)"]["shapes"], h7_big_tp, h7_big_runner)
     results["general_kernel_times"] = gt
     print(json.dumps({"general_kernel_times": gt, "card": card}), flush=True)
-    # 57. K3g and K2g at the training path's own shapes, on its trained 3 x 256 network: K3g against its twin
+    # 57. K3g and K2g at the training path's own shapes, on its trained 3 x 256 network (and K2g on the 2 x 1024
+    # one): K3g against its twin
     # over the 262,144-row batch, K2g against its twin over two minibatches of 8192 rows from the training's
     # own Adam state (the seeded 1e-3 moments would dwarf this network's small gradients: the epoch's share of
     # a moment is then one f32 ulp, 2.5e-3 of it, whatever computes it), and its epoch of 32 such minibatches
@@ -5713,7 +5782,12 @@ def main(argv=None) -> int:
           "k2g_epoch_2x8192": check_epoch(h7_net, 2, h7_cfg.minibatch_size, h7_cfg.log_std_range, GENERAL_MU_REL,
                                           opt=h7_runner.opt_state),
           "k2g_epoch_32x8192_chained": check_general_chained(h7_net, h7_cfg.num_minibatches, h7_cfg.minibatch_size,
-                                                             h7_cfg.log_std_range)}
+                                                             h7_cfg.log_std_range),
+          # the 2 x 1024 path's K2g (per layer) on its own trained network: 4 x 8192 rows as 4 chained
+          # one-minibatch calls, and on repeat (with K3g's log-probs, approx_kl 0)
+          "k2g_2x1024_epoch_4x8192_chained": check_general_chained(
+              h7_big_runner.network, 4, h7_cfg.minibatch_size, h7_big_tp.config.log_std_range),
+          "k2g_2x1024_repeat": check_general_consistency(h7_big_runner.network, 4, h7_cfg.minibatch_size)}
     results["general_main_path_checks"] = gm
     print(json.dumps({"general_main_path_checks": gm}), flush=True)
     # 58. K4g and K3g on the cluster route against their twins and bit for bit the per-layer route's
@@ -5772,11 +5846,17 @@ def main(argv=None) -> int:
          max(gg["by_route"]["per_layer"]["mean"], gg["by_route"]["per_layer"]["value"]),
          {"main_path": "traj_train other_trunks (4128,), past a cluster of 8; ms forced at (1024,), "
                        f"{gt['general_policy_value_forward']['rows']} rows",
+          "at_2x1024": {"ms": gt["cluster_2x1024"]["general_cluster_forward"]["per_layer_ms"],
+                        "cluster_ms": gt["cluster_2x1024"]["general_cluster_forward"]["ms"],
+                        "library_ms": gt["cluster_2x1024"]["general_cluster_forward"]["library_ms"]},
           "kernels_per_call": records["general_resident"]["k4g_per_layer"]}),
         ("general_logp_forward", "policy_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:173",
          past_trunk["general_logp_forward"], gg["by_route"]["per_layer"]["logp"],
          {"main_path": "traj_train other_trunks (4128,), past a cluster of 8; ms forced at (1024,), "
                        f"{gt['general_logp_forward']['rows']} rows",
+          "at_2x1024": {"ms": gt["cluster_2x1024"]["general_cluster_logp"]["per_layer_ms"],
+                        "cluster_ms": gt["cluster_2x1024"]["general_cluster_logp"]["ms"],
+                        "library_ms": gt["cluster_2x1024"]["general_cluster_logp"]["library_ms"]},
           "kernels_per_call": records["general_resident"]["k3g_per_layer"]}),
         ("general_resident_epoch", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
          training["general_resident_epoch"],
@@ -5786,12 +5866,19 @@ def main(argv=None) -> int:
           "kernels_of_a_4_minibatch_call": records["fused_epoch_general"]["resident"],
           "per_layer_kernels_of_a_4_minibatch_call": records["fused_epoch_general"]["per_layer"]}),
         ("fused_epoch_general", "fused_epoch_general.cu", "pyflyt_tpu/ops/pallas_sgd.py:269",
-         wide_trunk["fused_epoch_general"], ge["by_route"]["per_layer"],
-         {"main_path": "traj_train other_trunks (1024,): the per-layer route past the resident envelope, "
-                       f"{gt['fused_epoch_general']['minibatches']} x {gt['fused_epoch_general']['minibatch_size']} "
-                       "rows an epoch"}),
+         big["fused_epoch_general"], ge["by_route"]["per_layer"],
+         {"main_path": "hover7_train general_2x1024: the per-layer route past the resident envelope, "
+                       f"{gt['fused_epoch_general_2x1024']['minibatches']} x "
+                       f"{gt['fused_epoch_general_2x1024']['minibatch_size']} rows an epoch",
+          "ms_per_minibatch": gt["fused_epoch_general_2x1024"]["ms_per_minibatch"],
+          "gemm_ptxas": gt["gemm_ptxas"],
+          "at_1024": {**{k: gt["fused_epoch_general"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                 "bound_by", "minibatches", "minibatch_size")},
+                      "launches_per_other_trunks_1024_iteration": wide_trunk["fused_epoch_general"]}}),
     ):
-        t = gt["cluster_2x1024"][name] if name in gt["cluster_2x1024"] else gt[name]  # the main path's shapes
+        # the main path's shapes: the cluster rows and K2g per layer at 2 x 1024
+        t = gt["cluster_2x1024"].get(name, gt["fused_epoch_general_2x1024"] if name == "fused_epoch_general"
+                                     else gt[name])
         kernels.append({
             "name": name, "route": "cuda", "source": f"pyflyt_tpu_torch/csrc/{src}", "replaces": line,
             "launches": launches_, "max_abs_err": err,

@@ -29,33 +29,62 @@
 // (ops/cuda_general.py::epoch_route): the resident one (namespace rep,
 // below) for every trunk pair whose widest width fits a block, four kernels
 // a minibatch; and the per-layer one past it, where each layer of each pass
-// is a launch, so the chain of launches and the activations' round trips
-// through device memory set its time.
+// is a launch of policy_general.cuh's GEMM (TMA-fed bf16 stages, wgmma).
 //
-// The per-layer route: per minibatch, 3 (depth_pi + depth_vf) + 7 kernels
-// queued in order on one stream by one host call:
-//  - the forward: one GEMM a layer a trunk (policy_general.cuh), each
-//    tanh layer's f32 outputs kept in the workspace for the backward;
-//  - loss_kernel: a block a chunk of rows, a thread a row: the log-prob
-//    (general::row_logp, K3g's), the losses, dmean, dvalue, each chunk's
-//    partial sums and its log_std gradient;
+// The per-layer route: two kernels a call (round_rows: the obs of every
+// minibatch into one bf16 copy; image_kernel: the weights into the bf16
+// image, each layer's W (in x out) as the parameters hold it, pad32(out)
+// wide), then per minibatch 3 (depth_pi + depth_vf) + 7 kernels queued by
+// one host call, every operand map made once a call, the critic's GEMMs on
+// a second stream beside the actor's (each fills the SMs the other's tail
+// leaves idle; the loss and the reduce wait for both):
+//  - the forward: one GEMM a layer a trunk, each tanh layer's outputs kept
+//    f32 (the backward's 1 - a^2) and bf16 (the next GEMM's A and the
+//    weight gradient's), the heads f32;
+//  - loss_kernel: a block a 128-row tile, a thread a row: the log-prob
+//    (general::row_logp, K3g's), the losses, the heads' dz (bf16, zero past
+//    their outputs) and, per tile, the partial sums, the log_std gradient
+//    and the heads' dz column sums (f32);
 //  - the backward of each trunk from its head: the weight gradient of a
-//    layer (A^T dZ, one partial a chunk of rows, its bias gradient the
-//    chunk's f32 column sums of dZ in the same launch) into the chunk's
-//    slab row, then the data gradient (dZ W^T times 1 - a^2 of the layer
-//    below) into the other of two dz buffers;
-//  - reduce_kernel: the gradient as the slab rows' sum in chunk order, the
-//    log_std term, per-block sums of squares and the metrics row: every sum
-//    in a fixed order and no atomics, so the epoch is bit-reproducible;
+//    layer (A^T dZ, the minibatch's rows split into `splits` chunks, one
+//    partial a chunk into its slab row), then the data gradient (dZ W^T
+//    from the same image, times 1 - a^2 of the layer below, bf16 into the
+//    other of the trunk's two dz buffers, its f32 column sums, the bias
+//    gradient, per 128-row tile);
+//  - reduce_kernel: the gradient as the slab rows' sum in chunk order (a
+//    weight), the tiles' column sums in tile order (a bias), the tiles'
+//    log_std terms; per-block sums of squares and the metrics row: every
+//    sum in a fixed order and no atomics, so the epoch is bit-reproducible;
 //  - adam_kernel: every block sums the block sums of squares in the same
-//    order (the global norm), clips and runs Adam in place. The next
-//    minibatch's GEMMs read the updated f32 parameters directly.
+//    order (the global norm), clips, runs Adam in place and writes each
+//    updated weight's bf16 into the image (in the parameters' order, so
+//    side by side), which the next minibatch's GEMMs read.
+// What sets its time at the hovering CLI's 2 x 1024 (PERF.md §5): the
+// GEMMs' epilogues (a tanh layer's f32 and bf16 stores, a data gradient's
+// f32 activation loads), which run after their main loops, not beside
+// them; then the reduce and Adam over every parameter.
 // Parameters, moments and gradients are flat f32 vectors of the leaves in
-// ops/cuda_sgd.py::leaf_specs order, each at a multiple of 4 floats.
+// ops/cuda_sgd.py::leaf_specs order, each at a multiple of 4 floats; `slot`
+// says what each one is (ops/cuda_general.py::epoch_slots).
 #include "policy_general.cuh"
 #include "policy_resident.cuh"
 
 #include <utility>
+#include <vector>
+
+// One trunk of the per-layer epoch. Must match
+// pyflyt_tpu_torch/ops/cuda_general.py::_GeneralEpochTrunkC. The arrays are
+// host memory the caller keeps alive for the call.
+struct GeneralEpochTrunk {
+  int depth;
+  const int* dims;        // depth + 2 widths: the input, each layer's outputs, the head's
+  const long long* w;     // depth + 1: W_l (dims[l] x dims[l + 1]) at params + w[l], its gradient at a slab row + w[l]
+  const long long* b;     // depth + 1: bias_l at params + b[l]
+  const long long* img;   // depth + 1: W_l bf16 (dims[l] x pad32(dims[l + 1])) at image + img[l]
+  const long long* out;   // depth + 1: layer l's f32 outputs (mb x dims[l + 1]) at ws + out[l]
+  const long long* act;   // depth: tanh layer l's bf16 outputs (mb x pad32(dims[l + 1])) at acts + act[l]
+  const int* cs;          // depth + 1: dz_l's column sums from column cs[l] of a colsum row
+};
 
 // Must match pyflyt_tpu_torch/ops/cuda_general.py::_EpochArgsC.
 struct GeneralEpochArgs {
@@ -66,20 +95,25 @@ struct GeneralEpochArgs {
   float* mu;               // (P,) f32, first moment, in place
   float* nu;               // (P,) f32, second moment, in place
   float* metrics;          // (n_mb, 5) f32: loss, pg_loss, v_loss, entropy, approx_kl
-  float* ws;               // the workspace: layer outputs, dz buffers, dvalue, g_logp
-  float* slab;             // (chunks, P) f32: each chunk's gradient (zero where no leaf)
-  float* chunk_part;       // (chunks, 3) f32: sum pg_min, sum verr^2, sum (old - logp)
+  float* ws;               // each layer's f32 outputs
+  __nv_bfloat16* obs;      // (n_mb, mb, pad32(obs_dim)) bf16: the obs rounded once a call
+  __nv_bfloat16* acts;     // each tanh layer's bf16 outputs
+  __nv_bfloat16* dz;       // two (mb x dz_width) bf16 dz buffers a trunk (the actor's, the critic's), then the
+                           // critic head's (mb x 32)
+  __nv_bfloat16* image;    // every layer's W, bf16
+  const int* slot;         // (P,) int32: a weight's image slot, -2 - a bias's colsum column, -1 else
+  float* slab;             // (splits, P) f32: each row chunk's weight gradient (only at the weights)
+  float* colsum;           // (tiles, cs_width) f32: each 128-row tile's dz column sums
+  float* part;             // (tiles, 3 + act_dim) f32: sum pg_min, sum verr^2, sum (old - logp), g_log_std
   float* grad;             // (P,) f32
   float* block_sq;         // (ceil(P / 256),) f32
-  GeneralTrunk pi;         // host arrays: w, b leaf offsets in params (and in a slab row); out in ws
-  GeneralTrunk vf;
+  GeneralEpochTrunk pi;
+  GeneralEpochTrunk vf;
+  long long ws_floats;
+  long long acts_elems;
+  long long image_elems;
   long long mean;          // (mb x act_dim) the actor's head in ws: pi.out[pi.depth], for the kernels
   long long value;         // (mb,) the critic's: vf.out[vf.depth]
-  long long dz0;           // two (mb x widest output) dz buffers in ws; the actor's dmean starts in dz0
-  long long dz1;
-  long long dv;            // (mb,) the critic's dvalue
-  long long glogp;         // (mb,) each row's d loss / d logp
-  long long ws_floats;
   int ls_off;              // log_std's flat offset
   int P;
   int n_mb;
@@ -87,7 +121,12 @@ struct GeneralEpochArgs {
   int feat;
   int obs_dim;
   int act_dim;
-  int chunk;               // rows a weight-gradient partial sums (a multiple of general::BK)
+  int dz_width;            // a dz buffer's row stride bound: the widest pad32 output
+  int cs_width;            // floats of a colsum row
+  int cs_mean;             // the heads' dz column sums: pi.cs[pi.depth], vf.cs[vf.depth]
+  int cs_value;
+  int splits;              // row chunks of the weight gradient
+  int split_rows;          // rows a chunk (a multiple of general::BK)
   float lr;
   float clip_eps;
   float ent_coef;
@@ -100,12 +139,14 @@ struct GeneralEpochArgs {
 
 namespace {
 
-using general::EPI_DTANH;
-using general::EPI_STORE;
+using general::BM;
 using general::GemmArgs;
+using general::Operand;
+using general::pad32;
 
-constexpr int THREADS = 256;  // loss, reduce, Adam
-constexpr int NPART = 3;
+constexpr int THREADS = 256;  // loss, reduce, Adam, image
+constexpr int PER_THREAD = 4; // parameters a reduce or Adam thread takes
+constexpr int CRITIC_LD = 32; // the critic head's dz row: pad32(1)
 
 constexpr float B1 = 0.9f;
 constexpr float B2 = 0.999f;
@@ -114,7 +155,14 @@ constexpr float LN_B1 = -0.10536051565782628f;    // log(0.9)
 constexpr float LN_B2 = -0.0010005003335835335f;  // log(0.999)
 constexpr float ENT_C = 1.4189385332046727f;      // 0.5 log(2 pi e)
 
-__host__ __device__ __forceinline__ int n_chunks(const GeneralEpochArgs& p) { return (p.mb + p.chunk - 1) / p.chunk; }
+__host__ __device__ __forceinline__ int n_tiles(const GeneralEpochArgs& p) { return (p.mb + BM - 1) / BM; }
+__host__ __device__ __forceinline__ int n_part(const GeneralEpochArgs& p) { return 3 + p.act_dim; }
+// the reduce's and Adam's blocks: THREADS x PER_THREAD parameters each
+__host__ __device__ __forceinline__ int n_param_blocks(const GeneralEpochArgs& p) {
+  return (p.P + THREADS * PER_THREAD - 1) / (THREADS * PER_THREAD);
+}
+// parameter e of thread threadIdx.x in a reduce or Adam block
+__device__ __forceinline__ int param_of(int e) { return (blockIdx.x * PER_THREAD + e) * THREADS + threadIdx.x; }
 
 __device__ __forceinline__ float clip_ls(const GeneralEpochArgs& p, float ls) {
   return p.has_range ? fminf(fmaxf(ls, p.ls_lo), p.ls_hi) : ls;
@@ -138,151 +186,113 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// The losses of minibatch m, a block a chunk of rows: per row the log-prob,
-// the ratio, the clipped surrogate's and the value loss's derivatives
-// (dmean into ws + dz0, dvalue into ws + dv, d loss / d logp into
-// ws + glogp); per chunk the partial sums and the log_std gradient.
+// The losses of minibatch m, a block a 128-row tile, thread r its row r:
+// the log-prob, the ratio, the clipped surrogate's and the value loss's
+// derivatives, the heads' dz (bf16: dmean into dz at row stride
+// pad32(act_dim), dvalue into the critic's buffer); per tile the partial
+// sums, the log_std gradient and the heads' dz column sums (f32).
 __global__ void __launch_bounds__(THREADS) loss_kernel(const __grid_constant__ GeneralEpochArgs p, int m) {
   __shared__ float red[THREADS / 32];
-  const int c = blockIdx.x;
-  const int r0 = c * p.chunk, r1 = min(p.mb, r0 + p.chunk);
-  const float* rows = p.mbs + static_cast<long long>(m) * p.mb * p.feat;
-  const float* mean = p.ws + p.mean;
-  const float* value = p.ws + p.value;
-  float* dmean = p.ws + p.dz0;
-  float* dv = p.ws + p.dv;
-  float* glogp = p.ws + p.glogp;
+  const int c = blockIdx.x, r = c * BM + threadIdx.x;
+  const bool valid = threadIdx.x < BM && r < p.mb;
+  const float* rp = p.mbs + (static_cast<long long>(m) * p.mb + (valid ? r : 0)) * p.feat;
+  const float* mp = p.ws + p.mean + static_cast<long long>(valid ? r : 0) * p.act_dim;
   const float* ls = p.params + p.ls_off;
   const float inv_mb = 1.f / static_cast<float>(p.mb);
-  const float adv_mean = p.adv_stats[2 * m], adv_std = p.adv_stats[2 * m + 1];
-  const float lo = 1.f - p.clip_eps, hi = 1.f + p.clip_eps;
-  const int c0 = p.obs_dim + p.act_dim;
-  float s_pg = 0.f, s_v = 0.f, s_kl = 0.f;
-  for (int r = r0 + threadIdx.x; r < r1; r += THREADS) {
-    const float* rp = rows + static_cast<long long>(r) * p.feat;
-    const float* mp = mean + static_cast<long long>(r) * p.act_dim;
+  const int c0 = p.obs_dim + p.act_dim, apad = pad32(p.act_dim);
+  float g_logp = 0.f, pg = 0.f, kl = 0.f, verr = 0.f, dv = 0.f;
+  if (valid) {
     const float logp = general::row_logp(rp + p.obs_dim, mp, ls, p.act_dim, p.has_range, p.ls_lo, p.ls_hi);
     const float old = rp[c0], adv = rp[c0 + 1], ret = rp[c0 + 2];
     const float ratio = expf(logp - old);
-    const float adv_n = (adv - adv_mean) / (adv_std + 1e-8f);
+    const float adv_n = (adv - p.adv_stats[2 * m]) / (p.adv_stats[2 * m + 1] + 1e-8f);
+    const float lo = 1.f - p.clip_eps, hi = 1.f + p.clip_eps;
     const float clipped = fminf(fmaxf(ratio, lo), hi);
     const float pg1 = ratio * adv_n, pg2 = clipped * adv_n;
     const float inband = (ratio >= lo && ratio <= hi) ? 1.f : 0.f;
     const float d1 = adv_n, d2 = adv_n * inband;
     const float dmin = pg1 == pg2 ? 0.5f * (d1 + d2) : (pg1 < pg2 ? d1 : d2);
-    const float g_logp = (-inv_mb) * dmin * ratio;
-    for (int jj = 0; jj < p.act_dim; ++jj) {
-      const float var = expf(2.f * clip_ls(p, ls[jj]));
-      dmean[static_cast<long long>(r) * p.act_dim + jj] = g_logp * ((rp[p.obs_dim + jj] - mp[jj]) / var);
-    }
-    glogp[r] = g_logp;
-    const float verr = value[r] - ret;
-    dv[r] = (p.vf_coef * inv_mb) * verr;
-    s_pg += fminf(pg1, pg2);
-    s_v += verr * verr;
-    s_kl += old - logp;
+    g_logp = (-inv_mb) * dmin * ratio;
+    pg = fminf(pg1, pg2);
+    kl = old - logp;
+    verr = p.ws[p.value + r] - ret;
+    dv = (p.vf_coef * inv_mb) * verr;
+    __nv_bfloat16* dzv = p.dz + 4LL * p.mb * p.dz_width + static_cast<long long>(r) * CRITIC_LD;
+    for (int j = 0; j < CRITIC_LD; ++j) dzv[j] = __float2bfloat16_rn(j == 0 ? dv : 0.f);
+    __nv_bfloat16* dzm = p.dz + static_cast<long long>(r) * apad;
+    for (int j = p.act_dim; j < apad; ++j) dzm[j] = __float2bfloat16_rn(0.f);
   }
-  s_pg = block_sum(s_pg, red);
-  s_v = block_sum(s_v, red);
-  s_kl = block_sum(s_kl, red);
+  float* part = p.part + static_cast<long long>(c) * n_part(p);
+  float* cs = p.colsum + static_cast<long long>(c) * p.cs_width;
+  const float s_pg = block_sum(pg, red), s_v = block_sum(verr * verr, red), s_kl = block_sum(kl, red);
+  const float s_dv = block_sum(dv, red);
   if (threadIdx.x == 0) {
-    float* part = p.chunk_part + static_cast<long long>(c) * NPART;
     part[0] = s_pg;
     part[1] = s_v;
     part[2] = s_kl;
+    cs[p.cs_value] = s_dv;
   }
-  // log_std's gradient over the chunk: sum_rows g_logp ((a - mean)^2 / var - 1)
-  for (int jj = 0; jj < p.act_dim; ++jj) {
-    const float var = expf(2.f * clip_ls(p, ls[jj]));
-    float s = 0.f;
-    for (int r = r0 + threadIdx.x; r < r1; r += THREADS) {
-      const float d = rows[static_cast<long long>(r) * p.feat + p.obs_dim + jj] -
-                      mean[static_cast<long long>(r) * p.act_dim + jj];
-      s += glogp[r] * (d * d / var - 1.f);
+  // per action: dmean = g_logp (a - mean) / var, and log_std's gradient
+  // g_logp ((a - mean)^2 / var - 1), each summed over the tile
+  for (int j = 0; j < p.act_dim; ++j) {
+    float dm = 0.f, lsg = 0.f;
+    if (valid) {
+      const float var = expf(2.f * clip_ls(p, ls[j]));
+      const float d = rp[p.obs_dim + j] - mp[j];
+      dm = g_logp * (d / var);
+      lsg = g_logp * (d * d / var - 1.f);
+      p.dz[static_cast<long long>(r) * apad + j] = __float2bfloat16_rn(dm);
     }
-    s = block_sum(s, red);
-    if (threadIdx.x == 0) p.slab[static_cast<long long>(c) * p.P + p.ls_off + jj] = s;
+    const float s_dm = block_sum(dm, red), s_ls = block_sum(lsg, red);
+    if (threadIdx.x == 0) {
+      cs[p.cs_mean + j] = s_dm;
+      part[3 + j] = s_ls;
+    }
   }
 }
 
-// The backward of one trunk from dz_head (ws + dz_head, mb x dims[depth +
-// 1]): per layer from the head the weight gradient and its bias gradient
-// into the slab, then (but for layer 0) the data gradient into the other
-// dz buffer.
-cudaError_t trunk_backward(const GeneralEpochArgs& p, const GeneralTrunk& T, const float* rows, long long dz_head,
-                           cudaStream_t st) {
-  const int splits = n_chunks(p);
-  long long cur = dz_head;
-  for (int l = T.depth; l >= 0; --l) {
-    const int k = T.dims[l], n = T.dims[l + 1];
-    const float* in = l == 0 ? rows : p.ws + T.out[l - 1];
-    const long long ld_in = l == 0 ? p.feat : k;
-    GemmArgs w{};  // dW_l = in^T dz_l, a partial a chunk of rows
-    w.a = in;
-    w.a_si = 1;
-    w.a_sj = ld_in;
-    w.b = p.ws + cur;
-    w.b_si = n;
-    w.b_sj = 1;
-    w.c = p.slab + T.w[l];
-    w.ldc = n;
-    w.c_split = p.P;
-    w.colsum = p.slab + T.b[l];
-    w.colsum_split = p.P;
-    w.m = k;
-    w.n = n;
-    w.k = p.mb;
-    w.k_split = p.chunk;
-    cudaError_t e = general::gemm<EPI_STORE>(w, splits, st);
-    if (e != cudaSuccess) return e;
-    if (l == 0) break;
-    const long long next = cur == p.dz0 ? p.dz1 : p.dz0;
-    GemmArgs d{};  // dz_{l-1} = (dz_l W_l^T) (1 - a_{l-1}^2)
-    d.a = p.ws + cur;
-    d.a_si = n;
-    d.a_sj = 1;
-    d.b = p.params + T.w[l];
-    d.b_si = 1;
-    d.b_sj = n;
-    d.c = p.ws + next;
-    d.ldc = k;
-    d.act = p.ws + T.out[l - 1];
-    d.ld_act = k;
-    d.m = p.mb;
-    d.n = k;
-    d.k = n;
-    d.k_split = n;
-    if ((e = general::gemm<EPI_DTANH>(d, 1, st)) != cudaSuccess) return e;
-    cur = next;
-  }
-  return cudaSuccess;
-}
-
-// Gradient: the slab rows' sums in chunk order (log_std's less the entropy
-// term, masked outside the clamp band); per-block sums of squares; block 0
-// writes minibatch m's metrics row from the pre-update log_std.
+// Gradient: a weight's slab rows summed in chunk order, a bias's tiles'
+// column sums in tile order, log_std's tiles' terms less the entropy term
+// (masked outside the clamp band); per-block sums of squares; block 0
+// writes minibatch m's metrics row from the pre-update log_std. A thread
+// takes PER_THREAD parameters, THREADS apart, its reads (read-only for the
+// kernel) issued together.
 __global__ void __launch_bounds__(THREADS) reduce_kernel(const __grid_constant__ GeneralEpochArgs p, int m) {
   __shared__ float red[THREADS / 32];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const int chunks = n_chunks(p);
-  float g = 0.f;
-  if (i < p.P) {
-    for (int c = 0; c < chunks; ++c) g += p.slab[static_cast<long long>(c) * p.P + i];
-    if (i >= p.ls_off && i < p.ls_off + p.act_dim) {
-      g -= p.ent_coef;
+  const int tiles = n_tiles(p), np = n_part(p);
+  int slot[PER_THREAD];
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) slot[e] = param_of(e) < p.P ? __ldg(p.slot + param_of(e)) : -1;
+  float g[PER_THREAD], sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const int i = param_of(e), s = slot[e];
+    g[e] = 0.f;
+    if (s >= 0) {
+      for (int c = 0; c < p.splits; ++c) g[e] += __ldg(p.slab + static_cast<long long>(c) * p.P + i);
+    } else if (s <= -2) {
+      const float* cs = p.colsum + (-2 - s);
+      for (int tt = 0; tt < tiles; ++tt) g[e] += cs[static_cast<long long>(tt) * p.cs_width];
+    } else if (i >= p.ls_off && i < p.ls_off + p.act_dim) {
+      for (int tt = 0; tt < tiles; ++tt) g[e] += p.part[static_cast<long long>(tt) * np + 3 + i - p.ls_off];
+      g[e] -= p.ent_coef;
       const float raw = p.params[i];
-      if (p.has_range && !(raw > p.ls_lo && raw < p.ls_hi)) g = 0.f;
+      if (p.has_range && !(raw > p.ls_lo && raw < p.ls_hi)) g[e] = 0.f;
     }
-    p.grad[i] = g;
   }
-  const float sq = block_sum(g * g, red);
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    if (param_of(e) < p.P) p.grad[param_of(e)] = g[e];
+    sq += g[e] * g[e];
+  }
+  sq = block_sum(sq, red);
   if (threadIdx.x == 0) p.block_sq[blockIdx.x] = sq;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-      s0 += p.chunk_part[static_cast<long long>(c) * NPART + 0];
-      s1 += p.chunk_part[static_cast<long long>(c) * NPART + 1];
-      s2 += p.chunk_part[static_cast<long long>(c) * NPART + 2];
+    for (int tt = 0; tt < tiles; ++tt) {
+      s0 += p.part[static_cast<long long>(tt) * np + 0];
+      s1 += p.part[static_cast<long long>(tt) * np + 1];
+      s2 += p.part[static_cast<long long>(tt) * np + 2];
     }
     const float inv_mb = 1.f / static_cast<float>(p.mb);
     const float pg_loss = -s0 * inv_mb;
@@ -299,82 +309,262 @@ __global__ void __launch_bounds__(THREADS) reduce_kernel(const __grid_constant__
   }
 }
 
-// Global-norm clip and Adam, in place. Every block sums the block sums of
-// squares in the same order, so every block sees the same norm.
+// Global-norm clip and Adam, in place, each updated weight's bf16 into the
+// image. Every block sums the block sums of squares in the same order (a
+// thread's strided share, then the block's sum in a fixed order), so every
+// block sees the same norm.
 __global__ void __launch_bounds__(THREADS) adam_kernel(const __grid_constant__ GeneralEpochArgs p, int m) {
+  __shared__ float red[THREADS / 32];
   __shared__ float coef[3];  // scale, c1, c2
-  const int nb = (p.P + THREADS - 1) / THREADS;
-  if (threadIdx.x < 32) {
-    float sq = 0.f;
-    for (int b = threadIdx.x; b < nb; b += 32) sq += p.block_sq[b];
-    sq = warp_sum(sq);
-    if (threadIdx.x == 0) {
-      const float gnorm = sqrtf(sq);
-      coef[0] = gnorm < p.max_grad_norm ? 1.f : p.max_grad_norm / gnorm;
-      const float tt = static_cast<float>(*p.t0 + m + 1);
-      coef[1] = 1.f - expf(tt * LN_B1);
-      coef[2] = 1.f - expf(tt * LN_B2);
-    }
+  const int nb = n_param_blocks(p);
+  float sq = 0.f;
+  for (int b = threadIdx.x; b < nb; b += THREADS) sq += __ldg(p.block_sq + b);
+  sq = block_sum(sq, red);
+  if (threadIdx.x == 0) {
+    const float gnorm = sqrtf(sq);
+    coef[0] = gnorm < p.max_grad_norm ? 1.f : p.max_grad_norm / gnorm;
+    const float tt = static_cast<float>(*p.t0 + m + 1);
+    coef[1] = 1.f - expf(tt * LN_B1);
+    coef[2] = 1.f - expf(tt * LN_B2);
   }
   __syncthreads();
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= p.P) return;
-  const float g = p.grad[i] * coef[0];
-  const float m_new = B1 * p.mu[i] + (1.f - B1) * g;
-  const float v_new = B2 * p.nu[i] + (1.f - B2) * (g * g);
-  p.mu[i] = m_new;
-  p.nu[i] = v_new;
-  const float upd = (m_new / coef[1]) / (sqrtf(v_new / coef[2]) + ADAM_EPS);
-  p.params[i] = p.params[i] - p.lr * upd;
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const int i = param_of(e);
+    if (i >= p.P) break;
+    const float g = __ldg(p.grad + i) * coef[0];
+    const float m_new = B1 * p.mu[i] + (1.f - B1) * g;
+    const float v_new = B2 * p.nu[i] + (1.f - B2) * (g * g);
+    p.mu[i] = m_new;
+    p.nu[i] = v_new;
+    const float upd = (m_new / coef[1]) / (sqrtf(v_new / coef[2]) + ADAM_EPS);
+    const float w = p.params[i] - p.lr * upd;
+    p.params[i] = w;
+    const int s = __ldg(p.slot + i);
+    if (s >= 0) p.image[s] = __float2bfloat16_rn(w);
+  }
 }
 
-int widest(const GeneralTrunk& T) {
+// The image of the weights as given: the first minibatch's.
+__global__ void __launch_bounds__(THREADS) image_kernel(const __grid_constant__ GeneralEpochArgs p) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= p.P) return;
+  const int s = p.slot[i];
+  if (s >= 0) p.image[s] = __float2bfloat16_rn(p.params[i]);
+}
+
+// One GEMM of the epoch, its maps made once a call: which kernel, and
+// whether its A is the obs (whose plane is the minibatch).
+struct Step {
+  GemmArgs g;
+  int kind;
+  bool obs;
+};
+enum Kind : int { FWD_TANH = 0, FWD_HEAD = 1, WGRAD = 2, DGRAD = 3 };
+
+cudaError_t launch(const Step& s, int m, cudaStream_t st) {
+  GemmArgs g = s.g;
+  if (s.obs) g.a_z = m;
+  switch (s.kind) {
+    case FWD_TANH: return general::launch_gemm<general::EPI_TANH, 0, 1>(g, st);
+    case FWD_HEAD: return general::launch_gemm<general::EPI_BIAS, 0, 1>(g, st);
+    case WGRAD: return general::launch_gemm<general::EPI_STORE, 1, 1>(g, st);
+    default: return general::launch_gemm<general::EPI_DTANH, 0, 0>(g, st);
+  }
+}
+
+int widest(const GeneralEpochTrunk& T) {
   int w = 0;
-  for (int l = 1; l <= T.depth + 1; ++l) w = T.dims[l] > w ? T.dims[l] : w;
+  for (int l = 1; l <= T.depth + 1; ++l) w = pad32(T.dims[l]) > w ? pad32(T.dims[l]) : w;
   return w;
 }
 
-bool fits(long long off, long long floats, long long ws) { return off >= 0 && off + floats <= ws; }
+bool fits(long long off, long long elems, long long size, int align) {
+  return off >= 0 && off + elems <= size && off % align == 0;
+}
+
+// A trunk the wrapper lays out: `in` inputs, `outs` outputs, every offset
+// inside its buffer and aligned as its maps need.
+bool trunk_ok(const GeneralEpochArgs& p, const GeneralEpochTrunk& T, int outs, long long mb) {
+  if (T.depth < 0 || T.dims == nullptr || T.w == nullptr || T.b == nullptr || T.img == nullptr ||
+      T.out == nullptr || T.act == nullptr || T.cs == nullptr || T.dims[0] != p.obs_dim || T.dims[T.depth + 1] != outs)
+    return false;
+  for (int l = 0; l <= T.depth; ++l) {
+    const long long k = T.dims[l], n = T.dims[l + 1];
+    if (k <= 0 || n <= 0 || !fits(T.w[l], k * n, p.P, 1) || !fits(T.b[l], n, p.P, 1) ||
+        !fits(T.img[l], k * pad32(static_cast<int>(n)), p.image_elems, 64) || !fits(T.out[l], mb * n, p.ws_floats, 1) ||
+        T.cs[l] < 0 || T.cs[l] + n > p.cs_width || pad32(static_cast<int>(n)) > p.dz_width)
+      return false;
+    if (l < T.depth && !fits(T.act[l], mb * pad32(static_cast<int>(n)), p.acts_elems, 64)) return false;
+  }
+  return true;
+}
+
+// The steps of one trunk: its forward (a layer each) and its backward from
+// the head's dz at dz + dz_head (row stride pad32 of the head's outputs):
+// per layer from the head the weight gradient, then (but for layer 0) the
+// data gradient into the other of the trunk's two dz buffers (from dz +
+// dz_own).
+cudaError_t trunk_steps(const GeneralEpochArgs& p, const GeneralEpochTrunk& T, long long dz_head, long long dz_own,
+                        std::vector<Step>& fwd, std::vector<Step>& bwd) {
+  const int mb = p.mb, obs_ld = pad32(p.obs_dim);
+  const Operand obs{p.obs, p.obs_dim, obs_ld, mb, p.n_mb, static_cast<long long>(mb) * obs_ld};
+  // layer l's input: the obs or tanh layer l - 1's bf16 outputs
+  const auto input = [&](int l) {
+    return l == 0 ? obs : Operand{p.acts + T.act[l - 1], T.dims[l], pad32(T.dims[l]), mb, 1, 0};
+  };
+  // W_l: the forward's B (k x n) MN-major, the data gradient's B^T K-major
+  const auto weights = [&](int l) {
+    return Operand{p.image + T.img[l], T.dims[l + 1], pad32(T.dims[l + 1]), T.dims[l], 1, 0};
+  };
+  cudaError_t e;
+  for (int l = 0; l <= T.depth; ++l) {
+    const int k = T.dims[l], n = T.dims[l + 1];
+    Step s{};
+    s.obs = l == 0;
+    GemmArgs& g = s.g;
+    g.bias = p.params + T.b[l];
+    g.c = p.ws + T.out[l];
+    g.ldc = n;
+    g.m = mb;
+    g.n = n;
+    g.k = k;
+    g.k_split = pad32(k);
+    g.splits = 1;
+    if (l < T.depth) {
+      s.kind = FWD_TANH;
+      g.cb = p.acts + T.act[l];
+      g.ldcb = g.ncb = pad32(n);
+      e = general::prepare_gemm<general::EPI_TANH, 0, 1>(g, input(l), weights(l));
+    } else {
+      s.kind = FWD_HEAD;
+      e = general::prepare_gemm<general::EPI_BIAS, 0, 1>(g, input(l), weights(l));
+    }
+    if (e != cudaSuccess) return e;
+    fwd.push_back(s);
+  }
+  const long long dz0 = dz_own, dz1 = dz_own + static_cast<long long>(mb) * p.dz_width;
+  long long cur = dz_head;
+  for (int l = T.depth; l >= 0; --l) {
+    const int k = T.dims[l], n = T.dims[l + 1];
+    const Operand dz{p.dz + cur, n, pad32(n), mb, 1, 0};
+    Step w{};  // dW_l = in^T dz_l, a partial a chunk of rows
+    w.kind = WGRAD;
+    w.obs = l == 0;
+    w.g.c = p.slab + T.w[l];
+    w.g.ldc = n;
+    w.g.c_split = p.P;
+    w.g.m = k;
+    w.g.n = n;
+    w.g.k = mb;
+    w.g.k_split = p.split_rows;
+    w.g.splits = p.splits;
+    if ((e = general::prepare_gemm<general::EPI_STORE, 1, 1>(w.g, input(l), dz)) != cudaSuccess) return e;
+    bwd.push_back(w);
+    if (l == 0) break;
+    const long long next = cur == dz0 ? dz1 : dz0;
+    Step d{};  // dz_{l-1} = (dz_l W_l^T) (1 - a_{l-1}^2), its column sums the bias gradient
+    d.kind = DGRAD;
+    d.g.cb = p.dz + next;
+    d.g.ldcb = d.g.ncb = pad32(k);
+    d.g.act = p.ws + T.out[l - 1];
+    d.g.ld_act = k;
+    d.g.colsum = p.colsum + T.cs[l - 1];
+    d.g.colsum_ld = p.cs_width;
+    d.g.m = mb;
+    d.g.n = k;
+    d.g.k = n;
+    d.g.k_split = pad32(n);
+    d.g.splits = 1;
+    if ((e = general::prepare_gemm<general::EPI_DTANH, 0, 0>(d.g, dz, weights(l))) != cudaSuccess) return e;
+    bwd.push_back(d);
+    cur = next;
+  }
+  return cudaSuccess;
+}
+
+// A second stream and two events a device, made at first use: the critic's
+// GEMMs run beside the actor's, so that each fills the SMs the other's
+// tail leaves idle.
+struct Side {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t to_side = nullptr, to_main = nullptr;
+};
+
+cudaError_t side_of(Side*& side) {
+  static Side sides[16];
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= 16) return cudaErrorInvalidDevice;
+  Side& s = sides[device];
+  if (s.stream == nullptr) {
+    if ((e = cudaEventCreateWithFlags(&s.to_side, cudaEventDisableTiming)) != cudaSuccess ||
+        (e = cudaEventCreateWithFlags(&s.to_main, cudaEventDisableTiming)) != cudaSuccess ||
+        (e = cudaStreamCreateWithFlags(&s.stream, cudaStreamNonBlocking)) != cudaSuccess)
+      return e;
+  }
+  side = &s;
+  return cudaSuccess;
+}
+
+// `to` waits for what `from` has queued so far
+cudaError_t join(cudaStream_t to, cudaStream_t from, cudaEvent_t ev) {
+  const cudaError_t e = cudaEventRecord(ev, from);
+  return e == cudaSuccess ? cudaStreamWaitEvent(to, ev, 0) : e;
+}
 
 }  // namespace
 
-// One epoch: 3 (depth_pi + depth_vf) + 7 kernels a minibatch, queued in
-// order on `stream`. Shapes are checked by the Python wrapper and again
-// here. Returns the first CUDA error of a launch (0 = every kernel
-// launched).
+// One epoch on the per-layer route: 2 kernels a call, then 3 (depth_pi +
+// depth_vf) + 7 a minibatch, queued on `stream` but for the critic's
+// forward and backward GEMMs, which go to a second stream between two
+// joins (the actor's and the critic's dz buffers apart): after the loss
+// and before the reduce everything on `stream` waits for them. Shapes are
+// checked by the Python wrapper and again here. Returns the first CUDA
+// error of a launch (0 = every kernel launched).
 extern "C" int fused_epoch_general(const GeneralEpochArgs* args, void* stream) {
   const GeneralEpochArgs& p = *args;
-  if (p.n_mb <= 0 || p.mb <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.obs_dim + p.act_dim + 3 > p.feat ||
-      p.P <= 0 || p.chunk <= 0 || p.chunk % general::BK != 0 || p.ls_off < 0 || p.ls_off + p.act_dim > p.P ||
-      !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.P) || !general::trunk_ok(p.vf, p.obs_dim, 1, p.P))
-    return static_cast<int>(cudaErrorInvalidValue);
   const long long mb = p.mb;
-  const long long wide = widest(p.pi) > widest(p.vf) ? widest(p.pi) : widest(p.vf);
-  bool ok = fits(p.dz0, mb * wide, p.ws_floats) && fits(p.dz1, mb * wide, p.ws_floats) &&
-            fits(p.dv, mb, p.ws_floats) && fits(p.glogp, mb, p.ws_floats);
-  for (int tr = 0; tr < 2; ++tr) {
-    const GeneralTrunk& T = tr ? p.vf : p.pi;
-    for (int l = 0; l <= T.depth; ++l) ok = ok && fits(T.out[l], mb * T.dims[l + 1], p.ws_floats);
-  }
-  if (!ok || p.mean != p.pi.out[p.pi.depth] || p.value != p.vf.out[p.vf.depth])
+  if (p.n_mb <= 0 || p.mb <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.obs_dim + p.act_dim + 3 > p.feat ||
+      p.P <= 0 || p.ls_off < 0 || p.ls_off + p.act_dim > p.P || p.splits <= 0 || p.split_rows <= 0 ||
+      p.split_rows % general::BK != 0 || static_cast<long long>(p.splits) * p.split_rows < pad32(p.mb) ||
+      p.dz_width < pad32(p.act_dim) || p.dz_width % 8 != 0 || p.cs_width <= 0 || p.obs == nullptr ||
+      p.acts == nullptr || p.dz == nullptr || p.image == nullptr || p.slot == nullptr ||
+      !trunk_ok(p, p.pi, p.act_dim, mb) || !trunk_ok(p, p.vf, 1, mb) || widest(p.pi) > p.dz_width ||
+      widest(p.vf) > p.dz_width || p.mean != p.pi.out[p.pi.depth] || p.value != p.vf.out[p.vf.depth] ||
+      p.cs_mean != p.pi.cs[p.pi.depth] || p.cs_value != p.vf.cs[p.vf.depth])
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (p.P + THREADS - 1) / THREADS;
+  std::vector<Step> fwd[2], bwd[2];
   cudaError_t e;
+  Side* side = nullptr;
+  if ((e = trunk_steps(p, p.pi, 0, 0, fwd[0], bwd[0])) != cudaSuccess ||
+      (e = trunk_steps(p, p.vf, 4 * mb * p.dz_width, 2 * mb * p.dz_width, fwd[1], bwd[1])) != cudaSuccess ||
+      (e = side_of(side)) != cudaSuccess)
+    return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream), sd = side->stream;
+  const int nb = (p.P + THREADS - 1) / THREADS;
+  if ((e = general::round_rows(p.mbs, p.feat, static_cast<long long>(p.n_mb) * p.mb, p.obs_dim, p.obs,
+                               pad32(p.obs_dim), st)) != cudaSuccess)
+    return static_cast<int>(e);
+  image_kernel<<<nb, THREADS, 0, st>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   for (int m = 0; m < p.n_mb; ++m) {
-    const float* rows = p.mbs + static_cast<long long>(m) * p.mb * p.feat;
-    for (int tr = 0; tr < 2; ++tr) {
-      const GeneralTrunk& T = tr ? p.vf : p.pi;
-      e = general::trunk_forward(T, p.params, rows, p.feat, p.mb, p.ws, p.ws + T.out[T.depth], st);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    loss_kernel<<<n_chunks(p), THREADS, 0, st>>>(p, m);
+    if ((e = join(sd, st, side->to_side)) != cudaSuccess) return static_cast<int>(e);
+    for (int tr = 0; tr < 2; ++tr)
+      for (const Step& s : fwd[tr])
+        if ((e = launch(s, m, tr ? sd : st)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = join(st, sd, side->to_main)) != cudaSuccess) return static_cast<int>(e);
+    loss_kernel<<<n_tiles(p), THREADS, 0, st>>>(p, m);
+    if ((e = cudaGetLastError()) != cudaSuccess || (e = join(sd, st, side->to_side)) != cudaSuccess)
+      return static_cast<int>(e);
+    for (int tr = 0; tr < 2; ++tr)
+      for (const Step& s : bwd[tr])
+        if ((e = launch(s, m, tr ? sd : st)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = join(st, sd, side->to_main)) != cudaSuccess) return static_cast<int>(e);
+    reduce_kernel<<<n_param_blocks(p), THREADS, 0, st>>>(p, m);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    if ((e = trunk_backward(p, p.pi, rows, p.dz0, st)) != cudaSuccess) return static_cast<int>(e);
-    if ((e = trunk_backward(p, p.vf, rows, p.dv, st)) != cudaSuccess) return static_cast<int>(e);
-    reduce_kernel<<<nb, THREADS, 0, st>>>(p, m);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    adam_kernel<<<nb, THREADS, 0, st>>>(p, m);
+    adam_kernel<<<n_param_blocks(p), THREADS, 0, st>>>(p, m);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   }
   return 0;

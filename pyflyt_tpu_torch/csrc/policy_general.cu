@@ -29,31 +29,34 @@
 //    layer's output; every wider trunk whose share fits a block;
 //  - per layer (general_policy_value_forward, general_logp_forward), for
 //    the rest (deeper than 16 layers, or wider than a cluster of 8 holds):
-//    one launch of policy_general.cuh's GEMM a
-//    layer a trunk on f32 weights, the tanh layers' outputs in a workspace
-//    the wrapper sizes per call (two row buffers of the widest layer, in
-//    turn), the heads written straight into the outputs; K3g then one
-//    thread a row for the log-prob (general::row_logp).
+//    the obs rounded to bf16 once, then one launch of policy_general.cuh's
+//    TMA-fed wgmma GEMM a layer a trunk on the trunk's image (W_l bf16
+//    (in x out), f32 biases: ops/cuda_general.py::pack_trunk), the
+//    tanh layers' bf16 outputs in a workspace the wrapper sizes per call
+//    (two row buffers of the widest layer, in turn), the heads written
+//    straight into the outputs; K3g then one thread a row for the log-prob
+//    (general::row_logp).
 // Every route runs each output's k16 steps in order from 0 on the same
-// mma.sync fragments as K2g's forward (fused_epoch_general.cu), so K3g's
-// log-probs are K2g's forward bit for bit on any.
+// bf16 inputs as K2g's forward (fused_epoch_general.cu), and wgmma's chain
+// gives mma.sync's bits, so K3g's log-probs are K2g's forward bit for bit
+// on any.
 #include "policy_cluster.cuh"
 #include "policy_general.cuh"
 #include "policy_resident.cuh"
 
 // Must match ops/cuda_general.py::_ForwardArgsC.
 struct GeneralForwardArgs {
-  const float* obs;     // (n, obs_dim) f32
-  const float* pi_base; // the actor's weights (ops/cuda_general.py::pack_trunk)
-  const float* vf_base; // the critic's
-  float* ws;            // the tanh layers' outputs
-  float* mean;          // (n, act_dim)
-  float* value;         // (n,)
+  const float* obs;         // (n, obs_dim) f32
+  const uint8_t* pi_image;  // the actor's weights (ops/cuda_general.py::pack_trunk)
+  const uint8_t* vf_image;  // the critic's
+  __nv_bfloat16* ws;        // bf16: the obs rounded (n x pad32(obs_dim)) at ws, the tanh layers' outputs at ws + out[l]
+  float* mean;              // (n, act_dim)
+  float* value;             // (n,)
   GeneralTrunk pi;
   GeneralTrunk vf;
-  long long pi_floats;
-  long long vf_floats;
-  long long ws_floats;
+  long long pi_bytes;
+  long long vf_bytes;
+  long long ws_elems;
   int n;
   int obs_dim;
   int act_dim;
@@ -62,14 +65,14 @@ struct GeneralForwardArgs {
 // Must match ops/cuda_general.py::_LogpArgsC.
 struct GeneralLogpArgs {
   const float* rows;     // (n, feat) f32: [obs | action | ...]
-  const float* base;     // the actor's weights
+  const uint8_t* image;  // the actor's weights
   const float* log_std;  // (act_dim,)
-  float* ws;             // the tanh layers' outputs
+  __nv_bfloat16* ws;     // bf16: the obs rounded at ws, the tanh layers' outputs at ws + out[l]
   float* mean;           // (n, act_dim) workspace
   float* out;            // (n,)
   GeneralTrunk pi;
-  long long base_floats;
-  long long ws_floats;
+  long long image_bytes;
+  long long ws_elems;
   int n;
   int feat;
   int obs_dim;
@@ -83,15 +86,18 @@ namespace {
 
 constexpr int LOGP_THREADS = 256;
 
-// the largest end (offset + rows x width) of a trunk's tanh outputs
-long long ws_need(const GeneralTrunk& T, int rows) {
-  long long need = 0;
-  for (int l = 0; l < T.depth; ++l) {
-    const long long end = T.out[l] + static_cast<long long>(rows) * T.dims[l + 1];
-    need = end > need ? end : need;
-  }
-  return need;
+// whether a trunk's tanh outputs lie past the rounded obs and inside the
+// workspace
+bool ws_ok(const GeneralTrunk& T, int rows, int obs_dim, long long ws_elems) {
+  const long long obs_end = static_cast<long long>(rows) * general::pad32(obs_dim);
+  if (obs_end > ws_elems) return false;
+  for (int l = 0; l < T.depth; ++l)
+    if (T.out[l] < obs_end || T.out[l] + static_cast<long long>(rows) * general::pad32(T.dims[l + 1]) > ws_elems)
+      return false;
+  return true;
 }
+
+bool image_ok(const uint8_t* image) { return image != nullptr && (reinterpret_cast<uintptr_t>(image) & 15) == 0; }
 
 __global__ void __launch_bounds__(LOGP_THREADS) logp_kernel(const __grid_constant__ GeneralLogpArgs p) {
   const long long r = static_cast<long long>(blockIdx.x) * LOGP_THREADS + threadIdx.x;
@@ -102,31 +108,36 @@ __global__ void __launch_bounds__(LOGP_THREADS) logp_kernel(const __grid_constan
 
 }  // namespace
 
-// K4g's per-layer route: the actor's trunk and head, then the critic's,
-// one GEMM launch a layer on `stream`. Returns the first CUDA error of a
-// launch (0 = every kernel launched), or cudaErrorInvalidValue outside the
-// layouts.
+// K4g's per-layer route: the obs rounded to bf16 once, then the actor's
+// trunk and head and the critic's, one GEMM launch a layer on `stream`.
+// Returns the first CUDA error of a launch (0 = every kernel launched), or
+// cudaErrorInvalidValue outside the layouts.
 extern "C" int general_policy_value_forward(const GeneralForwardArgs* args, void* stream) {
   const GeneralForwardArgs& p = *args;
-  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.pi_floats) ||
-      !general::trunk_ok(p.vf, p.obs_dim, 1, p.vf_floats) || ws_need(p.pi, p.n) > p.ws_floats ||
-      ws_need(p.vf, p.n) > p.ws_floats)
+  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.ws == nullptr || !image_ok(p.pi_image) ||
+      !image_ok(p.vf_image) || !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.pi_bytes) ||
+      !general::trunk_ok(p.vf, p.obs_dim, 1, p.vf_bytes) || !ws_ok(p.pi, p.n, p.obs_dim, p.ws_elems) ||
+      !ws_ok(p.vf, p.n, p.obs_dim, p.ws_elems))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = general::trunk_forward(p.pi, p.pi_base, p.obs, p.obs_dim, p.n, p.ws, p.mean, st);
-  if (e == cudaSuccess) e = general::trunk_forward(p.vf, p.vf_base, p.obs, p.obs_dim, p.n, p.ws, p.value, st);
+  cudaError_t e = general::round_rows(p.obs, p.obs_dim, p.n, p.obs_dim, p.ws, general::pad32(p.obs_dim), st);
+  if (e == cudaSuccess) e = general::trunk_forward(p.pi, p.pi_image, p.ws, p.n, p.ws, p.mean, st);
+  if (e == cudaSuccess) e = general::trunk_forward(p.vf, p.vf_image, p.ws, p.n, p.ws, p.value, st);
   return static_cast<int>(e);
 }
 
-// K3g's per-layer route: the actor's forward on the rows' obs columns,
-// then one thread a row for the log-prob of its stored action.
+// K3g's per-layer route: the rows' obs columns rounded to bf16, the
+// actor's forward, then one thread a row for the log-prob of its stored
+// action.
 extern "C" int general_logp_forward(const GeneralLogpArgs* args, void* stream) {
   const GeneralLogpArgs& p = *args;
-  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.obs_dim + p.act_dim > p.feat ||
-      !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.base_floats) || ws_need(p.pi, p.n) > p.ws_floats)
+  if (p.n <= 0 || p.obs_dim <= 0 || p.act_dim <= 0 || p.obs_dim + p.act_dim > p.feat || p.ws == nullptr ||
+      !image_ok(p.image) || !general::trunk_ok(p.pi, p.obs_dim, p.act_dim, p.image_bytes) ||
+      !ws_ok(p.pi, p.n, p.obs_dim, p.ws_elems))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = general::trunk_forward(p.pi, p.base, p.rows, p.feat, p.n, p.ws, p.mean, st);
+  cudaError_t e = general::round_rows(p.rows, p.feat, p.n, p.obs_dim, p.ws, general::pad32(p.obs_dim), st);
+  if (e == cudaSuccess) e = general::trunk_forward(p.pi, p.image, p.ws, p.n, p.ws, p.mean, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   logp_kernel<<<(p.n + LOGP_THREADS - 1) / LOGP_THREADS, LOGP_THREADS, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -33,13 +33,14 @@ then ``cluster_plan``):
   distributed shared memory. It takes every wider trunk of at most ``RES_MAX_LAYERS`` layers
   whose share fits a block at C = 2, 4 or 8 (``cluster_plan``: at 4
   actions from 640 units, C = 2 to 1024, 4 to 2048, 8 to 4096);
-- per layer (``csrc/policy_general.cuh``'s GEMM, one launch a layer a
-  trunk on f32 weights in device memory): every deeper trunk, and every
-  trunk past 4096 units at 4 actions.
-  A trunk reaches K4g as one flat f32 vector (``pack_trunk``: ``W_0 (in,
-  out)`` row-major, ``b_0``, ..., the head last, each at a multiple of 4
-  floats), K3g as the actor's leaves packed the same way on each call.
-  Activations go through a device workspace the wrapper sizes per call.
+- per layer (``csrc/policy_general.cuh``'s GEMM: TMA-fed bf16 stages,
+  wgmma, one launch a layer a trunk after one rounding the obs to bf16):
+  every deeper trunk, and every trunk past 4096 units at 4 actions.
+  A trunk reaches K4g as one image (``pack_trunk``: each ``W_l (in, out)``
+  bf16 as the parameters hold it, its rows padded to KPAD outputs, then the
+  f32 biases, every region at a multiple of 128 bytes), K3g as the actor's
+  leaves packed the same way on each call. Activations go through a bf16
+  device workspace the wrapper sizes per call (``forward_outputs``).
 
 K2g takes its flat parameter vector (``cuda_sgd.flat_layout`` of
 ``leaf_specs``), which its Adam updates in place, on two routes chosen from
@@ -54,12 +55,15 @@ the widths (``epoch_route``):
   which writes the next minibatch's images. It takes every trunk pair
   whose widest width fits a block (``epoch_tile``): at 4 actions a width
   of 288 at 128 rows a block and 576 at 64;
-- per layer: one launch of ``csrc/policy_general.cuh``'s GEMM a layer and
-  pass, past that.
+- per layer: past that, the obs rounded to bf16 and the weights' bf16
+  image written once a call, then one launch of ``csrc/policy_general.cuh``'s
+  GEMM a layer and pass on bf16 operands, a loss, a reduce and an Adam
+  kernel a minibatch (``epoch_workspace``, ``wgrad_plan``, ``epoch_slots``).
 
-Every route runs each output's forward k16 steps in order on the same
-fragments, so a row's log-prob from K3g equals K2g's forward bit for bit
-on any. Each route has its own launch counter.
+Every route runs each output's forward k16 steps in order on the same bf16
+inputs (wgmma's chain gives mma.sync's bits), so a row's log-prob from K3g
+equals K2g's forward bit for bit on any. Each route has its own launch
+counter.
 
 The wrappers launch their kernel for CUDA tensors only; ``cuda_policy``
 and ``cuda_sgd`` call them after their CPU branch, where the plain twins
@@ -79,9 +83,16 @@ from pyflyt_tpu_torch.ops import cuda_sgd
 from pyflyt_tpu_torch.ops.cuda_build import Kernel
 
 # csrc/policy_general.cuh's GEMM
-BM, BN, BK = 128, 64, 32  # output tile, k step
-GEMM_THREADS = 256
-CHUNK = 512  # rows a weight-gradient partial of K2g sums (a multiple of BK)
+BM, BN, BK = 128, 128, 64  # output tile, k a stage
+GEMM_THREADS = 384  # two consumer warpgroups and the producer warpgroup
+GEMM_STAGES = 4
+KPAD = 32  # every bf16 operand row is padded to a multiple of it
+# the weight gradient's split plan (wgrad_plan), in units of one tile's 64-row k block (about 0.44 us of
+# wgmma on an H100 at 2 x 1024, tools/general_gemm_probe.py):
+WGRAD_TILE_COST = 2  # a tile's fill and epilogue
+WGRAD_BLOCK_FLOATS = 160_000  # slab floats written and read back (8 bytes each, about 3 TB/s)
+CRITIC_LD = 32  # the critic head's dz row: KPAD
+_ALIGN = 128  # bytes: every region of an image or workspace starts at a multiple
 _THREADS = 256  # K2g's loss, reduce and Adam blocks; K3g's log-prob block
 
 
@@ -96,15 +107,17 @@ def kernels_per_minibatch(pi_depth: int, vf_depth: int, route: str = "per_layer"
 
 def kernels_per_call(route: str) -> int:
     """CUDA kernels K2g enqueues once a call beside its minibatches': the
-    resident route's first images, none per layer."""
-    return 1 if route == "resident" else 0
+    resident route's first images; per layer the obs rounded to bf16 and
+    the first image."""
+    return 1 if route == "resident" else 2
 
 
 @dataclasses.dataclass(frozen=True)
 class Trunk:
     """One trunk: its widths (the input, each tanh layer's, the head's
-    outputs) and where each layer's ``W (in, out)`` and bias start, in
-    floats, in the vector that holds them."""
+    outputs) and where each layer's weight and bias start in the buffer
+    that holds them (``layout``: bytes of the image; ``leaf_trunks``:
+    floats of K2g's flat parameters)."""
 
     dims: tuple
     w: tuple
@@ -115,31 +128,62 @@ class Trunk:
         return len(self.dims) - 2
 
 
+def _kpad(x: int) -> int:
+    return -(-int(x) // KPAD) * KPAD
+
+
+def _up(x: int, unit: int) -> int:
+    return -(-int(x) // unit) * unit
+
+
 def layout(obs_dim: int, sizes, outs: int) -> tuple[Trunk, int]:
     """A trunk ``sizes`` on ``obs_dim`` inputs with a head of ``outs``
-    outputs as ``pack_trunk`` lays it out: ``(Trunk, floats)``."""
+    outputs as ``pack_trunk`` lays it out: ``(Trunk, bytes)``, ``w[l]`` the
+    byte offset of ``W_l`` (``dims[l]`` rows of ``_kpad(dims[l + 1])``
+    bf16: the forward's B MN-major, the data gradient's B^T K-major), then
+    every bias (f32) from ``b[l]``, each region at a multiple of 128
+    bytes."""
     return _layout(int(obs_dim), tuple(int(s) for s in sizes), int(outs))
 
 
 @functools.lru_cache(maxsize=64)
 def _layout(obs_dim: int, sizes: tuple, outs: int) -> tuple[Trunk, int]:
     dims = (obs_dim, *sizes, outs)
-    shapes = [s for i, o in zip(dims[:-1], dims[1:]) for s in ((i, o), (o,))]
-    offsets, floats = cuda_sgd.flat_layout(shapes)
-    return Trunk(dims, tuple(offsets[0::2]), tuple(offsets[1::2])), floats
+    w, b, at = [], [], 0
+    for k, n in zip(dims[:-1], dims[1:]):
+        w.append(at)
+        at = _up(at + 2 * k * _kpad(n), _ALIGN)
+    for n in dims[1:]:
+        b.append(at)
+        at = _up(at + 4 * n, _ALIGN)
+    return Trunk(dims, tuple(w), tuple(b)), at
 
 
 def pack_trunk(weights, biases, head_w: Tensor, head_b: Tensor) -> Tensor:
     """One trunk (flax layout: ``weights[i] (in, out)``, biases of any
-    shape, ``head_w (in, outs)``) → its flat f32 vector as a uint8 tensor on
-    their device (the per-layer route's image): the values as given, f32;
-    the kernel rounds the matrices to bf16 as it reads them."""
+    shape, ``head_w (in, outs)``) → its per-layer image, a uint8 tensor on
+    their device: each ``W`` rounded to bf16 (nearest even), the f32
+    biases, zero padding (``layout``)."""
     mats = [*weights, head_w]
-    _, floats = layout(mats[0].shape[0], [w.shape[1] for w in weights], head_w.shape[1])
-    leaves = [t for pair in zip(mats, [*biases, head_b]) for t in pair]
-    offsets, _ = cuda_sgd.flat_layout([tuple(t.shape) for t in leaves])
-    flat = cuda_sgd._to_flat([t.detach().float() for t in leaves], offsets, floats)
-    return flat.view(torch.uint8)
+    lay, nbytes = layout(mats[0].shape[0], [w.shape[1] for w in weights], head_w.shape[1])
+    image = torch.zeros((nbytes,), dtype=torch.uint8, device=mats[0].device)
+    for l, (m, b) in enumerate(zip(mats, [*biases, head_b])):
+        k, n = m.shape
+        rows = image[lay.w[l] : lay.w[l] + 2 * k * _kpad(n)].view(torch.bfloat16).view(k, _kpad(n))
+        rows[:, :n] = m.detach().float().to(torch.bfloat16)
+        image[lay.b[l] : lay.b[l] + 4 * n].view(torch.float32).copy_(b.detach().reshape(-1).float())
+    return image
+
+
+def unpack_trunk(image: Tensor, lay: Trunk) -> tuple[list[Tensor], list[Tensor]]:
+    """``pack_trunk``'s inverse: the matrices bf16 ``(in, out)`` and the
+    biases f32 ``(out,)``, head last."""
+    mats, biases = [], []
+    for l, (k, n) in enumerate(zip(lay.dims[:-1], lay.dims[1:])):
+        rows = image[lay.w[l] : lay.w[l] + 2 * k * _kpad(n)].view(torch.bfloat16).view(k, _kpad(n))
+        mats.append(rows[:, :n])
+        biases.append(image[lay.b[l] : lay.b[l] + 4 * n].view(torch.float32).clone())
+    return mats, biases
 
 
 def weight_layouts(w) -> tuple[tuple[Trunk, int], tuple[Trunk, int]]:
@@ -148,43 +192,112 @@ def weight_layouts(w) -> tuple[tuple[Trunk, int], tuple[Trunk, int]]:
             layout(w.obs_dim, [t.shape[1] for t in w.vf_w], 1))
 
 
-def forward_outputs(n: int, *trunks: Trunk) -> tuple[list[tuple[int, ...]], int]:
-    """Where K4g and K3g put each tanh layer's outputs for ``n`` rows: two
-    buffers of the widest layer, in turn, shared by the trunks (run one
-    after the other); per trunk the offsets (the head's, unused, 0) and the
-    workspace's floats."""
-    widest = max([max(t.dims[1:-1], default=0) for t in trunks])
-    outs = [tuple((l % 2) * n * widest for l in range(t.depth)) + (0,) for t in trunks]
-    return outs, max(1, 2 * n * widest)
+def forward_outputs(n: int, obs_dim: int, *trunks: Trunk) -> tuple[list[tuple[int, ...]], int]:
+    """Where K4g and K3g put the obs rounded to bf16 (``n`` x
+    ``_kpad(obs_dim)`` from element 0) and each tanh layer's bf16 outputs:
+    two buffers of the widest padded layer after it, in turn, shared by the
+    trunks (run one after the other); per trunk the offsets (the head's,
+    unused, 0) and the workspace's bf16 elements."""
+    at = n * _kpad(obs_dim)
+    buf = n * max([_kpad(d) for t in trunks for d in t.dims[1:-1]], default=0)
+    outs = [tuple(at + (l % 2) * buf for l in range(t.depth)) + (0,) for t in trunks]
+    return outs, at + 2 * buf
 
 
 @dataclasses.dataclass(frozen=True)
 class EpochWorkspace:
-    """K2g's workspace for minibatches of ``mb`` rows, in floats: each
-    layer's outputs of each trunk (the heads' last: the mean and the value),
-    two dz buffers of the widest output, the critic's dvalue and each row's
-    d loss / d logp."""
+    """K2g's per-layer buffers for minibatches of ``mb`` rows, per trunk
+    and layer: ``out`` the f32 outputs' offset in ``ws`` (``floats``; the
+    heads' last: the mean and the value), ``act`` a tanh layer's bf16
+    outputs' in ``acts`` (``acts`` elements, row stride ``_kpad`` of the
+    width), ``img`` ``W_l``'s in the bf16 image (``image`` elements, rows
+    of ``_kpad(dims[l + 1])``), ``cs`` dz_l's first column in a colsum row
+    (``cs_width`` floats); ``dz_width`` a dz buffer's row stride bound."""
 
-    out: tuple  # (actor, critic): per layer, the head last
-    dz0: int
-    dz1: int
-    dv: int
-    glogp: int
+    out: tuple
+    act: tuple
+    img: tuple
+    cs: tuple
     floats: int
+    acts: int
+    image: int
+    dz_width: int
+    cs_width: int
 
 
 def epoch_workspace(mb: int, pi: Trunk, vf: Trunk) -> EpochWorkspace:
-    p = 0
-    outs = []
+    out, act, img, cs = [], [], [], []
+    f_at = a_at = i_at = c_at = 0
+    el = _ALIGN // 2  # bf16 elements a region is aligned to
     for t in (pi, vf):
-        offs = []
-        for n in t.dims[1:]:
-            offs.append(p)
-            p += mb * n
-        outs.append(tuple(offs))
-    widest = max(max(t.dims[1:]) for t in (pi, vf))
-    dz0, dz1, dv, glogp = p, p + mb * widest, p + 2 * mb * widest, p + 2 * mb * widest + mb
-    return EpochWorkspace(tuple(outs), dz0, dz1, dv, glogp, glogp + mb)
+        to, ta, ti, tc = [], [], [], []
+        for l, (k, n) in enumerate(zip(t.dims[:-1], t.dims[1:])):
+            to.append(f_at)
+            f_at += mb * n
+            if l < t.depth:
+                ta.append(a_at)
+                a_at = _up(a_at + mb * _kpad(n), el)
+            ti.append(i_at)
+            i_at = _up(i_at + k * _kpad(n), el)
+            tc.append(c_at)
+            c_at += n
+        out.append(tuple(to))
+        act.append(tuple(ta))
+        img.append(tuple(ti))
+        cs.append(tuple(tc))
+    dz_width = max(_kpad(d) for t in (pi, vf) for d in t.dims[1:])
+    return EpochWorkspace(tuple(out), tuple(act), tuple(img), tuple(cs), f_at, max(a_at, el), i_at, dz_width, c_at)
+
+
+def wgrad_tiles(pi: Trunk, vf: Trunk) -> tuple[int, ...]:
+    """Each layer's weight-gradient output tiles (units x outputs in BM x
+    BN tiles), in launch order."""
+    return tuple(-(-k // BM) * -(-n // BN) for t in (pi, vf) for k, n in zip(t.dims[:-1], t.dims[1:]))
+
+
+def wgrad_plan(rows: int, tiles, sms: int, P: int = 0) -> tuple[int, int]:
+    """(splits, rows a split) of K2g's per-layer weight gradients over
+    ``rows`` rows, one split for every layer (``tiles``: each layer's
+    output tiles) on a card of ``sms`` SMs: the chunks of whole BK blocks
+    that minimise the layers' persistent rounds times a chunk's blocks
+    (with WGRAD_TILE_COST blocks of fill and epilogue each) plus the slab
+    of ``P`` floats a chunk writes and the reduce reads back, the fewest
+    chunks among equals."""
+    blocks = -(-_kpad(rows) // BK)
+    best = None
+    for s in range(1, blocks + 1):
+        per = -(-blocks // s)
+        splits = -(-blocks // per)
+        rounds = sum(-(-int(t) * splits // int(sms)) for t in tiles)
+        cost = rounds * (per + WGRAD_TILE_COST) + splits * P / WGRAD_BLOCK_FLOATS
+        if best is None or cost < best[0]:
+            best = (cost, splits, per * BK)
+    return best[1], best[2]
+
+
+def epoch_slots(cfg, device) -> Tensor:
+    """What each flat parameter of K2g's per-layer route is, an int32 per
+    parameter: a weight ``W_l[k, n]``'s slot in the bf16 image (``img[l] +
+    k _kpad(dims[l + 1]) + n``, so Adam's writes of consecutive parameters
+    land side by side), ``-2 - c`` for a bias whose gradient is column
+    ``c`` of a colsum row, -1 else (log_std, padding)."""
+    return _epoch_slots(int(cfg.obs_dim), int(cfg.act_dim), tuple(cfg.pi_sizes), tuple(cfg.vf_sizes), str(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _epoch_slots(obs_dim: int, act_dim: int, pi_sizes: tuple, vf_sizes: tuple, device: str) -> Tensor:
+    cfg = cuda_sgd.EpochConfig(obs_dim, act_dim, pi_sizes, vf_sizes, 0.0, 0.0, 0.0, 0.0, 0.0)
+    pi, vf, _ = leaf_trunks(cfg)
+    net = dict(obs_dim=obs_dim, act_dim=act_dim, pi_sizes=pi_sizes, vf_sizes=vf_sizes)
+    _, P = cuda_sgd.flat_layout([s for _, s in cuda_sgd.leaf_specs(net)])
+    ws = epoch_workspace(1, pi, vf)
+    slot = torch.full((P,), -1, dtype=torch.int64)
+    for i, t in enumerate((pi, vf)):
+        for l, (k, n) in enumerate(zip(t.dims[:-1], t.dims[1:])):
+            kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n), indexing="ij")
+            slot[t.w[l] + kk * n + nn] = ws.img[i][l] + kk * _kpad(n) + nn
+            slot[t.b[l] : t.b[l] + n] = -2 - (ws.cs[i][l] + torch.arange(n))
+    return slot.to(torch.int32).to(device)
 
 
 class _TrunkC(ctypes.Structure):
@@ -195,12 +308,17 @@ class _TrunkC(ctypes.Structure):
                 ("out", ctypes.POINTER(ctypes.c_longlong))]
 
 
-def _trunk_c(t: Trunk, w: tuple, b: tuple, out: tuple, keep: list) -> _TrunkC:
-    """``t``'s C struct with ``w``/``b`` offsets and ``out`` offsets; the
-    host arrays go to ``keep``, which the caller holds over the launch."""
-    arrays = [(ctypes.c_int * len(t.dims))(*t.dims)] + [(ctypes.c_longlong * len(v))(*v) for v in (w, b, out)]
+def _arrays(keep: list, *values, ctype=ctypes.c_longlong) -> list:
+    """Host arrays of ``values`` (tuples), kept alive in ``keep``, which the
+    caller holds over the launch."""
+    arrays = [(ctype * max(1, len(v)))(*v) for v in values]
     keep.extend(arrays)
-    return _TrunkC(t.depth, *arrays)
+    return arrays
+
+
+def _trunk_c(t: Trunk, out: tuple, keep: list) -> _TrunkC:
+    """``t``'s C struct with its image offsets and the workspace's ``out``."""
+    return _TrunkC(t.depth, *_arrays(keep, t.dims, ctype=ctypes.c_int), *_arrays(keep, t.w, t.b, out))
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +571,7 @@ def forward_route(w) -> str:
 def trunk_images(w, leaves, n_pi: int) -> tuple[Tensor, Tensor]:
     """K4g's (actor, critic) images for ``cuda_policy.prepare_weights``: the
     resident and cluster routes' bf16 images of ``w``'s weights, or the
-    per-layer route's f32 vectors of the ordered ``leaves`` as given."""
+    per-layer route's (``pack_trunk``) of the ordered ``leaves``."""
     if forward_route(w) != "per_layer":
         return (pack_resident(w.pi_w, w.pi_b, w.pi_head_w, w.pi_head_b),
                 pack_resident(w.vf_w, w.vf_b, w.vf_head_w, w.vf_head_b))
@@ -468,7 +586,7 @@ def image_sizes(w) -> list[tuple[int]]:
     """The shapes of ``w``'s two images on K4g's route."""
     if forward_route(w) != "per_layer":
         return [(lay.bytes,) for lay in resident_layouts(w)]
-    return [(4 * floats,) for _, floats in weight_layouts(w)]
+    return [(nbytes,) for _, nbytes in weight_layouts(w)]
 
 
 class _ResidentTrunkC(ctypes.Structure):
@@ -520,9 +638,9 @@ def resident_args(x: Tensor, images, outs, lays, tile: int, obs_dim: int, act_di
 class _ForwardArgsC(ctypes.Structure):
     """Mirror of ``struct GeneralForwardArgs`` in csrc/policy_general.cu."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in ("obs", "pi_base", "vf_base", "ws", "mean", "value")] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in ("obs", "pi_image", "vf_image", "ws", "mean", "value")] + [
         ("pi", _TrunkC), ("vf", _TrunkC)] + [
-        (name, ctypes.c_longlong) for name in ("pi_floats", "vf_floats", "ws_floats")] + [
+        (name, ctypes.c_longlong) for name in ("pi_bytes", "vf_bytes", "ws_elems")] + [
         (name, ctypes.c_int) for name in ("n", "obs_dim", "act_dim")]
 
 
@@ -566,21 +684,29 @@ def forward(obs: Tensor, w) -> tuple[Tensor, Tensor]:
     return mean, value
 
 
+def _check_images(layouts, *images: Tensor) -> None:
+    for (_, nbytes), image in zip(layouts, images):
+        if image.dtype != torch.uint8 or tuple(image.shape) != (nbytes,) or image.data_ptr() % 16:
+            raise ValueError("the per-layer route reads a 16-byte aligned image of pack_trunk's layout")
+
+
 def forward_per_layer(obs: Tensor, w, pi_image: Tensor, vf_image: Tensor) -> tuple[Tensor, Tensor]:
-    """K4g's per-layer route on the trunks' f32 vectors (``pack_trunk``)."""
+    """K4g's per-layer route on the trunks' images (``pack_trunk``)."""
     n = obs.shape[0]
     mean = torch.empty((n, w.act_dim), dtype=torch.float32, device=obs.device)
     value = torch.empty((n,), dtype=torch.float32, device=obs.device)
     if n == 0:
         return mean, value
-    (pi, pi_floats), (vf, vf_floats) = weight_layouts(w)
-    (pi_out, vf_out), ws_floats = forward_outputs(n, pi, vf)
-    ws = torch.empty((ws_floats,), dtype=torch.float32, device=obs.device)
+    lays = weight_layouts(w)
+    _check_images(lays, pi_image, vf_image)
+    (pi, pi_bytes), (vf, vf_bytes) = lays
+    (pi_out, vf_out), ws_elems = forward_outputs(n, w.obs_dim, pi, vf)
+    ws = torch.empty((ws_elems,), dtype=torch.bfloat16, device=obs.device)
     keep: list = []
     args = _ForwardArgsC(
         obs.data_ptr(), pi_image.data_ptr(), vf_image.data_ptr(), ws.data_ptr(), mean.data_ptr(),
-        value.data_ptr(), _trunk_c(pi, pi.w, pi.b, pi_out, keep), _trunk_c(vf, vf.w, vf.b, vf_out, keep),
-        pi_floats, vf_floats, ws_floats, n, w.obs_dim, w.act_dim,
+        value.data_ptr(), _trunk_c(pi, pi_out, keep), _trunk_c(vf, vf_out, keep),
+        pi_bytes, vf_bytes, ws_elems, n, w.obs_dim, w.act_dim,
     )
     _launch(FORWARD_KERNEL, args, obs.device)
     return mean, value
@@ -594,8 +720,8 @@ def forward_per_layer(obs: Tensor, w, pi_image: Tensor, vf_image: Tensor) -> tup
 class _LogpArgsC(ctypes.Structure):
     """Mirror of ``struct GeneralLogpArgs`` in csrc/policy_general.cu."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in ("rows", "base", "log_std", "ws", "mean", "out")] + [
-        ("pi", _TrunkC), ("base_floats", ctypes.c_longlong), ("ws_floats", ctypes.c_longlong)] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in ("rows", "image", "log_std", "ws", "mean", "out")] + [
+        ("pi", _TrunkC), ("image_bytes", ctypes.c_longlong), ("ws_elems", ctypes.c_longlong)] + [
         (name, ctypes.c_int) for name in ("n", "feat", "obs_dim", "act_dim", "has_range")] + [
         ("ls_lo", ctypes.c_float), ("ls_hi", ctypes.c_float)]
 
@@ -635,8 +761,8 @@ def logp(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=No
 
 
 def logp_per_layer(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_std_range=None) -> Tensor:
-    """K3g's per-layer route on the actor's f32 vector (``pack_trunk``),
-    packed from the leaves on each call."""
+    """K3g's per-layer route on the actor's image (``pack_trunk``), packed
+    from the leaves on each call."""
     mats, biases, head_w, head_b = _actor(pi_leaves)
     act_dim = head_w.shape[1]
     sizes = [t.shape[1] for t in mats]
@@ -644,17 +770,17 @@ def logp_per_layer(packed: Tensor, pi_leaves: list[Tensor], obs_dim: int, log_st
     out = torch.empty((n,), dtype=torch.float32, device=packed.device)
     if n == 0:
         return out
-    pi, floats = layout(obs_dim, sizes, act_dim)
-    base = pack_trunk(mats, biases, head_w, head_b).view(torch.float32)
-    (pi_out,), ws_floats = forward_outputs(n, pi)
-    ws = torch.empty((ws_floats,), dtype=torch.float32, device=packed.device)
+    pi, nbytes = layout(obs_dim, sizes, act_dim)
+    image = pack_trunk(mats, biases, head_w, head_b)
+    (pi_out,), ws_elems = forward_outputs(n, obs_dim, pi)
+    ws = torch.empty((ws_elems,), dtype=torch.bfloat16, device=packed.device)
     mean = torch.empty((n, act_dim), dtype=torch.float32, device=packed.device)
     log_std = pi_leaves[-1].detach().to(torch.float32).reshape(-1).contiguous()
     has_range, lo, hi = cuda_sgd._range_args(log_std_range)
     keep: list = []
     args = _LogpArgsC(
-        packed.data_ptr(), base.data_ptr(), log_std.data_ptr(), ws.data_ptr(), mean.data_ptr(), out.data_ptr(),
-        _trunk_c(pi, pi.w, pi.b, pi_out, keep), floats, ws_floats, n, packed.shape[1], obs_dim, act_dim,
+        packed.data_ptr(), image.data_ptr(), log_std.data_ptr(), ws.data_ptr(), mean.data_ptr(), out.data_ptr(),
+        _trunk_c(pi, pi_out, keep), nbytes, ws_elems, n, packed.shape[1], obs_dim, act_dim,
         has_range, lo, hi,
     )
     _launch(LOGP_KERNEL, args, packed.device)
@@ -703,17 +829,26 @@ def _launch_logp(kernel: Kernel, packed: Tensor, image: Tensor, lay: ResidentLay
 # ---------------------------------------------------------------------------
 
 
+class _GeneralEpochTrunkC(ctypes.Structure):
+    """Mirror of ``struct GeneralEpochTrunk`` in csrc/fused_epoch_general.cu."""
+
+    _fields_ = [("depth", ctypes.c_int), ("dims", ctypes.POINTER(ctypes.c_int))] + [
+        (name, ctypes.POINTER(ctypes.c_longlong)) for name in ("w", "b", "img", "out", "act")] + [
+        ("cs", ctypes.POINTER(ctypes.c_int))]
+
+
 class _EpochArgsC(ctypes.Structure):
     """Mirror of ``struct GeneralEpochArgs`` in csrc/fused_epoch_general.cu."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
-        for name in ("mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics", "ws", "slab", "chunk_part", "grad",
-                     "block_sq")
-    ] + [("pi", _TrunkC), ("vf", _TrunkC)] + [
-        (name, ctypes.c_longlong) for name in ("mean", "value", "dz0", "dz1", "dv", "glogp", "ws_floats")
+        for name in ("mbs", "adv_stats", "t0", "params", "mu", "nu", "metrics", "ws", "obs", "acts", "dz", "image",
+                     "slot", "slab", "colsum", "part", "grad", "block_sq")
+    ] + [("pi", _GeneralEpochTrunkC), ("vf", _GeneralEpochTrunkC)] + [
+        (name, ctypes.c_longlong) for name in ("ws_floats", "acts_elems", "image_elems", "mean", "value")
     ] + [
-        (name, ctypes.c_int) for name in ("ls_off", "P", "n_mb", "mb", "feat", "obs_dim", "act_dim", "chunk")
+        (name, ctypes.c_int) for name in ("ls_off", "P", "n_mb", "mb", "feat", "obs_dim", "act_dim", "dz_width",
+                                          "cs_width", "cs_mean", "cs_value", "splits", "split_rows")
     ] + [
         (name, ctypes.c_float) for name in ("lr", "clip_eps", "ent_coef", "vf_coef", "max_grad_norm")
     ] + [("has_range", ctypes.c_int), ("ls_lo", ctypes.c_float), ("ls_hi", ctypes.c_float)]
@@ -737,6 +872,11 @@ def leaf_trunks(cfg) -> tuple[Trunk, Trunk, int]:
     return pi, vf, offsets[2 * n_pi + 2]
 
 
+def _general_epoch_trunk_c(t: Trunk, ws: EpochWorkspace, i: int, keep: list) -> _GeneralEpochTrunkC:
+    dims, cs = _arrays(keep, t.dims, ws.cs[i], ctype=ctypes.c_int)
+    return _GeneralEpochTrunkC(t.depth, dims, *_arrays(keep, t.w, t.b, ws.img[i], ws.out[i], ws.act[i]), cs)
+
+
 def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg, route: str | None = None):
     """K2g's launch, after ``cuda_sgd.fused_epoch``'s checks, on the route of
     the widths (``epoch_route``) or on ``route`` when given (a timing of the
@@ -753,33 +893,36 @@ def launch_epoch(mbs, adv_stats, t0, leaves, mu, nu, cfg, route: str | None = No
     shapes = [s for _, s in cuda_sgd.leaf_specs(net)]
     offsets, P = cuda_sgd.flat_layout(shapes)
     params, m1, m2 = (cuda_sgd._to_flat(g, offsets, P) for g in (leaves, mu, nu))
-    mbs = mbs.contiguous()
-    adv_stats = adv_stats.to(torch.float32).contiguous()
-    t0 = t0.to(torch.int32).reshape(1).contiguous()
-    metrics = torch.empty((n_mb, len(cuda_sgd.METRICS)), dtype=torch.float32, device=dev)
     pi, vf, ls_off = leaf_trunks(cfg)
-    ws_lay = epoch_workspace(mb_size, pi, vf)
-    chunks = -(-mb_size // CHUNK)
-    ws = dict(
-        ws=torch.empty((ws_lay.floats,), dtype=torch.float32, device=dev),
-        slab=torch.zeros((chunks, P), dtype=torch.float32, device=dev),
-        chunk_part=torch.empty((chunks, 3), dtype=torch.float32, device=dev),
-        grad=torch.empty((P,), dtype=torch.float32, device=dev),
-        block_sq=torch.empty((-(-P // _THREADS),), dtype=torch.float32, device=dev),
+    ws = epoch_workspace(mb_size, pi, vf)
+    splits, split_rows = wgrad_plan(mb_size, wgrad_tiles(pi, vf), _cuda_sms(dev.index), P)
+    tiles = -(-mb_size // BM)
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)  # noqa: E731
+    bf16 = torch.bfloat16
+    bufs = dict(
+        mbs=mbs.contiguous(), adv_stats=adv_stats.to(torch.float32).contiguous(),
+        t0=t0.to(torch.int32).reshape(1).contiguous(), params=params, mu=m1, nu=m2,
+        metrics=empty(n_mb, len(cuda_sgd.METRICS)), ws=empty(ws.floats),
+        obs=empty(n_mb * mb_size * _kpad(cfg.obs_dim), dtype=bf16), acts=empty(ws.acts, dtype=bf16),
+        dz=empty(4 * mb_size * ws.dz_width + mb_size * CRITIC_LD, dtype=bf16),
+        image=torch.zeros((ws.image,), dtype=bf16, device=dev), slot=epoch_slots(cfg, dev),
+        slab=empty(splits, P), colsum=empty(tiles, ws.cs_width), part=empty(tiles, 3 + cfg.act_dim),
+        grad=empty(P), block_sq=empty(-(-P // _THREADS)),
     )
     keep: list = []
     has_range, lo, hi = cuda_sgd._range_args(cfg.log_std_range)
     args = _EpochArgsC(
-        mbs.data_ptr(), adv_stats.data_ptr(), t0.data_ptr(), params.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-        metrics.data_ptr(), *[ws[k].data_ptr() for k in ("ws", "slab", "chunk_part", "grad", "block_sq")],
-        _trunk_c(pi, pi.w, pi.b, ws_lay.out[0], keep), _trunk_c(vf, vf.w, vf.b, ws_lay.out[1], keep),
-        ws_lay.out[0][-1], ws_lay.out[1][-1], ws_lay.dz0, ws_lay.dz1, ws_lay.dv, ws_lay.glogp, ws_lay.floats, ls_off, P, n_mb, mb_size, feat, cfg.obs_dim,
-        cfg.act_dim, CHUNK, cfg.learning_rate, cfg.clip_eps, cfg.entropy_coef, cfg.value_coef, cfg.max_grad_norm,
-        has_range, lo, hi,
-    )
+        pi=_general_epoch_trunk_c(pi, ws, 0, keep), vf=_general_epoch_trunk_c(vf, ws, 1, keep), ws_floats=ws.floats,
+        acts_elems=ws.acts, image_elems=ws.image, mean=ws.out[0][-1], value=ws.out[1][-1], ls_off=ls_off, P=P,
+        n_mb=n_mb, mb=mb_size, feat=feat, obs_dim=cfg.obs_dim, act_dim=cfg.act_dim, dz_width=ws.dz_width,
+        cs_width=ws.cs_width, cs_mean=ws.cs[0][-1], cs_value=ws.cs[1][-1], splits=splits, split_rows=split_rows,
+        lr=cfg.learning_rate, clip_eps=cfg.clip_eps, ent_coef=cfg.entropy_coef, vf_coef=cfg.value_coef,
+        max_grad_norm=cfg.max_grad_norm, has_range=has_range, ls_lo=lo, ls_hi=hi)
+    for name, _ in _EpochArgsC._fields_[:18]:
+        setattr(args, name, bufs[name].data_ptr())
     _launch(EPOCH_KERNEL, args, dev)
     return (cuda_sgd._from_flat(params, shapes, offsets), cuda_sgd._from_flat(m1, shapes, offsets),
-            cuda_sgd._from_flat(m2, shapes, offsets), metrics)
+            cuda_sgd._from_flat(m2, shapes, offsets), bufs["metrics"])
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ def test_the_route_at_its_boundaries(sizes, route, plan, act):
         assert cuda_general.cluster_plan(lays, act, rows=10**6, sms=132) == plan  # no round fills the card
     # the cluster route reads the resident route's image, unchanged
     assert [s[0] for s in cuda_general.image_sizes(w)] == (
-        [lay.bytes for lay in lays] if route != "per_layer" else [4 * f for _, f in cuda_general.weight_layouts(w)])
+        [lay.bytes for lay in lays] if route != "per_layer" else [b for _, b in cuda_general.weight_layouts(w)])
 
 
 @pytest.mark.parametrize("sizes,rows,trunks,c", [

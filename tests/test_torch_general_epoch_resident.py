@@ -180,12 +180,13 @@ def test_the_route_by_depth_and_pair():
 
 def test_the_kernel_counts():
     """Four kernels a minibatch and one a call on the resident route, at any
-    depth; 3 (depth_pi + depth_vf) + 7 and none per layer."""
+    depth; 3 (depth_pi + depth_vf) + 7 and two (the obs rounded to bf16,
+    the first image) per layer."""
     for d in (0, 1, 3, 15):
         assert cuda_general.kernels_per_minibatch(d, d, "resident") == 4
         assert cuda_general.kernels_per_minibatch(d, d, "per_layer") == 3 * 2 * d + 7
     assert cuda_general.kernels_per_minibatch(3, 3) == 25
-    assert cuda_general.kernels_per_call("resident") == 1 and cuda_general.kernels_per_call("per_layer") == 0
+    assert cuda_general.kernels_per_call("resident") == 1 and cuda_general.kernels_per_call("per_layer") == 2
 
 
 def _constant(name: str) -> int:

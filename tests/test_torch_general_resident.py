@@ -110,7 +110,7 @@ def test_the_route_by_depth_and_through_the_weights():
             assert torch.equal(w.pi_image, cuda_general.pack_resident(w.pi_w, w.pi_b, w.pi_head_w, w.pi_head_b))
             assert torch.equal(w.vf_image, cuda_general.pack_resident(w.vf_w, w.vf_b, w.vf_head_w, w.vf_head_b))
         else:
-            assert w.pi_image.numel() == 4 * cuda_general.weight_layouts(w)[0][1]
+            assert w.pi_image.numel() == cuda_general.weight_layouts(w)[0][1]
 
 
 def _header_int(name: str) -> int:

@@ -201,10 +201,11 @@ def test_the_general_images_and_epoch_layout():
     """K4g's and K3g's resident image holds each matrix rounded to bf16 in
     blocks of W^T at ``resident_layout``'s offsets (widths padded to 32,
     16-byte aligned) and the f32 biases after them; the per-layer route's
-    image is the trunk's leaves at ``layout``'s offsets (f32, each at a
-    multiple of 4 floats); K2g's trunks sit at ``leaf_specs``' offsets; its
-    workspace keeps every layer's outputs, two dz buffers of the widest
-    output, dvalue and d loss / d logp apart."""
+    image holds each W rounded to bf16, rows padded to 32 outputs with
+    zeros, and the f32 biases, at ``layout``'s 128-byte aligned offsets;
+    K2g's trunks sit at ``leaf_specs``' offsets; its workspace keeps every
+    layer's f32 outputs, the tanh layers' bf16 outputs and the image's
+    matrices apart, the bf16 ones 128-byte aligned."""
     rng = np.random.default_rng(0)
     sizes = (48, 20, 33)
     mats = [T(rng.normal(size=s).astype(np.float32)) for s in ((72, 48), (48, 20), (20, 33), (33, 10))]
@@ -218,13 +219,16 @@ def test_the_general_images_and_epoch_layout():
         assert rlay.w[l] % 16 == 0 and rlay.b[l] % 16 == 0
         assert torch.equal(got_m[l], m.to(torch.bfloat16)) and torch.equal(got_b[l], b.reshape(-1))
         assert not res[rlay.b[l] + 4 * b.numel() : rlay.b[l] + 4 * rlay.n[l]].any()
-    image = cuda_general.pack_trunk(mats[:3], biases[:3], mats[3], biases[3]).view(torch.float32)
-    lay, floats = cuda_general.layout(72, sizes, 10)
-    assert image.numel() == floats and lay.dims == (72, 48, 20, 33, 10)
+    image = cuda_general.pack_trunk(mats[:3], biases[:3], mats[3], biases[3])
+    lay, nbytes = cuda_general.layout(72, sizes, 10)
+    assert image.numel() == nbytes and lay.dims == (72, 48, 20, 33, 10)
+    got_m, got_b = cuda_general.unpack_trunk(image, lay)
     for l, (m, b) in enumerate(zip(mats, biases)):
-        assert lay.w[l] % 4 == 0 and lay.b[l] % 4 == 0
-        assert torch.equal(image[lay.w[l] : lay.w[l] + m.numel()].view(m.shape), m)
-        assert torch.equal(image[lay.b[l] : lay.b[l] + b.numel()], b.reshape(-1))
+        k, n = m.shape
+        assert lay.w[l] % 128 == 0 and lay.b[l] % 128 == 0
+        assert torch.equal(got_m[l], m.to(torch.bfloat16)) and torch.equal(got_b[l], b.reshape(-1))
+        rows = image[lay.w[l] : lay.w[l] + 2 * k * -(-n // 32) * 32].view(torch.bfloat16).view(k, -1)
+        assert rows.shape[1] % 32 == 0 and not rows[:, n:].float().any()  # zero past every width
     cfg = cuda_sgd.EpochConfig(72, 10, sizes, (16,), **HYPER)
     pi, vf, ls_off = cuda_general.leaf_trunks(cfg)
     offsets, _ = cuda_sgd.flat_layout([s for _, s in cuda_sgd.leaf_specs(
@@ -232,12 +236,20 @@ def test_the_general_images_and_epoch_layout():
     assert pi.w == tuple(offsets[0:8:2]) and pi.b == tuple(offsets[1:8:2]) and ls_off == offsets[8]
     assert vf.w == (offsets[9], offsets[11]) and vf.b == (offsets[10], offsets[12])
     ws = cuda_general.epoch_workspace(100, pi, vf)
-    regions = [(o, 100 * n) for t, outs in zip((pi, vf), ws.out) for o, n in zip(outs, t.dims[1:])]
-    regions += [(ws.dz0, 100 * 48), (ws.dz1, 100 * 48), (ws.dv, 100), (ws.glogp, 100)]
-    ends = sorted((o, o + k) for o, k in regions)
-    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:])) and ends[-1][1] == ws.floats
-    outs, ws_floats = cuda_general.forward_outputs(7, pi, vf)
-    assert ws_floats == 2 * 7 * 48 and outs[0] == (0, 7 * 48, 0, 0) and outs[1] == (0, 0)
+    pad = lambda x: -(-x // 32) * 32  # noqa: E731
+    for regions, end in (
+        ([(o, 100 * n) for t, outs in zip((pi, vf), ws.out) for o, n in zip(outs, t.dims[1:])], ws.floats),
+        ([(o, 100 * pad(n)) for t, acts in zip((pi, vf), ws.act) for o, n in zip(acts, t.dims[1:-1])], ws.acts),
+        ([(o, k * pad(n)) for t, img in zip((pi, vf), ws.img) for o, k, n in zip(img, t.dims[:-1], t.dims[1:])],
+         ws.image),
+    ):
+        ends = sorted((o, o + k) for o, k in regions)
+        assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:])) and ends[-1][1] <= end
+    assert all(o % 64 == 0 for offs in (*ws.act, *ws.img) for o in offs)  # 128-byte aligned bf16
+    assert ws.cs == ((0, 48, 68, 101), (111, 127)) and ws.cs_width == 128 and ws.dz_width == 64
+    outs, ws_elems = cuda_general.forward_outputs(7, 72, pi, vf)
+    assert ws_elems == 7 * 96 + 2 * 7 * 64 and outs[0] == (7 * 96, 7 * 96 + 7 * 64, 7 * 96, 0)
+    assert outs[1] == (7 * 96, 0)
     assert cuda_general.kernels_per_minibatch(3, 3) == 25 and cuda_general.kernels_per_minibatch(0, 0) == 7
 
 
@@ -275,7 +287,8 @@ def test_the_c_mirrors_are_the_sources_structs(source, struct, mirror):
     """Each ctypes mirror holds the C struct's fields in order, with the
     C type's size (an array's: its count times it)."""
     size = {"int": 4, "float": 4, "longlong": 8, "GeneralTrunk": ctypes.sizeof(cuda_general._TrunkC),
-            "ResidentTrunk": ctypes.sizeof(cuda_general._ResidentTrunkC)}
+            "ResidentTrunk": ctypes.sizeof(cuda_general._ResidentTrunkC),
+            "GeneralEpochTrunk": ctypes.sizeof(cuda_general._GeneralEpochTrunkC)}
     fields = _c_struct(source, struct)
     assert [n for _, n, _ in fields] == [n for n, _ in mirror._fields_]
     for (typ, _, count), (_, ctype) in zip(fields, mirror._fields_):
@@ -287,7 +300,7 @@ def test_the_host_constants_are_the_headers():
     assert re.search(r"constexpr int BM = (\d+), BN = (\d+), BK = (\d+);", text).groups() == tuple(
         str(v) for v in (cuda_general.BM, cuda_general.BN, cuda_general.BK))
     assert f"constexpr int THREADS = {cuda_general.GEMM_THREADS};" in text
-    assert cuda_general.CHUNK % cuda_general.BK == 0
+    assert all(cuda_general.wgrad_plan(rows, (64,), 132)[1] % cuda_general.BK == 0 for rows in (1, 1000, 8192))
     epoch = (cuda_build.CSRC / "fused_epoch_general.cu").read_text()
     assert f"constexpr int THREADS = {cuda_general._THREADS};" in epoch
     assert f"constexpr int LOGP_THREADS = {cuda_general._THREADS};" in (cuda_build.CSRC / "policy_general.cu").read_text()

@@ -13,7 +13,11 @@ past a block's width) on the card:
 - ``wgmma_bits``: whether a chain of ``wgmma`` k16 steps in order gives
   ``mma.sync m16n8k16``'s bits on the same bf16 fragments
   (``tools/cluster_probe.cu``), over random trials at k 64 and 1024: the
-  premise of a ``wgmma`` layer loop that keeps K2g's bits;
+  premise of a ``wgmma`` layer loop that keeps K2g's bits; then (``modes``)
+  the per-layer GEMM's operand modes, A and B both from shared memory, each
+  K-major or MN-major, at N 64, 128 and 256, every k16 step under one
+  commit, at k 32 and 1024, each against ``mma.sync``'s chain on the same
+  inputs, with the differing outputs printed;
 - ``check``: ``chip_smoke.check_general_cluster`` (phase 58: the cluster
   route against its twins and bit for bit against the per-layer route)
   and the ptxas report of its kernels; ``grid``: phase 52
@@ -60,6 +64,8 @@ def build_probe():
     cs.check(proc.returncode == 0, f"nvcc failed on tools/cluster_probe.cu:\n{proc.stdout}")
     so = ctypes.CDLL(lib)
     so.wgmma_bits.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    so.wgmma_modes.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    so.mma_chain.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return so
 
 
@@ -235,8 +241,44 @@ def wgmma_bits(so, seed: int) -> dict:
             "max_rel_err_wgmma": float(((d_wg.double() - ref).abs() / mag.clamp_min(1e-30)).max()),
             "max_rel_err_mma_sync": float(((d_mma.double() - ref).abs() / mag.clamp_min(1e-30)).max()),
         }
+    out["modes"] = wgmma_modes(so, g)
     print(json.dumps({"wgmma_bits": out}), flush=True)
     return out
+
+
+def wgmma_modes(so, g) -> dict:
+    """``wgmma_modes`` against ``mma_chain`` in every mode of the GEMM; the
+    first differing outputs of a mode are printed."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n in (64, 128, 256):
+        trials = 256
+        scale = lambda *s: torch.exp2(torch.randint(-6, 7, s, device="cuda", generator=g).float())  # noqa: E731
+        a = (torch.randn((trials, 64, 256), device="cuda", generator=g) * scale(trials, 64, 1)).bfloat16()
+        bt = (torch.randn((trials, n, 256), device="cuda", generator=g) * scale(trials, 1, 256)).bfloat16()
+        for k in (32, 1024):
+            ref = torch.empty((trials, 64, n), device="cuda")
+            check_rc(so.mma_chain(a.data_ptr(), bt.data_ptr(), ref.data_ptr(), trials, k, n, stream), "mma_chain")
+            for ta in (0, 1):
+                for tb in (0, 1):
+                    d = torch.empty_like(ref)
+                    check_rc(so.wgmma_modes(a.data_ptr(), bt.data_ptr(), d.data_ptr(), trials, k, n, ta, tb, stream),
+                             f"wgmma_modes n{n} k{k} ta{ta} tb{tb}")
+                    torch.cuda.synchronize()
+                    diff = (d != ref)
+                    name = f"n{n}_k{k}_A{'mn' if ta else 'k'}_B{'mn' if tb else 'k'}"
+                    idx = diff.nonzero()[:4].tolist()
+                    out[name] = {"outputs": d.numel(), "outputs_differing": int(diff.sum()),
+                                 "first": [(i, float(d[tuple(i)]), float(ref[tuple(i)])) for i in idx]}
+                    print(json.dumps({"wgmma_mode": {name: out[name]}}), flush=True)
+    return out
+
+
+def check_rc(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
 def main(argv=None) -> int:

@@ -58,7 +58,10 @@ Phases, each of which fails the script on a failed check:
      its draws by their statistics and two noisy calls bit-identical, the
      ``cuda_quadx.step`` drop-in and the ``use_kernel`` env, the 8192-env
      mod-hovering rollout and training (``ppo_solve_r5``'s recipe), the
-     hovering CLI (``train``, ``eval``, ``eval-pid-expert`` in mode 7);
+     hovering CLI (``train``, ``eval``, ``eval-pid-expert`` in modes 7 and
+     10), the trajectory CLI's ``eval-pid-expert`` (mode 10) on scenarios
+     1-3, and ``hovering train --flight_mode -1 --num_envs 2048`` for one
+     iteration, then one fused iteration on that env (K4, K3, K2 counted);
  17. K1 generic in mode 7 (80 rows, ENU) against its twin at N=8192 and
      1000 for three winds, and the mode-7 ``cuda_quadx.step`` drop-in
      against ``models.quadx.step``;
@@ -249,6 +252,30 @@ Phases, each of which fails the script on a failed check:
      bit for bit the per-layer route forced, each launch counted; K3g's log-probs K2g's per-layer forward (approx_kl exactly
      0) at (1024,) and 2 x 1024. Its results print before the
      ``kernels`` line, which lists the cluster route's entries.
+ 59. ``mode10_expert``: 2048 mod-hovering envs at the fork's settings
+     (NED, 80 Hz, wind and gusts, random starts) flown by
+     ``hovering_pid_expert`` for one full 10 s episode in mode 10 (ga_pid)
+     and in mode 7: return, collision share, distance to target,
+     env-steps/s;
+ 60. ``quadx_modes``: ``models/quadx.step`` (plain PyTorch, no kernel) in
+     every flight mode -1..10, ENU and NED, 8192 drones from airborne
+     spawns with per-mode setpoints for 120 control steps (ENU mode 10,
+     whose gains are NED's, for 40), the first 256 lanes held lane by lane
+     against the same code on the CPU (every lane within the closed-loop
+     curves for 15 steps, at most an eighth beyond them over the run, where
+     the cascades' saturations part the two roundings); the height modes
+     hold z, mode 6 tracks its ground
+     velocity and NED mode 10 closes on its [x, y, psi, z]; ms per step;
+ 61. ``aviary``: ``core/aviary`` on the card with the fleets of
+     examples/core 02, 05 (the orbit controller over modes 7 and 10), 08
+     and 09 (two wind fields), 1 s each; then 4096 batched copies of the
+     02 fleet (noise off, per-copy setpoints, a third disarmed halfway,
+     obstacle response against three boxes) for 240 steps, the first 64
+     copies held drone by drone against the CPU; aviary- and
+     drone-steps/s.
+     Phases 60 and 61 time the card's run first, then fly its CPU twin on
+     the same states; the lanes of phase 60 that part from the CPU are
+     flown again in float64 as a witness that rounding parts them.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits non-zero before printing any result. It
@@ -1546,9 +1573,10 @@ def cli_smoke(card: str) -> dict:
     plain env at the CLI's defaults, mode 9, a 4-episode eval, checkpoints
     in a scratch directory under build/), ``eval --checkpoint`` on the fixed
     NED scenario (return, length, a 34-column CSV), ``eval-pid-expert`` in
-    mode 7 (the NED position cascade of models/quadx) for a 2 s episode,
-    and ``eval-pid-expert --expert_mode 10``, which must raise
-    NotImplementedError naming ROADMAP item 6."""
+    mode 7 (the NED position cascade of models/quadx) and in mode 10
+    (ga_pid) for a 2 s episode each, the trajectory CLI's
+    ``eval-pid-expert`` (mode 10) on scenarios 1-3 for 1 s each, and
+    ``mode_minus1_train``."""
     import csv
     import io
     import shutil
@@ -1556,7 +1584,7 @@ def cli_smoke(card: str) -> dict:
     from contextlib import redirect_stdout
 
     import torch
-    from pyflyt_tpu_torch.rl_training import hovering
+    from pyflyt_tpu_torch.rl_training import hovering, trajectory_following
     from pyflyt_tpu_torch.utils.hovering_logger import COLUMNS
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -1592,19 +1620,74 @@ def cli_smoke(card: str) -> dict:
             pid_total, pid_length = hovering.main(["eval-pid-expert", "--max_duration_seconds", "2.0"])
         pid_s = time.perf_counter() - t0
         check(math.isfinite(pid_total) and 1 <= pid_length <= 162, f"cli eval-pid-expert: {pid_total}, {pid_length}")
-        try:
-            hovering.main(["eval-pid-expert", "--expert_mode", "10"])
-            fail("cli eval-pid-expert --expert_mode 10 did not raise")
-        except NotImplementedError as e:
-            check("item 6" in str(e), f"cli eval-pid-expert mode 10: {e}")
-            pid_msg = str(e)
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            pid10_total, pid10_length = hovering.main(["eval-pid-expert", "--expert_mode", "10",
+                                                       "--max_duration_seconds", "2.0"])
+        pid10_s = time.perf_counter() - t0
+        check(math.isfinite(pid10_total) and 1 <= pid10_length <= 162,
+              f"cli eval-pid-expert mode 10: {pid10_total}, {pid10_length}")
+        traj = {}
+        for scenario in (1, 2, 3):
+            t0 = time.perf_counter()
+            with redirect_stdout(io.StringIO()):
+                r = trajectory_following.main(["eval-pid-expert", "--scenario", str(scenario),
+                                               "--max_duration_seconds", "1.0"])
+            traj[scenario] = {**r, "s": time.perf_counter() - t0}
+            check(math.isfinite(r["episode_reward"]) and 1 <= r["episode_length"] <= 82,
+                  f"cli trajectory eval-pid-expert scenario {scenario}: {r}")
+        minus1 = mode_minus1_train(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {"card": card, "train_s": train_s, "train_eval_mean_reward": row["eval_mean_reward"],
             "train_eval_mean_length": row["eval_mean_length"], "eval_s": eval_s, "eval_episode_reward": total,
             "eval_episode_length": length, "csv_rows": len(rows) - 1,
             "eval_pid_expert": {"episode_reward": pid_total, "episode_length": pid_length, "s": pid_s},
-            "eval_pid_expert_mode10": pid_msg}
+            "eval_pid_expert_mode10": {"episode_reward": pid10_total, "episode_length": pid10_length, "s": pid10_s},
+            "trajectory_eval_pid_expert": traj, "mode_minus1_train": minus1}
+
+
+def mode_minus1_train(work: str) -> dict:
+    """``hovering train --flight_mode -1 --num_envs 2048``: one iteration of
+    the CLI (its PPOConfig leaves the fused paths off, as the JAX CLI does,
+    so no kernel launches), then one iteration with the fused rollout
+    forward and fused_sgd on the same env and trunk (the 2 x 256 default):
+    K4 a rollout step, K3 once and K2 an epoch on the raw-PWM mode's data."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    from pyflyt_tpu_torch.rl import PPO
+    from pyflyt_tpu_torch.rl_training import hovering
+
+    argv = ["train", "--flight_mode", "-1", "--num_envs", "2048", "--total_timesteps", str(2048 * 32),
+            "--eval_every_updates", "1", "--eval_episodes", "1", "--log_dir", os.path.join(work, "run_minus1")]
+    zero_launches()
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()) as printed:
+        runner = hovering.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    check(runner.update_idx == 1, "cli train --flight_mode -1: one iteration")
+    check(not any(read_launches().values()), "cli train --flight_mode -1: a kernel launched on the default path")
+    row = json.loads(printed.getvalue().strip().splitlines()[-1])
+    # the CLI's own env and PPOConfig from the same arguments, fused
+    args = hovering.build_parser().parse_args(argv)
+    cfg = dataclasses.replace(hovering.ppo_config(args), fused_sgd=True, fused_rollout_forward=True)
+    tp = PPO(hovering.build_env(args), cfg)
+    runner = tp.init(0)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner, metrics, _ = run_iteration(tp, runner, split=False)
+    fused_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "policy_value_forward": cfg.rollout_steps, "logp_forward": 1,
+            "fused_epoch": cfg.num_epochs}
+    check(launches == want, f"mode -1 fused iteration: launches {launches}, expected {want}")
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "mode -1 fused iteration: metrics")
+    return {"cli_s": cli_s, "cli_eval_mean_reward": row["eval_mean_reward"], "fused_s": fused_s,
+            "fused_launches": launches, "fused_metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -5201,6 +5284,482 @@ def time_general_kernels(tp, runner, obs, packed7, per_layer_shapes: dict, big_t
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 59-61: the QuadX flight modes -1..10 and custom controllers, the
+# mode-10 PID expert, the aviary (plain PyTorch on the card: no kernel of
+# their own, so no launch counted)
+# ---------------------------------------------------------------------------
+
+
+QM_DRONES = 8192  # drones a mode and convention
+QM_CPU_LANES = 256  # held lane by lane against the CPU
+QM_STEPS = 120  # control steps: 1 s at the default 120 Hz
+QM_ENU10_STEPS = 40  # ENU mode 10 (its gains were tuned for NED) is flown over a horizon where no lane diverges
+# the view and the PWM against the CPU: atol + slope * step, the closed-loop
+# curves of tests/test_torch_quadx_modes.py. The cascades' clips and
+# saturations make some lanes chaotic (a thrust that swings from step to
+# step), where the card's and the CPU's roundings part ways: every lane
+# stays within the curves for QM_STRICT_STEPS, and the lanes beyond them
+# over the whole run are counted and bounded, and flown again on the CPU in
+# float64 as a witness: over those lanes the CPU's own f32 run must part
+# from the f64 one by at least QM_WITNESS times the card-CPU gap (its median
+# over the lanes), and the card's gap to the f64 run must stay within
+# 1 / QM_WITNESS of the CPU's. Rounding alone parts them so; a fault of the
+# card's that fires on saturated lanes would leave the CPU's f32 run near
+# the f64 one and the card far from both
+QM_VIEW_ATOL = (1e-4, 5e-5)
+QM_PWM_ATOL = (2e-4, 1e-4)
+QM_STRICT_STEPS = 15
+QM_DIVERGED_SHARE = 1 / 8  # of the held lanes
+QM_WITNESS = 1 / 8
+QM_HEIGHT_TOL = 0.25  # m: the median |z - z_sp| of a height mode after 1 s
+QM_VEL_TOL = 0.25  # m/s: mode 6's median ground-velocity error after 1 s
+QM_CLOSE_RATIO = 0.9  # mode 10 (NED): the median distance to its target shrinks by a tenth in 1 s at least
+EXPERT_ENVS = 2048  # the hovering CLI's --num_envs default
+AV_COPIES = 4096  # batched copies of examples/core/02's fleet
+AV_CPU_COPIES = 64
+AV_STEPS = 240  # aviary steps (4 s: the fleet's lowest control rate is 60 Hz, 4 physics iterations a step)
+AV_ATOL = (1e-3, 1e-4)  # view against the CPU: atol + slope * step
+AV_DIVERGED_SHARE = 4 / 64
+# the quadx's 60 Hz mode-7 loop oscillates (body rates of a few rad/s), so
+# a rounding difference grows to the oscillation's size within the run: the
+# quadx is held over its first steps, the rocket and fixedwing over all
+AV_QUADX_HELD = 30
+
+
+def qm_fleet(conv: str, n: int, seed: int):
+    """``n`` airborne QuadX drones on the CPU, 2-6 m up (down in NED),
+    tilted, yawed anywhere and moving, noise off."""
+    import torch
+    from pyflyt_tpu_torch.models import quadx
+
+    cfg = quadx.QuadXConfig(orn_conv=conv, noisy_motors=False)
+    g = torch.Generator().manual_seed(seed)
+    sign = -1.0 if conv == "NED_FRD" else 1.0
+    pos = torch.rand(n, 3, generator=g) * 4 - 2
+    pos[:, 2] = sign * (2 + 4 * torch.rand(n, generator=g))
+    orn = torch.rand(n, 3, generator=g) * 0.4 - 0.2
+    orn[:, 2] = torch.rand(n, generator=g) * 6 - 3
+    st = quadx.init_state(quadx.build_params(cfg, "cpu"), cfg, pos, orn)
+    st.body.lin_vel = torch.rand(n, 3, generator=g) * 0.6 - 0.3
+    st.body.ang_vel = torch.rand(n, 3, generator=g) * 0.6 - 0.3
+    return cfg, st, g
+
+
+def qm_setpoints(mode: int, conv: str, view, g):
+    """Per-mode setpoints in each mode's units: raw PWM (-1, 8) and the
+    mix's thrust (9) and mode 0's near the cf2x's hover PWM (0.364), the
+    motors a few thousandths apart; rates (0, 2), angles (1, 3), body or
+    ground velocities (4-6), a position and yaw near the spawn (7, 10);
+    heights near the current one (2, 3, 4), climb rates (1, 5, 6). The
+    open-loop modes stay near a hover because a drone that hits the ground
+    at speed spins past the pqr drag's stable step and goes non-finite, in
+    the JAX model as in the port (ROADMAP.md, item 35)."""
+    import torch
+
+    n = view.shape[0]
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)  # noqa: E731
+    pos = view[:, 3]
+    hover = u(0.34, 0.39)
+    if mode in (-1, 8):
+        return torch.stack([hover + u(-0.005, 0.005) for _ in range(4)], -1)
+    if mode == 9:
+        return torch.stack([u(-0.005, 0.005), u(-0.005, 0.005), u(-0.005, 0.005), hover], -1)
+    if mode == 0:
+        return torch.stack([u(-0.3, 0.3), u(-0.3, 0.3), u(-0.3, 0.3), hover * (-1.0 if conv == "NED_FRD" else 1.0)], -1)
+    if mode in (7, 10):
+        return torch.stack([pos[:, 0] + u(-1, 1), pos[:, 1] + u(-1, 1), u(-3, 3), pos[:, 2] + u(-0.5, 0.5)], -1)
+    z = pos[:, 2] + u(-0.5, 0.5) if mode in (2, 3, 4) else u(-0.5, 0.5)
+    if mode in (1, 3):
+        return torch.stack([u(-0.1, 0.1), u(-0.1, 0.1), u(-3, 3), z], -1)
+    if mode == 2:
+        return torch.stack([u(-0.1, 0.1), u(-0.1, 0.1), u(-0.1, 0.1), z], -1)
+    return torch.stack([u(-0.5, 0.5), u(-0.5, 0.5), u(-0.3, 0.3), z], -1)
+
+
+def qm_commanded(mode: int, conv: str, st, sp, d0=None) -> dict:
+    """What the mode commands, read off the final state of the whole fleet:
+    the height error of the height modes, mode 6's ground-velocity error
+    and mode 10's closing distance (NED)."""
+    import torch
+
+    out = {}
+    view = st.read.view
+    if mode in (2, 3, 4, 7, 10):
+        out["median_height_err_m"] = float((view[:, 3, 2] - sp[:, 3]).abs().median())
+    if mode == 6:
+        v = st.body.lin_vel[:, :2]  # world ENU; NED's ground frame swaps x and y
+        v = v.flip(-1) if conv == "NED_FRD" else v
+        out["median_ground_vel_err_m_s"] = float(torch.linalg.vector_norm(v - sp[:, :2], dim=-1).median())
+    if mode in (7, 10):
+        d = torch.linalg.vector_norm(torch.stack([view[:, 3, 0] - sp[:, 0], view[:, 3, 1] - sp[:, 1],
+                                                  view[:, 3, 2] - sp[:, 3]], -1), dim=-1)
+        out["median_dist_m"], out["median_dist_start_m"] = float(d.median()), float(d0.median())
+        yaw_err = torch.remainder(view[:, 1, 2] - sp[:, 2] + math.pi, 2 * math.pi) - math.pi
+        out["median_yaw_err_rad"] = float(yaw_err.abs().median())
+    return out
+
+
+QM_CASES = tuple((conv, mode) for conv in ("ENU_FLU", "NED_FRD") for mode in range(-1, 11))
+
+
+def qm_case(conv: str, mode: int, n: int):
+    """One ``quadx_modes`` case on the CPU: its config, the fleet after
+    ``set_mode`` with its setpoints, and the number of steps it flies (ENU
+    mode 10 tips over within ~100 steps, its gains being NED's)."""
+    from pyflyt_tpu_torch.models import quadx
+
+    cfg, st, g = qm_fleet(conv, n, seed=5900 + mode)
+    st = quadx.set_mode(st, mode, cfg)
+    st.setpoint = qm_setpoints(mode, conv, st.read.view, g)
+    steps = min(QM_ENU10_STEPS, QM_STEPS) if (mode == 10 and conv == "ENU_FLU") else QM_STEPS
+    return cfg, st, steps
+
+
+def qm_trail(cfg, st, mode: int, steps: int, dtype=None):
+    """The view and PWM ``(steps, lanes, ...)`` after each of ``steps``
+    control steps of ``st`` on the CPU: in the case's f32, or in ``dtype``
+    (the float64 witness), returned as f32."""
+    import torch
+    from pyflyt_tpu_torch.core.state import tree_map
+    from pyflyt_tpu_torch.models import quadx
+
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        st = tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, st)
+    params = quadx.build_params(cfg, "cpu")
+    views, pwms = [], []
+    for _ in range(steps):
+        st, _ = quadx.step(st, params, cfg, mode)
+        views.append(st.read.view.float())
+        pwms.append(st.pwm.float())
+    return torch.stack(views), torch.stack(pwms)
+
+
+def sync(device: str) -> None:
+    import torch
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def check_quadx_modes(card: str, n: int = QM_DRONES, device: str = "cuda") -> dict:
+    """``models/quadx.step`` in every mode -1..10, ENU and NED: ``n`` drones
+    on ``device`` for QM_STEPS control steps from airborne spawns with
+    per-mode setpoints (ENU mode 10 for QM_ENU10_STEPS), timed; then the
+    first QM_CPU_LANES flown from the same states by the same code on the
+    CPU (``qm_trail``) and held lane by lane: every lane within the
+    closed-loop curves for QM_STRICT_STEPS, the lanes beyond them over the
+    run counted and held against a float64 run of theirs (QM_WITNESS); then
+    each mode's command checked on the whole fleet."""
+    import torch
+    from pyflyt_tpu_torch.core.state import tree_map
+    from pyflyt_tpu_torch.models import quadx
+
+    out = {}
+    lanes = min(QM_CPU_LANES, n)
+    for conv, mode in QM_CASES:
+        cfg, st, held = qm_case(conv, mode, n)
+        cpu_st = tree_map(lambda t: t[:lanes].clone(), st)
+        sp = st.setpoint.to(device)
+        d0 = torch.linalg.vector_norm(st.read.view[:, 3] - st.setpoint[:, [0, 1, 3]], dim=-1).to(device)
+        st = tree_map(lambda t: t.to(device), st)
+        params = quadx.build_params(cfg, device)
+        zero_launches()
+        trail = []
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(held):
+            st, _ = quadx.step(st, params, cfg, mode)
+            trail.append((st.read.view[:lanes].clone(), st.pwm[:lanes].clone()))
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(not any(launches.values()), f"quadx mode {mode}: a kernel launched {launches}")
+        where = f"quadx_modes {conv} mode {mode}"
+        check(bool(torch.isfinite(st.read.view).all() and torch.isfinite(st.pwm).all()), f"{where}: non-finite state")
+        views = torch.stack([v for v, _ in trail]).cpu()
+        pwms = torch.stack([p for _, p in trail]).cpu()
+        cpu_views, cpu_pwms = qm_trail(cfg, cpu_st, mode, held)
+        e_view = (views - cpu_views).abs().amax((2, 3))  # (steps, lanes)
+        e_pwm = (pwms - cpu_pwms).abs().amax(2)
+        k = torch.arange(held)[:, None]
+        beyond = (e_view > QM_VIEW_ATOL[0] + QM_VIEW_ATOL[1] * k) | (e_pwm > QM_PWM_ATOL[0] + QM_PWM_ATOL[1] * k)
+        parted = beyond.any(0).nonzero()[:, 0]
+        n_div = len(parted)
+        first_div = int(beyond.any(1).nonzero()[0]) if n_div else None
+        check(first_div is None or first_div >= QM_STRICT_STEPS, f"{where}: a lane beyond the curves at step {first_div}")
+        check(n_div <= QM_DIVERGED_SHARE * lanes, f"{where}: {n_div} of {lanes} lanes beyond the curves")
+        check(n_div == 0 or held == QM_STEPS, f"{where}: a lane beyond the curves within its {held} steps")
+        rec = {"max_abs_err_view": float(e_view.max()), "max_abs_err_pwm": float(e_pwm.max()),
+               "diverged_lanes": n_div, "first_diverged_step": first_div, "steps": held,
+               "ms_per_step": 1e3 * wall / held, "ground_contacts": int(st.contact.sum()),
+               **qm_commanded(mode, conv, st, sp, d0)}
+        if n_div:
+            w_views, _ = qm_trail(cfg, tree_map(lambda t: t[parted].clone(), cpu_st), mode, held, torch.float64)
+            gap = lambda a: float((a[:, parted] - w_views).abs().amax((0, 2, 3)).median())  # noqa: E731
+            w = {"median_gap_card_cpu": float(e_view[:, parted].amax(0).median()),
+                 "median_gap_cpu_f64": gap(cpu_views), "median_gap_card_f64": gap(views)}
+            rec["f64_witness"] = w
+            check(w["median_gap_cpu_f64"] >= QM_WITNESS * w["median_gap_card_cpu"],
+                  f"{where}: the CPU's f32 run stays near the f64 one on the parted lanes {w}")
+            check(w["median_gap_card_f64"] * QM_WITNESS <= w["median_gap_cpu_f64"],
+                  f"{where}: the card far from the f64 run on the parted lanes {w}")
+        if mode in (2, 3, 4, 7) or (mode == 10 and conv == "NED_FRD"):
+            check(rec["median_height_err_m"] < QM_HEIGHT_TOL, f"{where}: height not held {rec}")
+        if mode == 6:
+            check(rec["median_ground_vel_err_m_s"] < QM_VEL_TOL, f"{where}: ground velocity not tracked {rec}")
+        if mode == 10 and conv == "NED_FRD":
+            check(rec["median_dist_m"] < QM_CLOSE_RATIO * rec["median_dist_start_m"],
+                  f"{where}: does not close on its [x, y, psi, z] {rec}")
+        out[f"{conv}/mode{mode}"] = rec
+    return {"card": card, "drones": n, "cpu_lanes": lanes, "steps": QM_STEPS, "modes": out}
+
+
+def mode10_expert(card: str, seed: int) -> dict:
+    """The mod-hovering env at the fork's settings (NED, 80 Hz, wind and
+    gusts on, noisy motors, random starts, unnormalized obs and actions)
+    at EXPERT_ENVS envs flown by ``hovering_pid_expert`` for one full 10 s
+    episode, in mode 10 (ga_pid) and in mode 7 (the position cascade)."""
+    import torch
+    from pyflyt_tpu_torch.envs.quadx_mod import QuadXModHoveringEnv, hovering_pid_expert
+
+    n, device = EXPERT_ENVS, "cuda"
+    out = {"card": card, "num_envs": n}
+    for mode in (10, 7):
+        env = QuadXModHoveringEnv(control_hz=80, orn_conv="NED_FRD", flight_mode=mode, simulate_wind=True,
+                                  noisy_motors=True, normalize_obs=False, normalize_actions=False, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed + mode)
+        st, _ = env.reset(n, gen)
+        d0 = torch.linalg.vector_norm(st.state16[:, 12:15], dim=-1)
+        total = torch.zeros(n, device=device)
+        steps = env.max_steps + 1  # the truncation fires on the count before the step's increment
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, step_out = env.step(st, hovering_pid_expert(st.state16))
+            total += step_out.reward
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(not any(launches.values()), f"mode{mode}_expert: a kernel launched {launches}")
+        where = f"mode{mode}_expert"
+        check(bool((st.termination | st.truncation).all()), f"{where}: an episode did not end")
+        check(bool(torch.isfinite(total).all()), f"{where}: non-finite returns")
+        d = torch.linalg.vector_norm(st.state16[:, 12:15], dim=-1)
+        flown = ~st.collision
+        check(bool(flown.any()), f"{where}: every env collided")
+        rec = {
+            "steps": steps, "mean_return": float(total.mean()),
+            "collision_share": float(st.collision.float().mean()),
+            "out_of_bounds_share": float(step_out.info["out_of_bounds"].float().mean()),
+            "median_start_dist_m": float(d0.median()), "median_final_dist_m": float(d[flown].median()),
+            "mean_final_dist_m": float(d[flown].mean()), "wall_s": wall, "env_steps_per_s": n * steps / wall,
+        }
+        check(rec["median_final_dist_m"] < rec["median_start_dist_m"], f"{where}: does not close on the target {rec}")
+        out[f"mode{mode}"] = rec
+    return out
+
+
+def orbit_controller(view, setpoint):
+    """examples/core/05_custom_controller.py: circles the origin by steering
+    the position target along a 2 m ring."""
+    import torch
+
+    pos = view[..., 3, :]
+    angle = torch.atan2(pos[..., 1], pos[..., 0]) + 0.3
+    return torch.stack([2.0 * torch.cos(angle), 2.0 * torch.sin(angle), setpoint[..., 2], setpoint[..., 3]], dim=-1)
+
+
+@dataclasses.dataclass
+class ShearWind:
+    """examples/core/09_wind.py's custom field: a crosswind growing with
+    height."""
+
+    strength: float
+
+    def __call__(self, physics_step, position):
+        import torch
+
+        wind_x = self.strength * torch.log1p(torch.clamp(position[..., 2], min=0.0))
+        return torch.stack([wind_x, torch.zeros_like(wind_x), torch.zeros_like(wind_x)], dim=-1)
+
+
+def fly_for(av, st, seconds: float):
+    steps = int(round(seconds * av.physics_hz / av.updates_per_step))
+    for _ in range(steps):
+        st = av.step(st)
+    return st, steps
+
+
+def aviary_examples(seed: int) -> dict:
+    """The fleets of examples/core 02 (rocket, quadx at 60 Hz in mode 7,
+    fixedwing), 05 (the orbit controller over mode 7, ENU, and over mode
+    10, NED), 08 (rocket, primitive_drone quadx, fixedwing from rest) and
+    09 (Gaussian gusts, and the shear field), one aviary each on the card
+    with its noise on, for 1 s each."""
+    import torch
+    from pyflyt_tpu_torch.core import Aviary, DroneSpec
+    from pyflyt_tpu_torch.core.wind import GaussianWind
+
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = lambda v: torch.tensor(v, device=device)  # noqa: E731
+    out = {}
+
+    def run(name, av, setpoints, seconds=1.0):
+        st = av.set_all_setpoints(av.reset(gen), [t(s) for s in setpoints])
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, steps = fly_for(av, st, seconds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(read_launches().values()), f"aviary {name}: a kernel launched")
+        views = av.all_states(st)
+        check(all(bool(torch.isfinite(v).all()) for v in views), f"aviary {name}: non-finite view")
+        out[name] = {"steps": steps, "wall_s": wall, "aviary_steps_per_s": steps / wall,
+                     "positions": [[round(x, 4) for x in v[3].tolist()] for v in views]}
+        return st, views
+
+    av = Aviary([[0.0, 0.0, 100.0], [3.0, 0.0, 1.0], [6.0, 0.0, 30.0]], [[0.0, 0.0, 0.0]] * 3, device=device,
+                specs=(DroneSpec("rocket", 120), DroneSpec("quadx", 60, 7), DroneSpec("fixedwing", 120, 0)))
+    _, v = run("02_multi_drone", av, [[0.0] * 7, [3.0, 0.0, 0.0, 1.5], [0.0, 0.0, 0.0, 0.6]])
+    check(float(v[0][3, 2]) < 100.0 and float(v[2][3, 0]) > 16.0, "aviary 02: rocket falls, fixedwing cruises")
+    check(float(torch.linalg.vector_norm(v[1][3] - t([3.0, 0.0, 1.5]))) < 0.6, "aviary 02: the quadx holds")
+    for mode, conv, z in ((7, "ENU_FLU", 1.5), (10, "NED_FRD", -1.5)):
+        av = Aviary([[2.0, 0.0, z]], [[0.0, 0.0, 0.0]], device=device,
+                    specs=(DroneSpec("quadx", 120, mode, {"orn_conv": conv}, orbit_controller),))
+        _, v = run(f"05_custom_controller_mode{mode}", av, [[0.0, 0.0, 0.0, z]])
+        swept = math.atan2(float(v[0][3, 1]), float(v[0][3, 0]))
+        out[f"05_custom_controller_mode{mode}"]["swept_rad"] = swept
+        check(abs(swept) > 0.02, f"aviary 05 mode {mode}: no orbit ({swept})")
+    av = Aviary([[0.0, 5.0, 5.0], [3.0, 3.0, 1.0], [5.0, 0.0, 1.0]], [[0.0, 0.0, 0.0]] * 3, device=device,
+                specs=(DroneSpec("rocket"), DroneSpec("quadx", mode=7, options={"drone_model": "primitive_drone"}),
+                       DroneSpec("fixedwing", mode=0, options={"starting_velocity": (0.0, 0.0, 0.0)})))
+    st, _ = run("08_mixed_drones", av, [[0.0] * 7, [3.0, 3.0, 0.0, 1.5], [0.0, 0.0, 0.0, 0.0]])
+    check([tuple(av.aux_state(st, i).shape) for i in range(3)] == [(9,), (4,), (6,)], "aviary 08: aux sizes")
+    for name, wind in (("09_wind_gaussian", GaussianWind.init(gen, 1, device=device)), ("09_wind_shear", ShearWind(3.0))):
+        av = Aviary([[0.0, 0.0, 5.0]], [[0.0, 0.0, 0.0]], device=device, specs=(DroneSpec("quadx", mode=7),),
+                    wind_fn=wind)
+        _, v = run(name, av, [[0.0, 0.0, 0.0, 5.0]])
+        out[name]["drift_m"] = float(torch.linalg.vector_norm(v[0][3, :2]))
+    check(out["09_wind_shear"]["drift_m"] > 0.01, "aviary 09: the shear field does not push the drone")
+    return out
+
+
+def register_quiet_handles() -> None:
+    """Fixedwing and rocket handles with their noise off (the built-in
+    ones draw it always), for the lane-by-lane check."""
+    from pyflyt_tpu_torch.core import aviary as av_mod
+
+    for name, field in (("fixedwing", "noisy_motors"), ("rocket", "noisy_boosters")):
+        base = av_mod._HANDLE_TYPES[name]
+
+        def init(self, spec, physics_hz, device, _base=base, _field=field):
+            _base.__init__(self, spec, physics_hz, device)
+            self.cfg = dataclasses.replace(self.cfg, **{_field: False})
+
+        av_mod.register_drone_type(f"{name}_quiet", type(f"Quiet{name}", (base,), {"__init__": init}))
+
+
+def aviary_fleet(device: str, copies: int):
+    """examples/core/02's fleet (rocket, quadx at 60 Hz in mode 7,
+    fixedwing) with the noise off, obstacle response on against three
+    boxes: a plinth under the quadx (a disarmed one drops onto it), a deck
+    under the fixedwing's glide (a descending plane slides along it) and a
+    platform under the rocket."""
+    import torch
+    from pyflyt_tpu_torch.core import Aviary, DroneSpec
+    from pyflyt_tpu_torch.core.camera import Boxes
+
+    t = lambda v: torch.tensor(v, device=device)  # noqa: E731
+    boxes = Boxes(centers=t([[3.5, 0.0, 0.25], [70.0, 0.0, 19.5], [0.0, 0.0, 70.0]]),
+                  half_extents=t([[2.0, 1.5, 0.25], [60.0, 25.0, 0.5], [3.0, 3.0, 0.5]]),
+                  rotations=torch.eye(3, device=device).expand(3, 3, 3).clone(),
+                  colors=torch.ones(3, 4, device=device), visible=torch.ones(3, dtype=torch.bool, device=device))
+    av = Aviary([[0.0, 0.0, 100.0], [3.0, 0.0, 1.0], [6.0, 0.0, 30.0]], [[0.0, 0.0, 0.0]] * 3, device=device,
+                specs=(DroneSpec("rocket_quiet", 120), DroneSpec("quadx", 60, 7, {"noisy_motors": False}),
+                       DroneSpec("fixedwing_quiet", 120, 0)),
+                obstacles=boxes, obstacle_response=True)
+    return av, av.reset(batch=copies)
+
+
+def aviary_setpoints(copies: int, seed: int):
+    """Per-copy setpoints on the CPU: the rocket's finlets, ignition (half
+    the copies), throttle and gimbal; the quadx's [x, y, yaw, z]; the
+    fixedwing's surfaces and throttle."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, k=1: lo + (hi - lo) * torch.rand(copies, k, generator=g)  # noqa: E731
+    rocket = torch.cat([u(-0.3, 0.3, 3), (u(0, 1) < 0.5).float(), u(0.2, 0.8), u(-0.3, 0.3, 2)], -1)
+    quad = torch.cat([u(2.0, 5.0), u(-1.0, 1.0), u(-1.0, 1.0), u(1.0, 2.0)], -1)
+    wing = torch.cat([u(-0.02, 0.02, 3), u(0.4, 0.9)], -1)
+    return [rocket, quad, wing]
+
+
+def aviary_run(device: str, copies: int, seed: int, held: int):
+    """The batched 02 fleet for AV_STEPS steps on ``device``: per-copy
+    setpoints, a third of the copies disarmed halfway. Returns the final
+    state with the aviary, the wall seconds, and after each step the first
+    ``held`` copies' views ``(steps, 3 drones, held, 4, 3)`` and contact
+    flags ``(steps, held, 3)``."""
+    import torch
+
+    register_quiet_handles()
+    sps = [s[:copies] for s in aviary_setpoints(AV_COPIES, seed)]  # the CPU's copies are the card's first
+    armed = torch.ones(copies, 3, dtype=torch.bool)
+    armed[::3] = False
+    av, st = aviary_fleet(device, copies)
+    st = av.set_all_setpoints(st, [s.to(device) for s in sps])
+    views, contacts = [], []
+    sync(device)
+    t0 = time.perf_counter()
+    for k in range(AV_STEPS):
+        if k == AV_STEPS // 2:
+            st = av.set_armed(st, armed.to(device))
+        st = av.step(st)
+        views.append(torch.stack([v[:held] for v in av.all_states(st)]))
+        contacts.append(st.contact[:held].clone())
+    sync(device)
+    return av, st, time.perf_counter() - t0, torch.stack(views), torch.stack(contacts)
+
+
+def aviary_batched(card: str, seed: int, copies: int = AV_COPIES, device: str = "cuda") -> dict:
+    """``copies`` batched copies of the 02 fleet for AV_STEPS aviary steps,
+    every copy with its own setpoints, a third of the copies disarmed
+    halfway, obstacle response on, timed; then the first AV_CPU_COPIES
+    flown by the same code on the CPU and held drone by drone: the rocket
+    and the fixedwing over every step, the quadx over AV_QUADX_HELD."""
+    import torch
+
+    held, steps = min(AV_CPU_COPIES, copies), AV_STEPS
+    zero_launches()
+    av, st, wall, views, contacts = aviary_run(device, copies, seed, held)
+    check(not any(read_launches().values()), "aviary batched: a kernel launched")
+    check(all(bool(torch.isfinite(v).all()) for v in av.all_states(st)), "aviary batched: non-finite view")
+    _, _, cpu_wall, cpu_views, cpu_contacts = aviary_run("cpu", held, seed, held)
+    e = (views.cpu() - cpu_views).abs().amax((3, 4))  # (steps, 3 drones, held)
+    e[AV_QUADX_HELD:, 1] = 0.0
+    k = torch.arange(steps)[:, None, None]
+    beyond = (e > AV_ATOL[0] + AV_ATOL[1] * k) | (contacts.cpu() != cpu_contacts).transpose(1, 2)
+    beyond[AV_QUADX_HELD:, 1] = False
+    n_div = int(beyond.any(0).any(0).sum())
+    check(n_div <= AV_DIVERGED_SHARE * held, f"aviary batched: {n_div} of {held} copies beyond the curve")
+    check(bool(cpu_contacts.any()), "aviary batched: no contact on the held copies")
+    # a disarmed quadx keeps the read of its last armed step
+    check(torch.equal(views[-1, 1, ::3], views[steps // 2 - 1, 1, ::3]), "aviary batched: a disarmed copy's read moved")
+    return {"card": card, "copies": copies, "drones": 3 * copies, "steps": steps, "wall_s": wall,
+            "aviary_steps_per_s": copies * steps / wall, "drone_steps_per_s": 3 * copies * steps / wall,
+            "ms_per_step": 1e3 * wall / steps, "cpu_held_copies": held, "cpu_wall_s": cpu_wall,
+            "quadx_held_steps": AV_QUADX_HELD,
+            "max_abs_err_view": dict(zip(("rocket", "quadx", "fixedwing"), e.amax((0, 2)).tolist())),
+            "diverged_copies": n_div, "contacts_last_step": int(st.contact.sum()),
+            "held_contacts": int(cpu_contacts.sum())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5793,6 +6352,19 @@ def main(argv=None) -> int:
     # 58. K4g and K3g on the cluster route against their twins and bit for bit the per-layer route's
     results["general_cluster"] = check_general_cluster(args.seed)
     print(json.dumps({"general_cluster": results["general_cluster"]}), flush=True)
+    # 59-61: each card run is timed alone, its CPU twin computed after it
+    t_new = time.perf_counter()
+    # 59. the PID experts over full mod-hovering episodes, mode 10 and mode 7
+    results["mode10_expert"] = mode10_expert(card, args.seed)
+    print(json.dumps({"mode10_expert": results["mode10_expert"]}), flush=True)
+    # 60. models/quadx in every flight mode, ENU and NED, against the CPU
+    results["quadx_modes"] = check_quadx_modes(card)
+    print(json.dumps({"quadx_modes": results["quadx_modes"]}), flush=True)
+    # 61. the aviary: the examples' fleets, then the batched 02 fleet against the CPU
+    results["aviary"] = {"examples": aviary_examples(args.seed), "batched": aviary_batched(card, args.seed)}
+    print(json.dumps({"aviary": results["aviary"]}), flush=True)
+    results["phases_59_61_s"] = time.perf_counter() - t_new
+    print(json.dumps({"phases_59_61_s": results["phases_59_61_s"]}), flush=True)
     serving = results["hover7_serving"]["launches"]
     training = results["hover7_train"]["general_3x256"]["launches_per_iteration"]
     by_name["quadx_hover_step"]["mode7"] = {

@@ -39,6 +39,17 @@ def _normal(shape, generator: torch.Generator | None, like: Tensor) -> Tensor:
     return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
+def _per_env(wind: Tensor, position: Tensor) -> Tensor:
+    """An ``(N, 3)`` per-env wind broadcast to the positions: ``(N, 3)``,
+    or ``(N, k, 3)`` points an env; a one-env field also fits one
+    unbatched ``(3,)`` or ``(k, 3)``."""
+    if wind.dim() > position.dim():
+        wind = wind.reshape(position.shape[-1:])
+    elif wind.dim() < position.dim():
+        wind = wind.reshape(wind.shape[:-1] + (1,) * (position.dim() - wind.dim()) + wind.shape[-1:])
+    return wind.expand_as(position)
+
+
 @dataclasses.dataclass
 class ConstantWind:
     """Uniform constant wind."""
@@ -116,4 +127,4 @@ class GaussianWind:
             wind = wind + torch.clamp(gust, -self.max_gust, self.max_gust)
         if self.orn_conv == "NED_FRD":
             wind = ned_to_enu(wind)
-        return wind.expand_as(position)
+        return _per_env(wind, position)

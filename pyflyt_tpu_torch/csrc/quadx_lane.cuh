@@ -183,7 +183,7 @@ __device__ __forceinline__ void control(Lane& s, const float sp[4], const C& c, 
     float cmd[4];
     if constexpr (MODE == 7) {
       // lin_pos -> yaw frame -> lin_vel -> ENU axis swap -> ang_pos (yaw
-      // setpoint third); z_pos -> z_vel (models/quadx.py::_position_cascade)
+      // setpoint third); z_pos -> z_vel (models/quadx.py::_attitude, _height)
       float xy[2];
       pid_bank<2>(cas->r + LP, c.lp_kp, c.lp_ki, c.lp_kd, c.lp_lim, c.period, rcp, &s.view[9], sp, xy);
       float sy, cy;

@@ -82,7 +82,7 @@ class MAQuadXHoverEnv:
         if self.angle_representation not in ("euler", "quaternion"):
             raise ValueError(f"unknown angle_representation {self.angle_representation!r}")
         object.__setattr__(self, "device", resolve_device(self.device))
-        quadx._check_mode(self.flight_mode)
+        quadx.check_mode(self.flight_mode)
 
     # ----- static -----------------------------------------------------------
     @property

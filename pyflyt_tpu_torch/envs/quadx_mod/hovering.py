@@ -15,9 +15,8 @@ Departures from the stock hover env that the fork introduced, all kept:
   U(−10, 10) with ±10° roll/pitch and a random yaw; no stabilization
   steps at reset;
 - an optional ``GaussianWind`` with a random base per env;
-- flight modes restricted to {−1, 7, 8, 9, 10}; of these the port has 7,
-  8 and 9, and −1 and 10 raise ``NotImplementedError`` through
-  ``models/quadx`` (ROADMAP.md, item 6).
+- flight modes restricted to {−1, 7, 8, 9, 10}, all flown by
+  ``models/quadx`` (10 is the fork's gain-scheduled ``ops/ga_pid``).
 
 Reference quirks kept: the 20 m position-error termination is dead code
 in the reference (``np.any(...) > 20`` compares a bool to 20), so only a
@@ -99,7 +98,6 @@ class QuadXModHoveringEnv:
             raise ValueError(
                 f"Invalid flight mode {self.flight_mode}, only -1, 7, 8, 9, 10 allowed."
             )
-        quadx._check_mode(self.flight_mode)
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @property

@@ -2,8 +2,7 @@
 ``pyflyt_tpu/envs/quadx_mod/pid_expert.py``): reads the unnormalized 16-dim
 hovering observation and emits a mode-7/10 setpoint ``[x, y, psi, z]``
 pointing at the target (position + error), the classical-control baseline
-the fork compares RL policies against. Modes 7 and 10 are not ported yet
-(ROADMAP.md, item 6), so no env of the port can fly it today.
+the fork compares RL policies against.
 """
 
 from __future__ import annotations

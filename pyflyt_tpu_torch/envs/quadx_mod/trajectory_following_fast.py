@@ -6,8 +6,7 @@ at 1 m, no hover dwell).
 Semantics kept from the JAX env, all of them:
 
 - one aviary step per env step at ``control_hz`` (default 80, NED_FRD,
-  mode 9); flight modes 7, 8 and 9 run, -1 and 10 raise
-  ``NotImplementedError`` through ``models/quadx`` (ROADMAP.md, item 6);
+  mode 9); flight modes -1, 7, 8, 9 and 10, flown by ``models/quadx``;
 - the observation (19): [lin_pos, lin_vel, ang_pos (wrapped), ang_vel,
   lin_pos_error, delta_pos (next − current target), angle_diff between the
   velocity and the leg], rounded to 3 decimals; ``angle_diff`` refreshes
@@ -145,7 +144,6 @@ class QuadXTrajectoryFollowingFastEnv:
             raise ValueError("`control_hz` must be a round denominator of 240.")
         if self.flight_mode not in (-1, 7, 8, 9, 10):
             raise ValueError(f"Invalid flight mode {self.flight_mode}, only -1, 7, 8, 9, 10 allowed.")
-        quadx._check_mode(self.flight_mode)
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @property

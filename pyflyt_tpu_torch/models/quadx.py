@@ -7,12 +7,12 @@ Per physics iteration, as in the JAX module:
   3. update_state     (reads the pre-integration state: one-step latency)
   4. integrate        (semi-implicit Euler at physics_hz)
 
-The port has flight modes 0 (body rates + thrust through the ang-vel
-PID), 7 (x, y, yaw, z through the position cascade, ENU or NED), 8 (direct
-PWM) and 9 (motor mix of the setpoint), and wind through
-``step(wind_fn=...)`` (``core/wind.py``). The other modes and
-``custom_controller`` raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+Flight modes, each in ENU_FLU and NED_FRD:
+  -1 raw motor PWM | 0 vp,vq,vr,T | 1 p,q,r,vz | 2 vp,vq,vr,z | 3 p,q,r,z
+   4 u,v,vr,z | 5 u,v,vr,vz | 6 vx,vy,vr,vz | 7 x,y,r,z
+   8 direct PWM | 9 motor mix of RPYT | 10 gain-scheduled state feedback
+A ``custom_controller(view, setpoint) -> setpoint`` runs before the mode's
+controller; wind enters through ``step(wind_fn=...)`` (``core/wind.py``).
 """
 
 from __future__ import annotations
@@ -29,20 +29,14 @@ from pyflyt_tpu_torch.core.params import load_vehicle_json
 from pyflyt_tpu_torch.core.state import Body6DoF
 from pyflyt_tpu_torch.device import resolve_device
 from pyflyt_tpu_torch.ops import motors, pid
+from pyflyt_tpu_torch.ops.ga_pid import ga_pid_step
 
-PORTED_MODES = (0, 7, 8, 9)
-_ROADMAP_ITEM = {
-    10: "quadx mode 10 (ga_pid)",
-}
+MODES = tuple(range(-1, 11))
 
 
-def _check_mode(mode: int) -> None:
-    if mode not in PORTED_MODES:
-        item = _ROADMAP_ITEM.get(mode, "quadx flight modes -1 and 1-6")
-        raise NotImplementedError(
-            f"flight mode {mode} is not ported yet: ROADMAP.md, open item 6, "
-            f"port queue item '{item}'"
-        )
+def check_mode(mode: int) -> None:
+    if mode not in MODES:
+        raise ValueError(f"quadx flight mode must be in -1..10, got {mode}")
 
 
 # ---------------------------------------------------------------------------
@@ -276,15 +270,18 @@ def init_state(
 
 def mode_default_setpoint(state: QuadXState, mode: int, cfg: QuadXConfig) -> Tensor:
     """Setpoint preset applied on a mode change."""
-    _check_mode(mode)
-    if mode == 0:
-        sp = torch.zeros_like(state.setpoint)
-        sp[..., 3] = -1.0
-        return sp
+    check_mode(mode)
+    view = state.read.view
+    if mode in (-1, 8, 9, 10):
+        return state.setpoint  # these modes leave the setpoint untouched
     if mode == 7:  # hold the current [x, y, yaw, z]
-        view = state.read.view
         return torch.stack([view[..., 3, 0], view[..., 3, 1], view[..., 1, 2], view[..., 3, 2]], dim=-1)
-    return state.setpoint  # modes 8 and 9 leave the setpoint untouched
+    sp = view.new_zeros(view.shape[:-2] + (4,))
+    if mode == 0:
+        sp[..., 3] = -1.0
+    elif mode in (2, 3, 4):  # hold the current height
+        sp[..., 3] = view[..., 3, 2]
+    return sp  # modes 1, 5 and 6: zeros
 
 
 def set_mode(state: QuadXState, mode: int, cfg: QuadXConfig) -> QuadXState:
@@ -305,6 +302,24 @@ def set_mode(state: QuadXState, mode: int, cfg: QuadXConfig) -> QuadXState:
 # ---------------------------------------------------------------------------
 
 
+def _pid_lanes(
+    st: pid.PIDState, pp: pid.PIDParams, meas: Tensor, setp: Tensor, n: int
+) -> tuple[pid.PIDState, Tensor]:
+    """Steps a PID on its first ``n`` lanes and keeps the other lanes'
+    registers."""
+    sub = pid.PIDState(st.integral[..., :n], st.prev_error[..., :n])
+    sub_p = pid.PIDParams(kp=pp.kp[..., :n], ki=pp.ki[..., :n], kd=pp.kd[..., :n], lim=pp.lim[..., :n],
+                          period=pp.period)
+    new_sub, out = pid.step(sub, sub_p, meas, setp)
+    return (
+        pid.PIDState(
+            torch.cat([new_sub.integral, st.integral[..., n:]], dim=-1),
+            torch.cat([new_sub.prev_error, st.prev_error[..., n:]], dim=-1),
+        ),
+        out,
+    )
+
+
 def _yaw_frame(view: Tensor, xy: Tensor) -> Tensor:
     """Rotates a ground-frame xy command into the yaw frame."""
     yaw = view[..., 1, 2]
@@ -312,28 +327,61 @@ def _yaw_frame(view: Tensor, xy: Tensor) -> Tensor:
     return torch.stack([c * xy[..., 0] + s * xy[..., 1], -s * xy[..., 0] + c * xy[..., 1]], dim=-1)
 
 
-def _position_cascade(
-    pids: QuadXPIDState, params: QuadXParams, view: Tensor, sp: Tensor, ned: bool
-) -> tuple[QuadXPIDState, Tensor, Tensor]:
-    """Mode 7: lin_pos → yaw frame → lin_vel → axis swap → ang_pos (3
-    lanes, the yaw setpoint third), and z_pos → z_vel. Returns the PIDs and
-    the (ang-vel setpoint, raw thrust) pair before the ang-vel PID."""
-    pids_lp, xy = pid.step(pids.lin_pos, params.pid_lin_pos, view[..., 3, :2], sp[..., :2])
-    xy = _yaw_frame(view, xy)
-    pids_lv, xy = pid.step(pids.lin_vel, params.pid_lin_vel, view[..., 2, :2], xy)
-    # velocity command -> attitude command axis swap
-    if ned:
-        xy = torch.stack([xy[..., 1], -xy[..., 0]], dim=-1)
+def _attitude(
+    pids: QuadXPIDState, params: QuadXParams, view: Tensor, a: Tensor, mode: int, ned: bool
+) -> tuple[QuadXPIDState, Tensor]:
+    """The attitude cascade of modes 0-7 down to the ang-vel PID's output.
+    Modes 0/2 command body rates, 1/3 angles; modes 4-7 go lin_pos (7
+    only) -> yaw frame (6, 7) -> lin_vel -> the ENU/NED axis swap ->
+    ang_pos, on lanes 0-1 in modes 4-6 (lane 2's registers kept) and on
+    all three in mode 7. In NED, modes 4-6 take the JAX module's reading of
+    the reference: ``[a1, -a0]`` on the xy lanes, yaw kept."""
+    if mode in (1, 3):
+        pids_ap, a = pid.step(pids.ang_pos, params.pid_ang_pos, view[..., 1, :], a)
+        pids = dataclasses.replace(pids, ang_pos=pids_ap)
+    elif mode in (4, 5, 6, 7):
+        xy, yaw_cmd = a[..., :2], a[..., 2:3]
+        if mode == 7:
+            pids_lp, xy = pid.step(pids.lin_pos, params.pid_lin_pos, view[..., 3, :2], xy)
+            pids = dataclasses.replace(pids, lin_pos=pids_lp)
+        if mode in (6, 7):
+            xy = _yaw_frame(view, xy)
+        pids_lv, xy = pid.step(pids.lin_vel, params.pid_lin_vel, view[..., 2, :2], xy)
+        # velocity command -> attitude command axis swap
+        if ned:
+            xy = torch.stack([xy[..., 1], -xy[..., 0]], dim=-1)
+        else:
+            xy = torch.stack([-xy[..., 1], xy[..., 0]], dim=-1)
+        if mode == 7:
+            pids_ap, a = pid.step(pids.ang_pos, params.pid_ang_pos, view[..., 1, :], torch.cat([xy, yaw_cmd], dim=-1))
+        else:
+            pids_ap, xy = _pid_lanes(pids.ang_pos, params.pid_ang_pos, view[..., 1, :2], xy, 2)
+            a = torch.cat([xy, yaw_cmd], dim=-1)
+        pids = dataclasses.replace(pids, lin_vel=pids_lv, ang_pos=pids_ap)
+    pids_av, a = pid.step(pids.ang_vel, params.pid_ang_vel, view[..., 0, :], a)
+    return dataclasses.replace(pids, ang_vel=pids_av), a
+
+
+def _height(
+    pids: QuadXPIDState, params: QuadXParams, view: Tensor, z: Tensor, mode: int, ned: bool
+) -> tuple[QuadXPIDState, Tensor]:
+    """The height cascade of modes 0-7 down to the thrust command: mode 0
+    passes its thrust, modes 1/5/6 go through z_vel, modes 2/3/4/7 go
+    z_pos -> z_vel; then the NED sign and the clip to [0, 1]."""
+    if mode in (2, 3, 4, 7):
+        pids_zp, z1 = pid.step(pids.z_pos, params.pid_z_pos, view[..., 3, 2:3], z[..., None])
+        pids_zv, z1 = pid.step(pids.z_vel, params.pid_z_vel, view[..., 2, 2:3], z1)
+        pids = dataclasses.replace(pids, z_pos=pids_zp, z_vel=pids_zv)
+        z = z1[..., 0]
     else:
-        xy = torch.stack([-xy[..., 1], xy[..., 0]], dim=-1)
-    a3 = torch.cat([xy, sp[..., 2:3]], dim=-1)
-    pids_ap, a = pid.step(pids.ang_pos, params.pid_ang_pos, view[..., 1, :], a3)
-    pids_zp, z1 = pid.step(pids.z_pos, params.pid_z_pos, view[..., 3, 2:3], sp[..., 3:4])
-    pids_zv, z1 = pid.step(pids.z_vel, params.pid_z_vel, view[..., 2, 2:3], z1)
-    pids = dataclasses.replace(
-        pids, lin_pos=pids_lp, lin_vel=pids_lv, ang_pos=pids_ap, z_pos=pids_zp, z_vel=pids_zv
-    )
-    return pids, a, z1[..., 0]
+        if mode in (1, 5, 6):
+            pids_zv, z1 = pid.step(pids.z_vel, params.pid_z_vel, view[..., 2, 2:3], z[..., None])
+            pids = dataclasses.replace(pids, z_vel=pids_zv)
+            z = z1[..., 0]
+        z = torch.clamp(z, -1.0, 0.0) if ned else torch.clamp(z, 0.0, 1.0)
+    if ned:
+        z = -z
+    return pids, torch.clamp(z, 0.0, 1.0)
 
 
 def update_control(
@@ -343,33 +391,32 @@ def update_control(
     mode: int,
     custom_controller=None,
 ) -> QuadXState:
-    """Runs the mode's controller; returns the state with new pwm + PIDs."""
-    _check_mode(mode)
-    if custom_controller is not None:
-        raise NotImplementedError(
-            "custom_controller is not ported yet: ROADMAP.md, port queue item "
-            "'quadx custom_controller'"
-        )
+    """Runs the mode's controller; returns the state with new pwm + PIDs.
+
+    ``custom_controller``: an optional ``(..., 4, 3) view, setpoint ->
+    setpoint`` function applied first, in every mode; its output is the
+    setpoint of ``mode``'s controller for this call (the state keeps the
+    setpoint it was given)."""
+    check_mode(mode)
     view = state.read.view
     sp = state.setpoint
+    if custom_controller is not None:
+        sp = custom_controller(view, sp)
     pids = state.pids
     ned = cfg.orn_conv == "NED_FRD"
 
+    if mode == -1:
+        # raw PWM, returned before the saturation step: no rescale, no clamp
+        return dataclasses.replace(state, pwm=sp, pids=pids)
     if mode == 8:
         pwm = sp
     elif mode == 9:
         pwm = torch.einsum("ij,...j->...i", params.motor_map, sp)
+    elif mode == 10:
+        pwm = torch.einsum("ij,...j->...i", params.motor_map, ga_pid_step(view, sp))
     else:
-        if mode == 7:
-            pids, a, z = _position_cascade(pids, params, view, sp, ned)
-        else:  # mode 0: the setpoint is the ang-vel command plus thrust
-            a, z = sp[..., :3], sp[..., 3]
-            z = torch.clamp(z, -1.0, 0.0) if ned else torch.clamp(z, 0.0, 1.0)
-        pids_av, a = pid.step(pids.ang_vel, params.pid_ang_vel, view[..., 0, :], a)
-        pids = dataclasses.replace(pids, ang_vel=pids_av)
-        if ned:
-            z = -z
-        z = torch.clamp(z, 0.0, 1.0)
+        pids, a = _attitude(pids, params, view, sp[..., :3], mode, ned)
+        pids, z = _height(pids, params, view, sp[..., 3], mode, ned)
         cmd = torch.cat([a, z[..., None]], dim=-1)
         pwm = torch.einsum("ij,...j->...i", params.motor_map, cmd)
 

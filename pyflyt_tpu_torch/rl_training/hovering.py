@@ -12,9 +12,8 @@ Usage::
     python -m pyflyt_tpu_torch.rl_training.hovering eval-pid-expert
 
 ``eval-pid-expert`` flies the PID expert on the same scenario, in mode 7
-(the default: the position cascade, through ``models/quadx``) or 10; mode
-10 (ga_pid) is not ported yet and raises ``NotImplementedError``
-(ROADMAP.md, item 6).
+(the default: the position cascade) or 10 (the gain-scheduled
+``ops/ga_pid``), both through ``models/quadx``.
 """
 
 from __future__ import annotations
@@ -86,33 +85,36 @@ def add_env_args(p: argparse.ArgumentParser):
     p.add_argument("--device", type=str, default="cuda")
 
 
-def cmd_train(args):
-    from pyflyt_tpu_torch.rl import PPO, PPOConfig, TrainConfig, train
+def ppo_config(args):
+    """The ``train`` command's PPOConfig from its parsed arguments."""
+    from pyflyt_tpu_torch.rl import PPOConfig
 
-    env = build_env(args)
-    ppo = PPO(
-        env,
-        PPOConfig(
-            num_envs=args.num_envs,
-            rollout_steps=args.rollout_steps,
-            num_epochs=args.n_epochs,
-            num_minibatches=args.num_minibatches,
-            learning_rate=args.learning_rate,
-            feature_sizes=tuple([args.layer_size] * args.num_of_layers),
-            clip_eps=args.clip_eps,
-            init_log_std=args.init_log_std,
-            log_std_range=(
-                None
-                if args.log_std_min is None and args.log_std_max is None
-                else (
-                    -20.0 if args.log_std_min is None else args.log_std_min,
-                    20.0 if args.log_std_max is None else args.log_std_max,
-                )
-            ),
-            entropy_coef=args.entropy_coef,
-            cached_reset_refresh=args.cached_reset_refresh,
+    return PPOConfig(
+        num_envs=args.num_envs,
+        rollout_steps=args.rollout_steps,
+        num_epochs=args.n_epochs,
+        num_minibatches=args.num_minibatches,
+        learning_rate=args.learning_rate,
+        feature_sizes=tuple([args.layer_size] * args.num_of_layers),
+        clip_eps=args.clip_eps,
+        init_log_std=args.init_log_std,
+        log_std_range=(
+            None
+            if args.log_std_min is None and args.log_std_max is None
+            else (
+                -20.0 if args.log_std_min is None else args.log_std_min,
+                20.0 if args.log_std_max is None else args.log_std_max,
+            )
         ),
+        entropy_coef=args.entropy_coef,
+        cached_reset_refresh=args.cached_reset_refresh,
     )
+
+
+def cmd_train(args):
+    from pyflyt_tpu_torch.rl import PPO, TrainConfig, train
+
+    ppo = PPO(build_env(args), ppo_config(args))
     return train(
         ppo,
         TrainConfig(
@@ -183,7 +185,7 @@ def cmd_eval_pid_expert(args):
     args.flight_mode = args.expert_mode
     args.normalize_obs = False
     args.normalize_actions = False
-    env = build_env(args, eval_scenario=True)  # mode 10 raises here (ROADMAP.md, item 6)
+    env = build_env(args, eval_scenario=True)
 
     def policy(state, obs):
         return hovering_pid_expert(state.state16)
@@ -193,7 +195,7 @@ def cmd_eval_pid_expert(args):
     return total, length
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -244,8 +246,11 @@ def main(argv=None):
     x.add_argument("--expert_mode", type=int, default=7, choices=(7, 10))
     x.add_argument("--log_dir", type=str, default=None)
     x.set_defaults(fn=cmd_eval_pid_expert)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

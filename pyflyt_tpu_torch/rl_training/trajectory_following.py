@@ -15,8 +15,7 @@ Usage::
 Everything runs on the card; ``main(argv, device="cpu")`` runs it on the
 CPU. The PPO kernels (K4n, K3n, K2n) are reached through ``PPOConfig``'s
 ``fused_rollout_forward`` and ``fused_sgd``, which the CLI leaves off, as
-the JAX CLI does. ``eval-pid-expert`` flies mode 10, which is not ported
-yet: it raises ``NotImplementedError`` (ROADMAP.md, item 6).
+the JAX CLI does. ``eval-pid-expert`` flies mode 10 (``ops/ga_pid``).
 """
 
 from __future__ import annotations
@@ -206,7 +205,7 @@ def cmd_eval_pid_expert(args):
     """The PID-expert baseline on the reference's fixed slow-variant
     scenario (trajectory_following_slow/evaluation_pid_expert.py:85-138):
     mode 10, unnormalized obs and actions, the fixed waypoint list, gusty
-    wind. Mode 10 is not ported yet: the env raises (ROADMAP.md, item 6)."""
+    wind."""
     from pyflyt_tpu_torch.envs.quadx_mod import QuadXTrajectoryFollowingSlowEnv, trajectory_pid_expert
     from pyflyt_tpu_torch.utils.trajectory_logger import TrajectorySlowLogger
 

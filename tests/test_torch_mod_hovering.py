@@ -241,15 +241,31 @@ def test_dead_position_error_termination_stays_dead():
     assert out.reward[0] < 35.0 - 2.0 * 59
 
 
-def test_constructor_quirk_and_unported_modes():
+def test_constructor_quirk_and_unported_modes(reference):
+    """The constructor's default mode 0 is outside the admitted modes; modes
+    -1 (raw PWM) and 10 (ga_pid), once unported, construct and step in
+    parity with the JAX env for 5 noise-off steps from the carried reset
+    (mode 10 flying the PID expert's setpoints)."""
     with pytest.raises(AssertionError):
         JModEnv()
     with pytest.raises(ValueError, match="only -1, 7, 8, 9, 10"):
         QuadXModHoveringEnv(device="cpu")
+    assert QuadXModHoveringEnv(flight_mode=7, device="cpu").flight_mode == 7
     for mode in (-1, 10):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            QuadXModHoveringEnv(flight_mode=mode, device="cpu")
-    assert QuadXModHoveringEnv(flight_mode=7, device="cpu").flight_mode == 7  # ported
+        jenv, env = JModEnv(**{**RECIPE, **QUIET, "flight_mode": mode}), _port_env(flight_mode=mode)
+        jstep = jax.jit(jax.vmap(jenv.step))
+        jst = jax.tree.map(jnp.asarray, reference["state"])
+        st = _carried(reference)
+        for i in range(5):
+            a = _actions(i) if mode == -1 else np.array(j_expert(jst.state16))
+            jst, jout = jstep(jst, jnp.asarray(a))
+            st, out = env.step(st, torch.from_numpy(a))
+            ref = {"obs": np.asarray(jout.obs), "state16": np.asarray(jst.state16), "reward": np.asarray(jout.reward),
+                   "termination": np.asarray(jout.termination), "truncation": np.asarray(jout.truncation),
+                   "collision": np.asarray(jout.info["collision"])}
+            _check_step(i, out, st.state16, ref)
+        np.testing.assert_allclose(st.drone.pwm.numpy(), np.asarray(jst.drone.pwm), atol=1e-5)
+        assert out.termination.any() and not out.termination.all()
 
 
 def test_reset_draws_follow_the_recipe():
@@ -410,11 +426,11 @@ def test_cli_train_eval_and_the_pid_expert(tmp_path):
     assert rows[0] == tlog.COLUMNS and len(rows) == 1 + length
     assert all(len(r) == 34 for r in rows)
     # the PID expert in mode 7 (the default), through models/quadx's NED
-    # position cascade: one 0.1 s episode (9 steps); mode 10 is not ported
+    # position cascade, and in mode 10 (ga_pid): one 0.1 s episode (9 steps) each
     total, length = cli.main(["eval-pid-expert", *common])
     assert length == 9 and np.isfinite(total)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["eval-pid-expert", *common, "--expert_mode", "10"])
+    total10, length10 = cli.main(["eval-pid-expert", *common, "--expert_mode", "10"])
+    assert length10 == 9 and np.isfinite(total10) and total10 != total
 
 
 def test_cli_eval_scenario_is_the_fixed_ned_one():

@@ -53,7 +53,7 @@ def test_import_leaves_no_jax_flax_yaml_or_reference_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("name", ["cf2x", "fixedwing", "acrowing", "rocket"])
+@pytest.mark.parametrize("name", ["cf2x", "fixedwing", "acrowing", "rocket", "primitive_drone"])
 def test_vehicle_json_equals_reference_yaml(name):
     assert load_vehicle_json(name) == load_vehicle_yaml(name)
 

@@ -1,6 +1,6 @@
 """The port's physics chain against the JAX package on the same seeded
 inputs: core/math, ops/pid, ops/motors, core/integrator, models/quadx
-(modes 0, 8, 9) and the kernel helpers of ops/cuda_math.
+(modes 0, 8, 9; -1, 1, 2 and 10 for a step) and the kernel helpers of ops/cuda_math.
 
 Tolerance: f32 on both sides, atol 1e-5 unless a case states otherwise.
 """
@@ -283,11 +283,21 @@ def test_quadx_step_matches_jax(params, mode):
 
 @pytest.mark.parametrize("mode", [-1, 1, 2, 10])
 def test_unported_modes_raise_with_roadmap_item(params, mode):
-    _, _, tp = params
-    cfg = tq.QuadXConfig(noisy_motors=False)
-    st = tq.init_state(tp, cfg, torch.zeros(2, 3), torch.zeros(2, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tq.step(st, tp, cfg, mode)
+    """Modes -1, 1, 2 and 10 once raised naming their ROADMAP.md item; they
+    are ported: one aviary step from the seeded states matches JAX, and only
+    a mode outside -1..10 raises, naming no item."""
+    cfg, jp, tp = params
+    js, ts = _drone_states(params, mode)
+    tcfg = tq.QuadXConfig(noisy_motors=False)
+    js, jc = jax.jit(lambda s: jq.step(s, jp, cfg, mode))(js)
+    ts, tc = tq.step(ts, tp, tcfg, mode)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    _close(ts.pwm, js.pwm, atol=1e-4, msg="pwm")
+    _close(ts.read.view, js.read.view, atol=1e-4, msg="view")
+    _close(ts.body.pos, js.body.pos, atol=1e-5, msg="pos")
+    with pytest.raises(ValueError, match="-1..10") as err:
+        tq.step(ts, tp, tcfg, 11)
+    assert "ROADMAP" not in str(err.value)
 
 
 def test_update_state_ned_matches_jax(params):

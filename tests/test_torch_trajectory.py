@@ -252,9 +252,16 @@ def test_fast_logger_columns_match_jax(tmp_path):
     assert tlog.TrajectorySlowLogger.__name__ == "HoveringLogger"
 
 
-def test_eval_pid_expert_raises_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["eval-pid-expert", "--scenario", "1"], device="cpu")
+def test_eval_pid_expert_raises_naming_item_6(tmp_path):
+    """Mode 10 is ported: the expert flies a 0.2 s episode (17 steps) of
+    each fixed scenario in mode 10 and logs it."""
+    for scenario in (1, 2, 3):
+        log_dir = str(tmp_path / f"s{scenario}")
+        result = cli.main(["eval-pid-expert", "--scenario", str(scenario), "--max_duration_seconds", "0.2",
+                           "--log_dir", log_dir], device="cpu")
+        assert result["episode_length"] == 17 and np.isfinite(result["episode_reward"])
+        with open(os.path.join(log_dir, os.listdir(log_dir)[0])) as f:
+            assert len(list(csv.reader(f))) == 1 + 17
 
 
 def _archive():
@@ -327,10 +334,23 @@ def test_cli_train_then_eval_one_and_averaged_checkpoints(tmp_path):
 
 
 def test_modes_minus_one_and_ten_raise_naming_item_6():
+    """Both envs take modes -1 and 10 (ported) beside 7 and 8: three noise-off
+    steps each; in mode -1 the motors get the denormalized action as raw
+    PWM, in mode 10 the unnormalized setpoint flies ga_pid."""
     for cls in (QuadXTrajectoryFollowingFastEnv, QuadXTrajectoryFollowingSlowEnv):
         for mode in (-1, 10):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                cls(device="cpu", flight_mode=mode)
+            env = cls(device="cpu", flight_mode=mode, noisy_motors=False)
+            st, obs = env.reset(4, torch.Generator().manual_seed(mode + 2))
+            for i in range(3):
+                v = st.drone.read.view  # mode 10 holds [x, y, psi, z]
+                a = torch.from_numpy(_actions(i, 4)) if mode == -1 else torch.stack(
+                    [v[:, 3, 0], v[:, 3, 1], v[:, 1, 2], v[:, 3, 2]], dim=-1)
+                st, out = env.step(st, a)
+                assert torch.isfinite(out.obs).all() and torch.isfinite(out.reward).all()
+            if mode == -1:
+                torch.testing.assert_close(st.drone.pwm, (a + 1.0) / 2.0, rtol=0.0, atol=1e-7)
+            else:
+                assert (st.drone.pwm > 0.0).all()
         cls(device="cpu", flight_mode=7)
         cls(device="cpu", flight_mode=8)
 
